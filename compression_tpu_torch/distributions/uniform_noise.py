@@ -1,0 +1,64 @@
+"""Uniform noise adapter (PyTorch counterpart of
+compression_tpu/distributions/uniform_noise.py:UniformNoiseAdapter).
+
+The adapter convolves a base density with a unit-width box,
+``(p * u)(x) = c(x+.5) - c(x-.5)``, evaluated stably from log-CDF /
+log-survival pairs with the exp-big-minus-exp-small trick.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from compression_tpu_torch.distributions import base as base_lib
+from compression_tpu_torch.distributions import helpers
+
+__all__ = ["UniformNoiseAdapter"]
+
+
+def _logsum_expbig_minus_expsmall(big, small):
+    """Stable log(exp(big) - exp(small)) for small <= big."""
+    return torch.where(
+        torch.isinf(big), big, torch.log1p(-torch.exp(small - big)) + big)
+
+
+class UniformNoiseAdapter(base_lib.Distribution):
+    """Models base + U(-.5, .5) (additive i.i.d. uniform noise)."""
+
+    def __init__(self, base):
+        self.base = base
+        self.dtype = base.dtype
+
+    @property
+    def batch_shape(self):
+        return self.base.batch_shape
+
+    def log_prob(self, y):
+        # The survival function is precise right of the median, where the
+        # CDF saturates.
+        logsf_y_plus = self.base.log_survival_function(y + 0.5)
+        logsf_y_minus = self.base.log_survival_function(y - 0.5)
+        logcdf_y_plus = self.base.log_cdf(y + 0.5)
+        logcdf_y_minus = self.base.log_cdf(y - 0.5)
+        condition = logsf_y_plus < logcdf_y_plus
+        big = torch.where(condition, logsf_y_minus, logcdf_y_plus)
+        small = torch.where(condition, logsf_y_plus, logcdf_y_minus)
+        return _logsum_expbig_minus_expsmall(big, small)
+
+    def prob(self, y):
+        sf_y_plus = self.base.survival_function(y + 0.5)
+        sf_y_minus = self.base.survival_function(y - 0.5)
+        cdf_y_plus = self.base.cdf(y + 0.5)
+        cdf_y_minus = self.base.cdf(y - 0.5)
+        return torch.where(
+            sf_y_plus < cdf_y_plus,
+            sf_y_minus - sf_y_plus, cdf_y_plus - cdf_y_minus)
+
+    def _quantization_offset(self):
+        return helpers.quantization_offset(self.base)
+
+    def _lower_tail(self, tail_mass):
+        return helpers.lower_tail(self.base, tail_mass)
+
+    def _upper_tail(self, tail_mass):
+        return helpers.upper_tail(self.base, tail_mass)

@@ -1,0 +1,156 @@
+"""Base class for continuous entropy models (PyTorch counterpart of
+compression_tpu/entropy_models/continuous_base.py).
+
+Key invariant carried over from the reference (continuous_base.py:176-184):
+CDF tables are built ONCE and shared -- never re-derived on the decoder
+side -- because float nondeterminism between sender and receiver would make
+the range decode diverge.  Table construction samples the prior's PMF on the
+CPU (as the reference pins it there) and quantizes rows to integer CDFs with
+the native quantizer; the result is the same table whatever device the
+model codes on.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from compression_tpu_torch.codec import tables
+from compression_tpu_torch.codec import torch_coder
+from compression_tpu_torch.distributions import helpers
+
+__all__ = ["ContinuousEntropyModelBase"]
+
+
+class ContinuousEntropyModelBase:
+    """Shared machinery: table build, serialization, device table."""
+
+    def __init__(self, coding_rank=None, compression=False, tail_mass=2**-8,
+                 device="cpu"):
+        self._prior = None
+        self._coding_rank = int(coding_rank)
+        self._compression = bool(compression)
+        self._tail_mass = float(tail_mass)
+        self.device = torch.device(device)
+        self.bottleneck_dtype = torch.float32
+        self._cdf = None
+        self._cdf_offset = None
+        self._device_table = None
+        if self.coding_rank < 0:
+            raise ValueError("`coding_rank` must be at least 0.")
+        if not 0 < self.tail_mass < 1:
+            raise ValueError("`tail_mass` must be between 0 and 1.")
+
+    def _check_compression(self):
+        if not self.compression:
+            raise RuntimeError(
+                "For range coding, the entropy model must be instantiated "
+                "with `compression=True`.")
+
+    @property
+    def prior(self):
+        if self._prior is None:
+            raise RuntimeError(
+                "This entropy model doesn't hold a reference to its prior "
+                "distribution.")
+        return self._prior
+
+    @property
+    def cdf(self):
+        """Ragged CDF table (reference wire format), numpy int32."""
+        self._check_compression()
+        return self._cdf
+
+    @property
+    def cdf_offset(self):
+        self._check_compression()
+        return self._cdf_offset
+
+    @property
+    def coding_rank(self):
+        return self._coding_rank
+
+    @property
+    def compression(self):
+        return self._compression
+
+    @property
+    def tail_mass(self):
+        return self._tail_mass
+
+    @property
+    def device_table(self) -> torch_coder.DeviceCdfTable:
+        """Dense CDF table on the model's device (built once, cached)."""
+        self._check_compression()
+        if self._device_table is None:
+            self._device_table = torch_coder.DeviceCdfTable(
+                tables.parse_ragged_cdf(self._cdf), self.device)
+        return self._device_table
+
+    def _init_compression(self, cdf, cdf_offset):
+        if (cdf is None) != (cdf_offset is None):
+            raise ValueError("Provide both `cdf` and `cdf_offset`.")
+        self._cdf = np.asarray(cdf, np.int32)
+        self._cdf_offset = np.asarray(cdf_offset, np.int32)
+        self._device_table = None
+
+    def _build_tables(self, prior, precision, offset=None):
+        """Computes the ragged CDF table + offsets from the prior.
+
+        Mirrors reference continuous_base.py:217-296: tails -> integer
+        supports -> PMF sampling on a [max_length, batch] grid -> per-row
+        overflow mass -> greedy integer CDF quantization -> ragged concat
+        with a leading ``-precision`` marker per row (negative = overflow
+        coding enabled).  ``prior`` and ``offset`` must live on the CPU.
+        """
+        precision = int(precision)
+        if offset is None:
+            offset = torch.zeros((), dtype=self.bottleneck_dtype)
+        with torch.no_grad():
+            lower = helpers.lower_tail(prior, self.tail_mass)
+            upper = helpers.upper_tail(prior, self.tail_mass)
+            minima = torch.floor(lower - offset).to(torch.int32)
+            maxima = torch.ceil(upper - offset).to(torch.int32)
+            pmf_start = minima.to(self.bottleneck_dtype) + offset
+            pmf_length = maxima - minima + 1
+            max_length = int(pmf_length.max())
+            if max_length > 2048:
+                warnings.warn(
+                    f"Very wide PMF with {max_length} elements may lead to "
+                    "out of memory issues. Consider priors with smaller "
+                    "variance, or increasing `tail_mass`.")
+            samples = torch.arange(max_length, dtype=self.bottleneck_dtype)
+            samples = samples.reshape((-1,) + (1,) * pmf_length.ndim)
+            pmf = prior.prob(samples + pmf_start)
+        pmf_shape = tuple(pmf.shape[1:])
+        num_pmfs = int(np.prod(pmf_shape)) if pmf_shape else 1
+
+        pmf = np.asarray(pmf.reshape(max_length, num_pmfs).T.numpy(),
+                         np.float64)
+        pmf_length = np.broadcast_to(
+            pmf_length.numpy(), pmf_shape).reshape(num_pmfs)
+        cdf_offset = np.broadcast_to(
+            minima.numpy(), pmf_shape).reshape(num_pmfs)
+
+        # Host-side greedy quantization per row, rows concatenated in the
+        # ragged wire format.
+        parts = []
+        for i in range(num_pmfs):
+            p = pmf[i, : pmf_length[i]].astype(np.float32)
+            ovf = max(1.0 - p.sum(), 0.0)
+            p = np.concatenate([p, [np.float32(ovf)]])
+            c = tables.pmf_to_quantized_cdf(p, precision)
+            parts.append(np.asarray([-precision], np.int32))
+            parts.append(c)
+        cdf = np.concatenate(parts) if parts else np.zeros(0, np.int32)
+        return cdf, cdf_offset.astype(np.int32)
+
+    def get_weights(self):
+        return [np.asarray(self.cdf), np.asarray(self.cdf_offset)]
+
+    def set_weights(self, weights):
+        if len(weights) != 2:
+            raise ValueError("Expected [cdf, cdf_offset].")
+        self._init_compression(weights[0], weights[1])

@@ -1,0 +1,195 @@
+"""Batched entropy model for continuous random variables (the serving slice
+of compression_tpu/entropy_models/continuous_batched.py).
+
+Data-independent prior, one CDF row per prior batch element, innermost
+``coding_rank`` dimensions coded into one stream each.  This slice covers
+eval-mode ``__call__``, ``quantize`` and the sidecar pair
+``compress_sidecar_device`` / ``decompress_sidecar_device`` the native
+container runs on; the reference-format ``compress`` (in-stream
+Elias-gamma escapes) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from compression_tpu_torch.codec import torch_coder
+from compression_tpu_torch.distributions import helpers
+from compression_tpu_torch.entropy_models import continuous_base
+from compression_tpu_torch.ops import round_ops
+
+__all__ = ["ContinuousBatchedEntropyModel"]
+
+
+class ContinuousBatchedEntropyModel(
+        continuous_base.ContinuousEntropyModelBase):
+    """Batched entropy model: shared prior, data-independent CDF rows.
+
+    Either ``prior`` (tables are built from it, on the CPU) or
+    ``prior_shape`` with carried ``cdf`` / ``cdf_offset`` (and the
+    ``quantization_offset`` they were built with) must be given.
+    """
+
+    def __init__(self, prior=None, coding_rank=None, compression=False,
+                 tail_mass=2**-8, range_coder_precision=12,
+                 prior_shape=None, cdf=None, cdf_offset=None,
+                 offset_heuristic=True, quantization_offset=None,
+                 decode_sanity_check=True, device="cpu"):
+        if (prior is None) == (prior_shape is None):
+            raise ValueError("Either `prior` or `prior_shape` must be provided.")
+        if (prior is None) == (cdf is None):
+            raise ValueError("Must provide exactly one of `prior` or `cdf`.")
+        if not compression and cdf is not None:
+            raise ValueError("CDFs can't be provided with `compression=False`")
+        super().__init__(coding_rank=coding_rank, compression=compression,
+                         tail_mass=tail_mass, device=device)
+        self._prior = prior
+        self._offset_heuristic = bool(offset_heuristic)
+        self._prior_shape = tuple(
+            int(s) for s in
+            (prior_shape if prior is None else prior.batch_shape))
+        if self.coding_rank < len(self.prior_shape):
+            raise ValueError("`coding_rank` can't be smaller than prior rank.")
+        self.decode_sanity_check = decode_sanity_check
+
+        if quantization_offset is None and self._offset_heuristic \
+                and self.compression and prior is not None:
+            quantization_offset = helpers.quantization_offset(prior)
+            if bool(torch.all(quantization_offset == 0.0)):
+                quantization_offset = None
+            else:
+                quantization_offset = quantization_offset.expand(
+                    self.prior_shape)
+        self._quantization_offset = None if quantization_offset is None \
+            else torch.tensor(np.asarray(quantization_offset),
+                              dtype=self.bottleneck_dtype)
+
+        if self.compression:
+            if cdf is None:
+                cdf, cdf_offset = self._build_tables(
+                    prior, range_coder_precision,
+                    offset=self._quantization_offset)
+            self._init_compression(cdf, cdf_offset)
+        self._offset_dev = None if self._quantization_offset is None else \
+            self._quantization_offset.to(self.device)
+        self._row_offset = None
+
+    @property
+    def prior_shape(self):
+        return self._prior_shape
+
+    @property
+    def quantization_offset(self):
+        """Offset on the model's device (None when there is none)."""
+        return self._offset_dev
+
+    def __call__(self, bottleneck, training=False):
+        """Eval mode: (quantized bottleneck, bits summed over the coding
+        rank).  Training-mode noise is not part of this slice."""
+        if training:
+            raise NotImplementedError(
+                "training-mode noise is not ported yet; pass training=False")
+        bottleneck_perturbed = self.quantize(bottleneck)
+        log_probs = self.prior.log_prob(bottleneck_perturbed)
+        axes = tuple(range(-self.coding_rank, 0)) if self.coding_rank else ()
+        bits = torch.sum(log_probs, dim=axes) / -math.log(2.0)
+        return bottleneck_perturbed, bits
+
+    def quantize(self, bottleneck):
+        """Rounds to integers shifted by the quantization offset;
+        straight-through gradient."""
+        return round_ops.round_st(bottleneck, self.quantization_offset)
+
+    def _row_offsets(self):
+        """cdf_offset as an int32 device tensor (cached)."""
+        if self._row_offset is None:
+            self._row_offset = torch.as_tensor(
+                self.cdf_offset, device=self.device)
+        return self._row_offset
+
+    def _symbols_from_bottleneck(self, bottleneck):
+        """[S, N] int32 coder symbols; element j uses CDF row j % rows."""
+        batch_rank = bottleneck.ndim - self.coding_rank
+        batch_shape = tuple(bottleneck.shape[:batch_rank])
+        offset = self.quantization_offset
+        if offset is not None:
+            bottleneck = bottleneck - offset
+        symbols = torch.round(bottleneck).to(torch.int32)
+        symbols = symbols.reshape(int(np.prod(batch_shape)), -1)
+        num_rows = int(self.cdf_offset.shape[0])
+        row_ids = torch.arange(symbols.shape[1], device=self.device) % num_rows
+        symbols = symbols - self._row_offsets()[row_ids][None, :]
+        return symbols, batch_shape, row_ids
+
+    def compress_sidecar_device(self, bottleneck):
+        """Sidecar compress on the model's device.
+
+        Escaping values are coded in-stream only as the escape marker and
+        come back as a flat (position, value) list.  Byte-identical streams
+        to the JAX package's compress_sidecar(_device).
+
+        Returns:
+          (bytes uint8 [batch..., L], lengths int32 [batch...], esc_idx
+           int64 [K] flat positions (ascending), esc_val int32 [K]).
+        """
+        self._check_compression()
+        symbols, batch_shape, row_ids = self._symbols_from_bottleneck(
+            bottleneck.to(self.bottleneck_dtype))
+        num_streams, n = symbols.shape
+        indexes = row_ids.to(torch.int32)[None, :].expand(num_streams, n)
+        table = self.device_table
+        if table.any_overflow:
+            esc_row = table.overflow[row_ids]
+            marker = table.length[row_ids] - 2
+            escape = esc_row[None, :] & (
+                (symbols < 0) | (symbols >= marker[None, :]))
+            esc_idx, esc_val = torch_coder.sidecar_extract(symbols, escape)
+        else:
+            esc_idx = torch.zeros(0, dtype=torch.int64, device=self.device)
+            esc_val = torch.zeros(0, dtype=torch.int32, device=self.device)
+        out_size = torch_coder.sidecar_out_size(n)
+        buf, lengths = torch_coder.encode_dispatch(
+            symbols, table, out_size, indexes)
+        return (buf.reshape(batch_shape + (out_size,)),
+                lengths.reshape(batch_shape), esc_idx, esc_val)
+
+    def decompress_sidecar_device(self, buf, byte_lens, broadcast_shape,
+                                  esc_idx, esc_val):
+        """Sidecar decompress on the model's device.
+
+        Args:
+          buf: uint8 [S, W] stream bytes (zero past each length).
+          byte_lens: int32 [S].
+          broadcast_shape: shape between the stream and prior dims.
+          esc_idx / esc_val: flat escape positions and values.
+
+        Returns:
+          (outputs [S, *broadcast, *prior_shape] float32, sanity bool [S]).
+        """
+        self._check_compression()
+        broadcast_shape = tuple(int(s) for s in broadcast_shape)
+        num_rows = int(self.cdf_offset.shape[0])
+        n = int(np.prod(broadcast_shape)) * int(np.prod(self.prior_shape))
+        row_ids = torch.arange(n, device=self.device) % num_rows
+        indexes = row_ids.to(torch.int32)[None, :].expand(buf.shape[0], n)
+        symbols, sanity = torch_coder.decode_dispatch(
+            buf, byte_lens, n, self.device_table, indexes,
+            in_stream_gamma=False)
+        symbols = torch_coder.sidecar_apply(symbols, esc_idx, esc_val)
+        symbols = symbols + self._row_offsets()[row_ids][None]
+        outputs = symbols.reshape(
+            (buf.shape[0],) + broadcast_shape + self.prior_shape).to(
+                self.bottleneck_dtype)
+        offset = self.quantization_offset
+        if offset is not None:
+            outputs = outputs + offset
+        return outputs, sanity
+
+    def get_weights(self):
+        weights = super().get_weights()
+        if self._quantization_offset is not None:
+            weights.append(self._quantization_offset.numpy())
+        return weights

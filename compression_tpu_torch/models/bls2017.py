@@ -1,0 +1,324 @@
+"""Factorized-prior image codec (Ballé, Laparra, Simoncelli 2017), the
+native-container serving path (PyTorch counterpart of
+compression_tpu/models/bls2017.py).
+
+A 3-layer SignalConv2D analysis transform with GDN (downsampling 4,2,2), a
+mirrored synthesis transform with IGDN, a NoisyDeepFactorized prior over the
+latent channels and a ContinuousBatchedEntropyModel with coding_rank=3.
+``BLS2017Codec`` serves the native (sidecar) container: ``compress_native``,
+``compress_native_many``, ``decompress``, ``decompress_native_many`` and
+``reconstruct``.  Images are uint8 [H, W, 3] (numpy or torch) and latents
+[1, H, W, C], the JAX package's NHWC layout.
+
+"End-to-end Optimized Image Compression"
+https://openreview.net/forum?id=rJxdQ3jeg
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from compression_tpu_torch.codec import torch_coder
+from compression_tpu_torch.distributions import deep_factorized
+from compression_tpu_torch.entropy_models.continuous_batched import (
+    ContinuousBatchedEntropyModel)
+from compression_tpu_torch.layers.gdn import GDN
+from compression_tpu_torch.layers.signal_conv import SignalConv2D
+from compression_tpu_torch.models import native_format
+from compression_tpu_torch.util.device import resolve_device
+from compression_tpu_torch.util.packed_tensors import PackedTensors
+
+__all__ = [
+    "AnalysisTransform",
+    "SynthesisTransform",
+    "BLS2017Model",
+    "BLS2017Codec",
+    "params_from_jax",
+]
+
+
+class AnalysisTransform(nn.Module):
+    """x/255 -> conv9x9 s4 GDN -> conv5x5 s2 GDN -> conv5x5 s2 (NHWC)."""
+
+    def __init__(self, num_filters=128, generator=None):
+        super().__init__()
+        nf = num_filters
+        self.layer_0 = SignalConv2D(3, nf, 9, corr=True, strides_down=4,
+                                    use_bias=True, generator=generator)
+        self.gdn_0 = GDN(nf)
+        self.layer_1 = SignalConv2D(nf, nf, 5, corr=True, strides_down=2,
+                                    use_bias=True, generator=generator)
+        self.gdn_1 = GDN(nf)
+        self.layer_2 = SignalConv2D(nf, nf, 5, corr=True, strides_down=2,
+                                    use_bias=False, generator=generator)
+
+    def forward(self, x):
+        x = (x / 255.0).permute(0, 3, 1, 2)
+        x = self.gdn_0(self.layer_0(x))
+        x = self.gdn_1(self.layer_1(x))
+        return self.layer_2(x).permute(0, 2, 3, 1)
+
+
+class SynthesisTransform(nn.Module):
+    """Mirrored upsampling transform with IGDN; output scaled to [0,255]."""
+
+    def __init__(self, num_filters=128, generator=None):
+        super().__init__()
+        nf = num_filters
+        self.layer_0 = SignalConv2D(nf, nf, 5, corr=False, strides_up=2,
+                                    use_bias=True, generator=generator)
+        self.igdn_0 = GDN(nf, inverse=True)
+        self.layer_1 = SignalConv2D(nf, nf, 5, corr=False, strides_up=2,
+                                    use_bias=True, generator=generator)
+        self.igdn_1 = GDN(nf, inverse=True)
+        self.layer_2 = SignalConv2D(nf, 3, 9, corr=False, strides_up=4,
+                                    use_bias=True, generator=generator)
+
+    def forward(self, y):
+        y = y.permute(0, 3, 1, 2)
+        y = self.igdn_0(self.layer_0(y))
+        y = self.igdn_1(self.layer_1(y))
+        return (self.layer_2(y) * 255.0).permute(0, 2, 3, 1)
+
+
+class BLS2017Model(nn.Module):
+    """Rate-distortion model (eval forward); weights from a seeded init
+    (``seed``) or carried from the JAX package with ``params_from_jax``."""
+
+    def __init__(self, lmbda=0.01, num_filters=128, seed=0):
+        super().__init__()
+        self.lmbda = float(lmbda)
+        self.num_filters = int(num_filters)
+        gen = torch.Generator().manual_seed(int(seed))
+        self.analysis = AnalysisTransform(num_filters, generator=gen)
+        self.synthesis = SynthesisTransform(num_filters, generator=gen)
+        prior = deep_factorized.DeepFactorized.init_params(
+            (num_filters,), generator=gen)
+        self.prior_matrices = nn.ParameterList(prior["matrices"])
+        self.prior_biases = nn.ParameterList(prior["biases"])
+        self.prior_factors = nn.ParameterList(prior["factors"])
+
+    def prior_params(self, device=None):
+        def get(plist):
+            return [p if device is None else p.detach().to(device)
+                    for p in plist]
+        return {"matrices": get(self.prior_matrices),
+                "biases": get(self.prior_biases),
+                "factors": get(self.prior_factors)}
+
+    def prior(self, device=None):
+        """NoisyDeepFactorized prior (parameters copied to ``device`` when
+        given)."""
+        return deep_factorized.NoisyDeepFactorized(
+            params=self.prior_params(device),
+            batch_shape=(self.num_filters,))
+
+    def forward(self, x, training=False):
+        """Returns (loss, bpp, mse) for a uint8/float NHWC batch."""
+        if training:
+            raise NotImplementedError(
+                "the train step is not ported yet; pass training=False")
+        x = torch.as_tensor(x).to(torch.float32)
+        em = ContinuousBatchedEntropyModel(
+            prior=self.prior(), coding_rank=3, compression=False,
+            offset_heuristic=False, device=x.device)
+        y = self.analysis(x)
+        y_hat, bits = em(y, training=False)
+        x_hat = self.synthesis(y_hat)[:, : x.shape[1], : x.shape[2], :]
+        num_pixels = int(np.prod(x.shape[:-1]))
+        bpp = torch.sum(bits) / num_pixels
+        mse = torch.mean(torch.square(x - x_hat))
+        return bpp + self.lmbda * mse, bpp, mse
+
+
+def params_from_jax(tree) -> dict:
+    """Converts JAX ``BLS2017Model`` params (the flax dict, as numpy or jax
+    arrays, with or without the top-level "params" key) to this model's
+    state_dict."""
+    tree = tree.get("params", tree)
+    state = {}
+    for part, layers in (("analysis", ("layer_0", "gdn_0", "layer_1",
+                                       "gdn_1", "layer_2")),
+                         ("synthesis", ("layer_0", "igdn_0", "layer_1",
+                                        "igdn_1", "layer_2"))):
+        for name in layers:
+            for key, value in tree[part][name].items():
+                state[f"{part}.{name}.{key}"] = torch.tensor(
+                    np.asarray(value, np.float32))
+    for key in ("matrices", "biases", "factors"):
+        for i, value in enumerate(tree["prior"][key]):
+            state[f"prior_{key}.{i}"] = torch.tensor(
+                np.asarray(value, np.float32))
+    return state
+
+
+class BLS2017Codec:
+    """Inference codec with frozen range-coding tables.
+
+    Args:
+      model: a BLS2017Model (moved to ``device``).
+      device: where the codec runs; "cuda" unless the caller asks for the
+        CPU.  On CUDA the range coder runs the hand-written kernels.
+      tables: optional carried entropy-model weights ``[cdf, cdf_offset]``
+        or ``[cdf, cdf_offset, quantization_offset]`` (the JAX
+        entropy model's ``get_weights()``); by default the tables are built
+        from the model's prior on the CPU.
+
+    The float path runs in full float32: TF32 is switched off for cuDNN and
+    matmuls, and cuDNN is made deterministic, so that compress_native,
+    decompress and reconstruct share one analysis/synthesis path and
+    ``decompress(compress_native(x)) == reconstruct(x)`` holds exactly.
+    """
+
+    MODEL_ID = "bls2017"
+
+    def __init__(self, model: BLS2017Model, device="cuda", tables=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+        self.model = model.to(self.device).eval()
+        nf = model.num_filters
+        if tables is None:
+            self.em = ContinuousBatchedEntropyModel(
+                prior=model.prior(device="cpu"), coding_rank=3,
+                compression=True, device=self.device)
+        else:
+            cdf, cdf_offset, *offset = tables
+            self.em = ContinuousBatchedEntropyModel(
+                prior_shape=(nf,), cdf=cdf, cdf_offset=cdf_offset,
+                quantization_offset=offset[0] if offset else None,
+                coding_rank=3, compression=True, device=self.device)
+
+    # -- shared transform path --------------------------------------------
+    def _upload(self, x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        if x.dtype != torch.uint8 or x.ndim != 3 or x.shape[-1] != 3:
+            raise ValueError("expected a uint8 [H, W, 3] image")
+        return x.to(self.device)
+
+    def _analysis(self, x):
+        return self.model.analysis(x.to(torch.float32)[None])
+
+    def _synthesis_u8(self, y_hat):
+        x_hat = self.model.synthesis(y_hat)
+        return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
+
+    # -- compress ----------------------------------------------------------
+    def _encode_latent(self, y):
+        """Launches the sidecar encode of a latent [1, h, w, c]; returns
+        device results without waiting for them."""
+        _, h, w, c = (int(s) for s in y.shape)
+        buf, lens, esc_idx, esc_val = self.em.compress_sidecar_device(
+            native_format.to_streams(y))
+        return buf, lens, esc_idx, esc_val, (h, w, c)
+
+    def _container(self, encoded, x_hw) -> bytes:
+        """Copies an _encode_latent result to the host and packs it."""
+        buf, lens, esc_idx, esc_val, (h, w, c) = encoded
+        n = (w // native_format.split_factor(w, c)) * c
+        buf, lens = buf.cpu().numpy(), lens.cpu().numpy()
+        pairs, vals = native_format.esc_to_pairs(
+            esc_idx.cpu().numpy(), esc_val.cpu().numpy(), n)
+        packed = PackedTensors()
+        packed.model = self.MODEL_ID
+        packed.pack([
+            torch_coder.to_bytes_list(buf, lens),
+            np.asarray(x_hw, np.int32),
+            np.asarray((h, w), np.int32),
+            pairs.ravel(), vals])
+        return packed.string
+
+    @torch.no_grad()
+    def compress_native(self, x) -> bytes:
+        """uint8 [H, W, 3] image -> native container bytes: one coder
+        stream per latent row block plus the escape sidecar.  Not
+        byte-compatible with the reference .tfci format."""
+        x = self._upload(x)
+        return self._container(self._encode_latent(self._analysis(x)),
+                               tuple(x.shape[:2]))
+
+    @torch.no_grad()
+    def compress_native_many(self, images) -> list:
+        """Launches every image's transform and encode before the first
+        copy to the host; containers equal per-image compress_native."""
+        pending = []
+        for x in images:
+            x = self._upload(x)
+            pending.append((self._encode_latent(self._analysis(x)),
+                            tuple(x.shape[:2])))
+        return [self._container(e, hw) for e, hw in pending]
+
+    # -- decompress --------------------------------------------------------
+    def _unpack(self, container) -> PackedTensors:
+        packed = PackedTensors(container)
+        if packed.model != self.MODEL_ID:
+            raise ValueError(f"container is for model {packed.model!r}")
+        if packed.num_tensors == 3:
+            raise NotImplementedError(
+                "classic .tfci containers need the in-stream Elias-gamma "
+                "decode, which this port does not have yet; only native "
+                "containers (compress_native) decode")
+        if packed.num_tensors != 5:
+            raise ValueError("not a bls2017 native container")
+        return packed
+
+    def _decode_latent(self, packed):
+        """Launches the sidecar decode; returns (y_hat [1, h, w, c],
+        sanity [S], (H, W)) on the device without waiting."""
+        strings, x_shape, y_shape, esc_flat, esc_val = packed.unpack(
+            ["bytes", np.int32, np.int32, np.int32, np.int32])
+        buf, lens = torch_coder.from_bytes_list(strings)
+        h, w = int(y_shape[0]), int(y_shape[1])
+        c = int(np.prod(self.em.prior_shape))
+        k = native_format.split_factor_from_streams(len(strings), h)
+        n = (w // k) * c
+        esc_idx = torch_coder.sidecar_flatten(
+            esc_flat.reshape(-1, 2), len(strings), n)
+        if esc_idx.shape[0] != esc_val.shape[0]:
+            raise ValueError("escape positions and values disagree")
+        dev = self.device
+        y_rows, sanity = self.em.decompress_sidecar_device(
+            torch.as_tensor(buf, device=dev),
+            torch.as_tensor(lens, device=dev), (1, w // k),
+            torch.as_tensor(esc_idx, device=dev),
+            torch.as_tensor(esc_val, device=dev))
+        return (native_format.from_streams(y_rows, h, w, c), sanity,
+                (int(x_shape[0]), int(x_shape[1])))
+
+    def _finish(self, x_hat, sanity, x_hw) -> np.ndarray:
+        if self.em.decode_sanity_check and not bool(sanity.all()):
+            raise ValueError("Sanity check failed (corrupt bit streams).")
+        return x_hat[0, : x_hw[0], : x_hw[1], :].cpu().numpy()
+
+    @torch.no_grad()
+    def decompress(self, container: bytes) -> np.ndarray:
+        """Native container -> uint8 [H, W, 3]; raises ValueError on a
+        corrupt container."""
+        y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
+        return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
+
+    @torch.no_grad()
+    def decompress_native_many(self, containers) -> list:
+        """Launches every container's decode and synthesis before the
+        first copy to the host; outputs equal per-container decompress."""
+        pending = []
+        for c in containers:
+            y_hat, sanity, x_hw = self._decode_latent(self._unpack(c))
+            pending.append((self._synthesis_u8(y_hat), sanity, x_hw))
+        return [self._finish(*p) for p in pending]
+
+    @torch.no_grad()
+    def reconstruct(self, x) -> np.ndarray:
+        """Reconstruction without the range coder: quantize the latent with
+        the codec's entropy model and synthesize; equals
+        decompress(compress_native(x)) exactly."""
+        x = self._upload(x)
+        y_hat = self.em.quantize(self._analysis(x))
+        return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
+                                         :].cpu().numpy()

@@ -1,0 +1,62 @@
+"""CUDA kernels of compression_tpu_torch against their plain versions.
+
+These need an NVIDIA GPU and skip elsewhere (a CUDA kernel has no CPU
+mode); on a machine with one, run
+``python -m pytest tests/test_torch_cuda.py`` (chip_smoke.py drives the
+same comparisons at full size)."""
+
+import numpy as np
+import pytest
+import torch
+
+from compression_tpu_torch.codec import cuda_coder, tables, torch_coder
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    cuda_coder.build()
+    return torch.device("cuda")
+
+
+def _table(seed, overflow, device):
+    rng = np.random.RandomState(seed)
+    cdfs, precs = [], []
+    for _ in range(8):
+        prec = int(rng.randint(8, 17))
+        pmf = rng.dirichlet(np.ones(int(rng.randint(2, 40))))
+        cdfs.append(tables.pmf_to_quantized_cdf(pmf, prec))
+        precs.append(prec)
+    ragged = tables.build_ragged_cdf(cdfs, precs, [overflow] * 8)
+    return torch_coder.DeviceCdfTable(tables.parse_ragged_cdf(ragged),
+                                      device)
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_kernels_match_plain(device, overflow):
+    table = _table(int(overflow), overflow, device)
+    cdf, meta = table.indexed_arrays()
+    gen = torch.Generator(device=device).manual_seed(0)
+    idx = torch.randint(0, 8, (300, 77), generator=gen, device=device,
+                        dtype=torch.int32)
+    sym = torch.randint(-3, 45, (300, 77), generator=gen, device=device,
+                        dtype=torch.int32)
+    out_size = torch_coder.sidecar_out_size(77)
+    before = dict(cuda_coder.LAUNCHES)
+    buf, lens = cuda_coder.encode_indexed(sym, idx, cdf, meta, out_size)
+    ref_buf, ref_lens = torch.empty_like(buf), torch.empty_like(lens)
+    cuda_coder.encode_indexed_plain(sym, idx, cdf, meta, ref_buf, ref_lens)
+    assert torch.equal(buf, ref_buf) and torch.equal(lens, ref_lens)
+    out, ok = cuda_coder.decode_indexed(buf, lens, idx, cdf, meta)
+    ref_out, ref_ok = torch.empty_like(out), torch.empty_like(ok)
+    cuda_coder.decode_indexed_plain(buf, lens, idx, cdf, meta, ref_out,
+                                    ref_ok)
+    assert torch.equal(out, ref_out) and torch.equal(ok, ref_ok)
+    assert bool(ok.all())
+    assert cuda_coder.LAUNCHES["encode_indexed"] == before[
+        "encode_indexed"] + 1
+    assert cuda_coder.LAUNCHES["decode_indexed"] == before[
+        "decode_indexed"] + 1
