@@ -1,20 +1,39 @@
-// Indexed range encode (sidecar mode), one thread per coder stream.
+// Range encode, one thread per coder stream: three kernels from one
+// template over the same RangeEncoder recurrence.
 //
-// Replaces the TPU kernel compression_tpu/codec/pallas_coder.py:
-// encode_indexed_device -> _encode_indexed_call (_make_encode_kernel_indexed,
-// with the fused _kernel_chunk_postpass and jax_coder._finalize_chunks).
-// It computes the same function: every element s,t is coded with CDF row
-// indexes[s,t]; out-of-range values map to the escape marker len-2 on
-// overflow rows and are clipped on bounded rows (pallas_coder.py:1688-1694);
-// output is the byte stream of the reference RangeEncoder
+//   ctpu_encode_indexed     (K1)  replaces compression_tpu/codec/pallas_coder.py:
+//       encode_indexed_device -> _encode_indexed_call (with the fused
+//       _kernel_chunk_postpass and jax_coder._finalize_chunks).  Every
+//       element s,t is coded with CDF row indexes[s,t]; out-of-range values
+//       map to the escape marker len-2 on overflow rows and are clipped on
+//       bounded rows (pallas_coder.py:1688-1694): the sidecar format.
+//   ctpu_encode_single_row  (K4') replaces pallas_coder.py:
+//       encode_single_row_device -> _encode_v3_call.  One shared CDF row, no
+//       indexes; symbols are clipped to [0, len-2] (pallas_coder.py:1576).
+//   ctpu_encode_gamma       (K6') replaces pallas_coder.py:encode_scan_pallas
+//       (the scan over jax_coder.micro_ops_from_symbols' micro-ops, resolved
+//       to bytes by jax_coder._encode_postpass): the reference .tfci format.
+//       As K1, but an escape (a value past the range of an overflow row) is
+//       followed in the stream by its Elias-gamma magnitude and sign, each
+//       bit coded at precision 1 in the order of micro_ops_from_symbols
+//       (jax_coder.py:552-575): floor(log2 g) zeros, the bits of g from the
+//       top one down, then the sign; g = -v for v < 0 and v - (len-2) + 1
+//       above the range, in uint32.  The TPU expands every symbol into
+//       micro-ops first because a TPU lane cannot run a loop of its own
+//       length; a thread can, so the kernel reads symbols and indexes
+//       directly and needs no micro-op arrays.
+//
+// Output is the byte stream of the reference RangeEncoder
 // (compression_tpu/native/range_coder.cc, copied below, not included) with
-// the tail past lengths[s] zeroed.
+// the tail past lengths[s] zeroed: the JAX package's padded arrays.
 //
-// What bounds it on this card: the encode recurrence is a serial chain per
+// What bounds them on this card: the recurrence is a serial chain per
 // stream (two 64-bit multiplies, a handful of compares and a table read per
-// symbol), so a launch takes about N times the latency of one step and the
-// card is busy only when there are many thousands of streams.  The bytes it
-// moves (8 B in and ~2 B out per symbol) are far below the memory rate.
+// coded interval), so a launch takes about N times the latency of one step
+// and the card is busy only when there are many thousands of streams.  The
+// classic .tfci container codes a whole image as one stream, so K6' then
+// runs on one thread.  The bytes they move (8 B in and ~2 B out per symbol)
+// are far below the memory rate.
 //
 // What the design does about it: state (base, size-1, delayed carry) lives
 // in registers; the CDF table and the per-row metadata are staged once per
@@ -22,7 +41,7 @@
 // so the only global traffic in the loop is the symbol/index read and the
 // byte write of the thread's own output row.  Because each thread owns its
 // output row, the delayed-carry runs are written in place, and the TPU
-// kernel's record buffer and reserve/resolve/compact post-pass disappear.
+// kernels' record buffer and reserve/resolve/compact post-pass disappear.
 // Small launches use 32-thread blocks to spread streams over more SMs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -35,6 +54,8 @@ namespace {
 
 constexpr uint64_t kU32 = 0xFFFFFFFFull;
 constexpr int kMetaCols = 3;  // per row: escape marker len-2, precision, overflow
+
+enum Mode { kIndexed = 0, kSingleRow = 1, kGamma = 2 };
 
 struct Encoder {
   uint64_t base = 0;
@@ -100,6 +121,9 @@ struct Encoder {
     }
   }
 
+  // One bit with the binary uniform CDF {0, 1, 2} at precision 1.
+  __device__ void encode_bit(uint32_t bit) { encode(bit, bit + 1, 1); }
+
   // RangeEncoder::Finalize.
   __device__ void finalize() {
     if (delay != 0) {
@@ -119,7 +143,8 @@ struct Encoder {
   }
 };
 
-__global__ void encode_indexed_kernel(
+template <int kMode>
+__global__ void encode_kernel(
     const int32_t* __restrict__ symbols, const int32_t* __restrict__ indexes,
     int64_t num_streams, int64_t num_elements,
     const int32_t* __restrict__ cdf, const int32_t* __restrict__ meta,
@@ -145,24 +170,65 @@ __global__ void encode_indexed_kernel(
   enc.out = out + s * out_size;
   enc.cap = out_size;
   const int32_t* vrow = symbols + s * num_elements;
-  const int32_t* irow = indexes + s * num_elements;
+  const int32_t* irow =
+      kMode == kSingleRow ? nullptr : indexes + s * num_elements;
   for (int64_t j = 0; j < num_elements; ++j) {
-    int row = irow[j];
-    row = row < 0 ? 0 : (row >= num_rows ? num_rows - 1 : row);
+    int row = 0;
+    if (kMode != kSingleRow) {
+      row = irow[j];
+      row = row < 0 ? 0 : (row >= num_rows ? num_rows - 1 : row);
+    }
     const int32_t maxs = mt[kMetaCols * row];
     const int prec = mt[kMetaCols * row + 1];
-    const bool ovf = mt[kMetaCols * row + 2] != 0;
+    const bool ovf = kMode != kSingleRow && mt[kMetaCols * row + 2] != 0;
     const int32_t v = vrow[j];
-    // Sidecar escape map: marker on overflow rows, clip on bounded rows.
+    // Escape map: marker on overflow rows, clip on bounded rows.
     const int32_t vq = v < 0 ? (ovf ? maxs : 0) : (v < maxs ? v : maxs);
     const int32_t* c = tab + static_cast<int64_t>(row) * max_len + vq;
     enc.encode(static_cast<uint32_t>(c[0]), static_cast<uint32_t>(c[1]), prec);
+    if (kMode == kGamma && ovf && (v < 0 || v >= maxs)) {
+      // OverflowEncode: Elias-gamma magnitude, then the sign.
+      const uint32_t g = v < 0 ? 0u - static_cast<uint32_t>(v)
+                               : static_cast<uint32_t>(v) -
+                                     static_cast<uint32_t>(maxs) + 1u;
+      const int nbits = 31 - __clz(g);  // g >= 1
+      for (int k = 0; k < nbits; ++k) enc.encode_bit(0);
+      for (int k = nbits; k >= 0; --k) enc.encode_bit((g >> k) & 1u);
+      enc.encode_bit(v < 0 ? 1u : 0u);
+    }
   }
   enc.finalize();
-  // The wrapper guarantees out_size >= 2 * num_elements + 2, the most a
-  // stream can emit, so enc.len never exceeds the row.
+  // The wrappers size out_size for the most a stream can emit (two bytes
+  // per coded interval plus two), so enc.len never exceeds the row.
   for (int64_t p = enc.len; p < out_size; ++p) enc.out[p] = 0;
   lengths[s] = static_cast<int32_t>(enc.len);
+}
+
+template <int kMode>
+int launch(const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
+           int64_t num_elements, const int32_t* cdf, const int32_t* meta,
+           int num_rows, int max_len, uint8_t* out, int64_t out_size,
+           int32_t* lengths, void* stream) {
+  const size_t table_bytes =
+      sizeof(int32_t) * (static_cast<size_t>(num_rows) * max_len +
+                         static_cast<size_t>(kMetaCols) * num_rows);
+  const bool use_shared = table_bytes <= 200 * 1024;
+  const size_t smem = use_shared ? table_bytes : 0;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        encode_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = num_streams >= 128 * 132 ? 128 : 32;
+  const int64_t blocks = (num_streams + threads - 1) / threads;
+  if (blocks > 0) {
+    encode_kernel<kMode><<<static_cast<unsigned>(blocks), threads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+        symbols, indexes, num_streams, num_elements, cdf, meta, num_rows,
+        max_len, use_shared, out, out_size, lengths);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -172,24 +238,26 @@ extern "C" int ctpu_encode_indexed(
     int64_t num_elements, const int32_t* cdf, const int32_t* meta,
     int num_rows, int max_len, uint8_t* out, int64_t out_size,
     int32_t* lengths, void* stream) {
-  const size_t table_bytes =
-      sizeof(int32_t) * (static_cast<size_t>(num_rows) * max_len +
-                         static_cast<size_t>(kMetaCols) * num_rows);
-  const bool use_shared = table_bytes <= 200 * 1024;
-  const size_t smem = use_shared ? table_bytes : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        encode_indexed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = num_streams >= 128 * 132 ? 128 : 32;
-  const int64_t blocks = (num_streams + threads - 1) / threads;
-  if (blocks > 0) {
-    encode_indexed_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-        symbols, indexes, num_streams, num_elements, cdf, meta, num_rows,
-        max_len, use_shared, out, out_size, lengths);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<kIndexed>(symbols, indexes, num_streams, num_elements, cdf,
+                          meta, num_rows, max_len, out, out_size, lengths,
+                          stream);
+}
+
+// cdf / meta hold the one row: int32 [1, max_len] and [1, 3].
+extern "C" int ctpu_encode_single_row(
+    const int32_t* symbols, int64_t num_streams, int64_t num_elements,
+    const int32_t* cdf, const int32_t* meta, int max_len, uint8_t* out,
+    int64_t out_size, int32_t* lengths, void* stream) {
+  return launch<kSingleRow>(symbols, nullptr, num_streams, num_elements, cdf,
+                            meta, 1, max_len, out, out_size, lengths, stream);
+}
+
+extern "C" int ctpu_encode_gamma(
+    const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
+    int64_t num_elements, const int32_t* cdf, const int32_t* meta,
+    int num_rows, int max_len, uint8_t* out, int64_t out_size,
+    int32_t* lengths, void* stream) {
+  return launch<kGamma>(symbols, indexes, num_streams, num_elements, cdf,
+                        meta, num_rows, max_len, out, out_size, lengths,
+                        stream);
 }

@@ -20,6 +20,7 @@ import torch
 from compression_tpu_torch.codec import tables
 from compression_tpu_torch.codec import torch_coder
 from compression_tpu_torch.distributions import helpers
+from compression_tpu_torch.util.device import resolve_device
 
 __all__ = ["ContinuousEntropyModelBase"]
 
@@ -28,12 +29,12 @@ class ContinuousEntropyModelBase:
     """Shared machinery: table build, serialization, device table."""
 
     def __init__(self, coding_rank=None, compression=False, tail_mass=2**-8,
-                 device="cpu"):
+                 device="cuda"):
         self._prior = None
         self._coding_rank = int(coding_rank)
         self._compression = bool(compression)
         self._tail_mass = float(tail_mass)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.bottleneck_dtype = torch.float32
         self._cdf = None
         self._cdf_offset = None

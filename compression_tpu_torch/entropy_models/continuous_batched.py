@@ -3,10 +3,10 @@ of compression_tpu/entropy_models/continuous_batched.py).
 
 Data-independent prior, one CDF row per prior batch element, innermost
 ``coding_rank`` dimensions coded into one stream each.  This slice covers
-eval-mode ``__call__``, ``quantize`` and the sidecar pair
-``compress_sidecar_device`` / ``decompress_sidecar_device`` the native
-container runs on; the reference-format ``compress`` (in-stream
-Elias-gamma escapes) is not ported yet.
+eval-mode ``__call__``, ``quantize``, the reference-format ``compress`` /
+``compress_to_strings`` / ``decompress`` (in-stream Elias-gamma escapes,
+the .tfci format) and the sidecar pair ``compress_sidecar_device`` /
+``decompress_sidecar_device`` the native container runs on.
 """
 
 from __future__ import annotations
@@ -30,14 +30,15 @@ class ContinuousBatchedEntropyModel(
 
     Either ``prior`` (tables are built from it, on the CPU) or
     ``prior_shape`` with carried ``cdf`` / ``cdf_offset`` (and the
-    ``quantization_offset`` they were built with) must be given.
+    ``quantization_offset`` they were built with) must be given.  The model
+    codes on ``device``: "cuda" unless the caller asks for the CPU.
     """
 
     def __init__(self, prior=None, coding_rank=None, compression=False,
                  tail_mass=2**-8, range_coder_precision=12,
                  prior_shape=None, cdf=None, cdf_offset=None,
                  offset_heuristic=True, quantization_offset=None,
-                 decode_sanity_check=True, device="cpu"):
+                 decode_sanity_check=True, device="cuda"):
         if (prior is None) == (prior_shape is None):
             raise ValueError("Either `prior` or `prior_shape` must be provided.")
         if (prior is None) == (cdf is None):
@@ -124,6 +125,96 @@ class ContinuousBatchedEntropyModel(
         symbols = symbols - self._row_offsets()[row_ids][None, :]
         return symbols, batch_shape, row_ids
 
+    def compress(self, bottleneck):
+        """Compresses to the reference format on the model's device.
+
+        The leading (batch) dims of ``bottleneck`` become one stream each;
+        escapes are coded in-stream (Elias gamma).  Byte-identical to the
+        JAX package's compress.
+
+        Returns:
+          (bytes uint8 [batch..., L] zero past each length, lengths int32
+           [batch...]), on the model's device.
+        """
+        self._check_compression()
+        symbols, batch_shape, _ = self._symbols_from_bottleneck(
+            torch.as_tensor(bottleneck, dtype=self.bottleneck_dtype,
+                            device=self.device))
+        buf, lengths = torch_coder.encode_streams(symbols, self.device_table)
+        return (buf.reshape(batch_shape + buf.shape[-1:]),
+                lengths.reshape(batch_shape))
+
+    def compress_to_strings(self, bottleneck):
+        """Compresses to a flat list of bytes objects (one per stream)."""
+        buf, lengths = self.compress(bottleneck)
+        return torch_coder.to_bytes_list(
+            buf.reshape(-1, buf.shape[-1]).cpu().numpy(),
+            lengths.reshape(-1).cpu().numpy())
+
+    def decompress(self, strings_or_buf, broadcast_shape, lengths=None):
+        """Decompresses reference-format streams to the quantized
+        bottleneck; raises ValueError when the sanity check fails (and
+        ``decode_sanity_check`` is set).
+
+        Args:
+          strings_or_buf: list of bytes, or a padded uint8 buffer [batch...,
+            L] (numpy or torch) with ``lengths`` [batch...].
+          broadcast_shape: shape between the batch dims and prior_shape.
+
+        Returns:
+          float32 tensor batch + broadcast_shape + prior_shape on the
+          model's device.
+        """
+        if lengths is None:
+            buf, lens = torch_coder.from_bytes_list(list(strings_or_buf))
+            batch_shape = tuple(lens.shape)
+        else:
+            buf = torch.as_tensor(strings_or_buf)
+            lens = torch.as_tensor(lengths)
+            batch_shape = tuple(lens.shape)
+            buf = buf.reshape(-1, buf.shape[-1])
+        outputs, sanity = self.decompress_device(
+            torch.as_tensor(buf, device=self.device),
+            torch.as_tensor(lens, device=self.device).reshape(-1),
+            broadcast_shape)
+        if self.decode_sanity_check and not bool(sanity.all()):
+            raise ValueError("Sanity check failed (corrupt bit streams).")
+        return outputs.reshape(batch_shape + tuple(outputs.shape[1:]))
+
+    def decompress_device(self, buf, byte_lens, broadcast_shape):
+        """Reference-format decode without the sanity check's copy to the
+        host.
+
+        Args:
+          buf: uint8 [S, W] stream bytes on the model's device (zero past
+            each length).
+          byte_lens: int32 [S].
+          broadcast_shape: shape between the stream and prior dims.
+
+        Returns:
+          (outputs [S, *broadcast, *prior_shape] float32, sanity bool [S]).
+        """
+        self._check_compression()
+        broadcast_shape = tuple(int(s) for s in broadcast_shape)
+        n = int(np.prod(broadcast_shape)) * int(np.prod(self.prior_shape))
+        symbols, sanity = torch_coder.decode_streams(
+            buf.to(torch.uint8), byte_lens.to(torch.int32), n,
+            self.device_table)
+        return self._dequantize(symbols, broadcast_shape), sanity
+
+    def _dequantize(self, symbols, broadcast_shape):
+        """Decoded symbols [S, N] -> [S, *broadcast, *prior_shape] float."""
+        num_rows = int(self.cdf_offset.shape[0])
+        row_ids = torch.arange(symbols.shape[1], device=self.device) % num_rows
+        symbols = symbols + self._row_offsets()[row_ids][None]
+        outputs = symbols.reshape(
+            (symbols.shape[0],) + broadcast_shape + self.prior_shape).to(
+                self.bottleneck_dtype)
+        offset = self.quantization_offset
+        if offset is not None:
+            outputs = outputs + offset
+        return outputs
+
     def compress_sidecar_device(self, bottleneck):
         """Sidecar compress on the model's device.
 
@@ -150,7 +241,7 @@ class ContinuousBatchedEntropyModel(
         else:
             esc_idx = torch.zeros(0, dtype=torch.int64, device=self.device)
             esc_val = torch.zeros(0, dtype=torch.int32, device=self.device)
-        out_size = torch_coder.sidecar_out_size(n)
+        out_size = torch_coder.stream_out_size(n)
         buf, lengths = torch_coder.encode_dispatch(
             symbols, table, out_size, indexes)
         return (buf.reshape(batch_shape + (out_size,)),
@@ -179,14 +270,7 @@ class ContinuousBatchedEntropyModel(
             buf, byte_lens, n, self.device_table, indexes,
             in_stream_gamma=False)
         symbols = torch_coder.sidecar_apply(symbols, esc_idx, esc_val)
-        symbols = symbols + self._row_offsets()[row_ids][None]
-        outputs = symbols.reshape(
-            (buf.shape[0],) + broadcast_shape + self.prior_shape).to(
-                self.bottleneck_dtype)
-        offset = self.quantization_offset
-        if offset is not None:
-            outputs = outputs + offset
-        return outputs, sanity
+        return self._dequantize(symbols, broadcast_shape), sanity
 
     def get_weights(self):
         weights = super().get_weights()

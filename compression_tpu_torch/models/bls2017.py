@@ -1,14 +1,18 @@
 """Factorized-prior image codec (Ballé, Laparra, Simoncelli 2017), the
-native-container serving path (PyTorch counterpart of
-compression_tpu/models/bls2017.py).
+serving path (PyTorch counterpart of compression_tpu/models/bls2017.py).
 
 A 3-layer SignalConv2D analysis transform with GDN (downsampling 4,2,2), a
 mirrored synthesis transform with IGDN, a NoisyDeepFactorized prior over the
 latent channels and a ContinuousBatchedEntropyModel with coding_rank=3.
-``BLS2017Codec`` serves the native (sidecar) container: ``compress_native``,
-``compress_native_many``, ``decompress``, ``decompress_native_many`` and
-``reconstruct``.  Images are uint8 [H, W, 3] (numpy or torch) and latents
-[1, H, W, C], the JAX package's NHWC layout.
+``BLS2017Codec`` writes and reads two containers: the classic .tfci one of
+the reference (``compress``: one stream per image, escapes in-stream) and
+the native one (``compress_native``, ``compress_native_many``: one stream
+per latent row block plus the escape sidecar); ``decompress`` and
+``decompress_native_many`` read both, and ``reconstruct`` skips the coder.
+Weights come from a seeded init, from the JAX package (``params_from_jax``)
+or from the reference's TF variables (``params_from_tf``).  Images are
+uint8 [H, W, 3] (numpy or torch) and latents [1, H, W, C], the JAX
+package's NHWC layout.
 
 "End-to-end Optimized Image Compression"
 https://openreview.net/forum?id=rJxdQ3jeg
@@ -36,6 +40,7 @@ __all__ = [
     "BLS2017Model",
     "BLS2017Codec",
     "params_from_jax",
+    "params_from_tf",
 ]
 
 
@@ -154,6 +159,49 @@ def params_from_jax(tree) -> dict:
     return state
 
 
+def params_from_tf(tf_vars) -> dict:
+    """Converts the reference's TF variables to this model's state_dict
+    (counterpart of tools/port_tf_weights.port_bls2017 followed by
+    params_from_jax).
+
+    Args:
+      tf_vars: mapping of TF names ("analysis/layer_0/rdft_real", ...,
+        "prior/factor_1") to arrays, or of the same names as stored in
+        tests/golden/golden_model.npz ("var__analysis__layer_0__rdft_real",
+        ...); other keys are ignored.  SignalConv kernels are RDFT
+        real/imag pairs, GDN beta/gamma their reparameterized variables:
+        the forms this model stores.
+    """
+    names = {}
+    for key, value in tf_vars.items():
+        if key.startswith("var__"):
+            key = key[len("var__"):].replace("__", "/")
+        names[key] = np.asarray(value, np.float32)
+    state = {}
+    for side, gdn in (("analysis", "gdn"), ("synthesis", "igdn")):
+        for i in range(3):
+            key = f"{side}/layer_{i}"
+            state[f"{side}.layer_{i}.kernel_rdft"] = torch.tensor(np.stack(
+                [names[f"{key}/rdft_real"], names[f"{key}/rdft_imag"]]))
+            if f"{key}/bias" in names:
+                state[f"{side}.layer_{i}.bias"] = torch.tensor(
+                    names[f"{key}/bias"])
+        for i in range(2):
+            key = f"{side}/{gdn}_{i}"
+            state[f"{side}.{gdn}_{i}.reparam_beta"] = torch.tensor(
+                names[f"{key}/beta"])
+            state[f"{side}.{gdn}_{i}.reparam_gamma"] = torch.tensor(
+                names[f"{key}/gamma"])
+    num_layers = len([k for k in names if k.startswith("prior/matrix_")])
+    for i in range(num_layers):
+        state[f"prior_matrices.{i}"] = torch.tensor(names[f"prior/matrix_{i}"])
+        state[f"prior_biases.{i}"] = torch.tensor(names[f"prior/bias_{i}"])
+        if i < num_layers - 1:
+            state[f"prior_factors.{i}"] = torch.tensor(
+                names[f"prior/factor_{i}"])
+    return state
+
+
 class BLS2017Codec:
     """Inference codec with frozen range-coding tables.
 
@@ -167,9 +215,10 @@ class BLS2017Codec:
         from the model's prior on the CPU.
 
     The float path runs in full float32: TF32 is switched off for cuDNN and
-    matmuls, and cuDNN is made deterministic, so that compress_native,
-    decompress and reconstruct share one analysis/synthesis path and
-    ``decompress(compress_native(x)) == reconstruct(x)`` holds exactly.
+    matmuls, and cuDNN is made deterministic, so that compress,
+    compress_native, decompress and reconstruct share one
+    analysis/synthesis path and ``decompress(compress(x))`` and
+    ``decompress(compress_native(x))`` equal ``reconstruct(x)`` exactly.
     """
 
     MODEL_ID = "bls2017"
@@ -210,6 +259,20 @@ class BLS2017Codec:
         return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
 
     # -- compress ----------------------------------------------------------
+    @torch.no_grad()
+    def compress(self, x) -> bytes:
+        """uint8 [H, W, 3] image -> classic .tfci container bytes: the whole
+        latent in one reference-format stream, escapes in-stream (the
+        reference's format, byte-identical to the JAX package's)."""
+        x = self._upload(x)
+        y = self._analysis(x)
+        packed = PackedTensors()
+        packed.model = self.MODEL_ID
+        packed.pack([self.em.compress_to_strings(y),
+                     np.asarray(tuple(x.shape[:2]), np.int32),
+                     np.asarray(tuple(y.shape[1:-1]), np.int32)])
+        return packed.string
+
     def _encode_latent(self, y):
         """Launches the sidecar encode of a latent [1, h, w, c]; returns
         device results without waiting for them."""
@@ -259,18 +322,16 @@ class BLS2017Codec:
         packed = PackedTensors(container)
         if packed.model != self.MODEL_ID:
             raise ValueError(f"container is for model {packed.model!r}")
-        if packed.num_tensors == 3:
-            raise NotImplementedError(
-                "classic .tfci containers need the in-stream Elias-gamma "
-                "decode, which this port does not have yet; only native "
-                "containers (compress_native) decode")
-        if packed.num_tensors != 5:
-            raise ValueError("not a bls2017 native container")
+        if packed.num_tensors not in (3, 5):
+            raise ValueError("not a bls2017 classic or native container")
         return packed
 
     def _decode_latent(self, packed):
-        """Launches the sidecar decode; returns (y_hat [1, h, w, c],
-        sanity [S], (H, W)) on the device without waiting."""
+        """Launches the range decode of a classic or native container;
+        returns (y_hat [1, h, w, c], sanity [S], (H, W)) on the device
+        without waiting."""
+        if packed.num_tensors == 3:
+            return self._decode_classic(packed)
         strings, x_shape, y_shape, esc_flat, esc_val = packed.unpack(
             ["bytes", np.int32, np.int32, np.int32, np.int32])
         buf, lens = torch_coder.from_bytes_list(strings)
@@ -291,6 +352,18 @@ class BLS2017Codec:
         return (native_format.from_streams(y_rows, h, w, c), sanity,
                 (int(x_shape[0]), int(x_shape[1])))
 
+    def _decode_classic(self, packed):
+        strings, x_shape, y_shape = packed.unpack(
+            ["bytes", np.int32, np.int32])
+        if len(strings) != 1 or y_shape.shape != (2,) or (y_shape < 1).any():
+            raise ValueError("not a bls2017 classic container")
+        buf, lens = torch_coder.from_bytes_list(strings)
+        dev = self.device
+        y_hat, sanity = self.em.decompress_device(
+            torch.as_tensor(buf, device=dev),
+            torch.as_tensor(lens, device=dev), tuple(y_shape))
+        return y_hat, sanity, (int(x_shape[0]), int(x_shape[1]))
+
     def _finish(self, x_hat, sanity, x_hw) -> np.ndarray:
         if self.em.decode_sanity_check and not bool(sanity.all()):
             raise ValueError("Sanity check failed (corrupt bit streams).")
@@ -298,15 +371,16 @@ class BLS2017Codec:
 
     @torch.no_grad()
     def decompress(self, container: bytes) -> np.ndarray:
-        """Native container -> uint8 [H, W, 3]; raises ValueError on a
-        corrupt container."""
+        """Classic or native container -> uint8 [H, W, 3]; raises
+        ValueError on a corrupt container."""
         y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
         return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
 
     @torch.no_grad()
     def decompress_native_many(self, containers) -> list:
-        """Launches every container's decode and synthesis before the
-        first copy to the host; outputs equal per-container decompress."""
+        """Launches every container's decode and synthesis (classic or
+        native) before the first copy to the host; outputs equal
+        per-container decompress."""
         pending = []
         for c in containers:
             y_hat, sanity, x_hw = self._decode_latent(self._unpack(c))
@@ -317,7 +391,8 @@ class BLS2017Codec:
     def reconstruct(self, x) -> np.ndarray:
         """Reconstruction without the range coder: quantize the latent with
         the codec's entropy model and synthesize; equals
-        decompress(compress_native(x)) exactly."""
+        decompress(compress(x)) and decompress(compress_native(x))
+        exactly."""
         x = self._upload(x)
         y_hat = self.em.quantize(self._analysis(x))
         return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],

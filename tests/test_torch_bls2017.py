@@ -1,6 +1,6 @@
-"""The port's bls2017 native-container serving path end to end against the
-JAX package, at num_filters=16 with parameters from a JAX
-BLS2017Model.init, on a 64x64 and an odd-size image."""
+"""The port's bls2017 serving path end to end against the JAX package, at
+num_filters=16 with parameters from a JAX BLS2017Model.init, on a 64x64
+and an odd-size image: the native container and the classic .tfci one."""
 
 import numpy as np
 import pytest
@@ -117,8 +117,8 @@ def test_round_trip_equals_reconstruct(codecs, name):
     out = own.decompress(container)
     assert out.shape == x.shape and out.dtype == np.uint8
     np.testing.assert_array_equal(out, own.reconstruct(x))
-    assert torch_coder.DISPATCH_LOG["encode"] == "plain"
-    assert torch_coder.DISPATCH_LOG["decode_sidecar"] == "plain"
+    assert torch_coder.DISPATCH_LOG["encode"] == "plain-indexed"
+    assert torch_coder.DISPATCH_LOG["decode_sidecar"] == "plain-indexed"
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
@@ -194,10 +194,88 @@ def test_hostile_escape_positions_raise(codecs):
         carried.decompress(out.string)
 
 
-def test_classic_container_not_ported(codecs):
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_classic_round_trip_equals_reconstruct(codecs, name):
+    """decompress(compress(x)) == reconstruct(x) on the classic container,
+    whose latent decodes to the same y_hat as the native container's."""
+    _, own, _ = codecs
+    x = _image(name)
+    container = own.compress(x)
+    assert PackedTensors(container).num_tensors == 3
+    assert torch_coder.DISPATCH_LOG["encode"] in ("plain-gamma",
+                                                  "plain-indexed")
+    out = own.decompress(container)
+    assert torch_coder.DISPATCH_LOG["decode"] == "plain-gamma"
+    assert out.shape == x.shape and out.dtype == np.uint8
+    np.testing.assert_array_equal(out, own.reconstruct(x))
+    with torch.no_grad():
+        classic, ok, hw = own._decode_latent(own._unpack(container))
+        native, _, _ = own._decode_latent(own._unpack(
+            own.compress_native(x)))
+    assert bool(ok.all()) and hw == x.shape[:2]
+    assert torch.equal(classic, native)
+
+
+def _classic_strings(container):
+    return PackedTensors(container).unpack(["bytes", np.int32, np.int32])
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_classic_container_cross_decode(codecs, name):
+    """From the same latent (scaled past the table on both sides, so
+    escapes are coded in-stream), the two packages write the same strings
+    and each decodes the other's classic container to y_hat."""
     jc, _, carried = codecs
-    with pytest.raises(NotImplementedError):
-        carried.decompress(jc.compress(_image("64x64")))
+    x = _image(name)
+    y = _jax_y(jc, x)
+    y = 2.0 * carried.em.device_table.max_len * y / np.abs(y).max()
+    strings = carried.em.compress_to_strings(torch.as_tensor(y))
+    assert torch_coder.DISPATCH_LOG["encode"] == "plain-gamma"
+    assert strings == jc.em.compress_to_strings(jnp.asarray(y))
+    packed = PackedTensors()
+    packed.model = "bls2017"
+    packed.pack([strings, np.asarray(x.shape[:2], np.int32),
+                 np.asarray(y.shape[1:3], np.int32)])
+    expect = carried.em.quantize(torch.as_tensor(y)).numpy()
+    with torch.no_grad():
+        y_hat, ok, _ = carried._decode_latent(carried._unpack(packed.string))
+    assert bool(ok.all())
+    np.testing.assert_array_equal(y_hat.numpy(), expect)
+    np.testing.assert_array_equal(
+        np.asarray(jc.em.decompress(strings, tuple(y.shape[1:3]))), expect)
+    # The JAX package's own classic container, from its own latent.
+    ref = jc.compress(x)
+    y_ref = jc.em.decompress(_classic_strings(ref)[0], y.shape[1:3])
+    with torch.no_grad():
+        y_hat, ok, _ = carried._decode_latent(carried._unpack(ref))
+    np.testing.assert_array_equal(y_hat.numpy(), np.asarray(y_ref))
+
+
+def test_classic_many_equal_single(codecs):
+    """decompress_native_many takes classic and native containers mixed."""
+    _, own, _ = codecs
+    images = [_image(n) for n in sorted(SHAPES)]
+    mixed = [own.compress(images[0]), own.compress_native(images[1]),
+             own.compress(images[1])]
+    for out, c in zip(own.decompress_native_many(mixed), mixed):
+        np.testing.assert_array_equal(out, own.decompress(c))
+
+
+@pytest.mark.parametrize("kind", sorted(CORRUPTIONS))
+def test_corrupt_classic_container_same_verdict(codecs, kind):
+    """As for the native container: the two packages reject the same
+    corrupted classic containers, and unread trailing bytes always
+    raise ValueError."""
+    jc, _, carried = codecs
+    strings, x_shape, y_shape = _classic_strings(jc.compress(
+        _image("64x64")))
+    out = PackedTensors()
+    out.model = "bls2017"
+    out.pack([[CORRUPTIONS[kind](s) for s in strings], x_shape, y_shape])
+    mine = _raises(lambda: carried.decompress(out.string))
+    assert mine == _raises(lambda: jc.decompress(out.string))
+    if kind == "extra_bytes":
+        assert mine
 
 
 def test_model_eval_forward_matches_jax(codecs):

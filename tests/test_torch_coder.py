@@ -43,7 +43,7 @@ def _port_table(ragged):
 
 
 def _port_encode(sym, idx, table):
-    out_size = torch_coder.sidecar_out_size(sym.shape[1])
+    out_size = torch_coder.stream_out_size(sym.shape[1])
     buf, lens = torch_coder.encode_dispatch(
         torch.as_tensor(sym), table, out_size, torch.as_tensor(idx))
     return buf.numpy(), lens.numpy()
@@ -91,7 +91,7 @@ def test_encode_matches_jax(name):
     mine, mine_lens = _port_encode(sym, idx, _port_table(ragged))
     np.testing.assert_array_equal(mine_lens, lens)
     np.testing.assert_array_equal(mine, buf)
-    assert torch_coder.DISPATCH_LOG["encode"] == "plain"
+    assert torch_coder.DISPATCH_LOG["encode"] == "plain-indexed"
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -106,7 +106,7 @@ def test_decode_matches_jax(name):
     np.testing.assert_array_equal(mine, ref)
     np.testing.assert_array_equal(ok, ref_ok)
     assert ok.all()
-    assert torch_coder.DISPATCH_LOG["decode_sidecar"] == "plain"
+    assert torch_coder.DISPATCH_LOG["decode_sidecar"] == "plain-indexed"
 
 
 @pytest.fixture()
@@ -292,17 +292,25 @@ def test_wrappers_check_inputs():
         cuda_coder.decode_indexed(buf, lens.long(), sym, cdf, meta)
     with pytest.raises(ValueError):
         cuda_coder.decode_indexed(buf[:1], lens, sym, cdf, meta)
-    with pytest.raises(NotImplementedError):
-        torch_coder.decode_dispatch(buf, lens, 4, table, sym,
-                                    in_stream_gamma=True)
+    # The in-stream-gamma decode (K3') takes the same inputs.
+    with pytest.raises(ValueError):
+        cuda_coder.decode_gamma(buf[:1], lens, sym, cdf, meta)
+    out, ok = torch_coder.decode_dispatch(buf, lens, 4, table, sym,
+                                          in_stream_gamma=True)
+    assert out.shape == (2, 4) and ok.shape == (2,)
+    # The single-row kernels take a one-row table.
+    with pytest.raises(ValueError):
+        cuda_coder.encode_single_row(sym, cdf, meta, 16)
+    with pytest.raises(ValueError):
+        cuda_coder.decode_single_row(buf, lens, 4, cdf, meta)
 
 
 def test_dispatch_log_is_thread_local():
-    torch_coder.DISPATCH_LOG["encode"] = "plain"
+    torch_coder.DISPATCH_LOG["encode"] = "plain-indexed"
     seen = []
     t = threading.Thread(
         target=lambda: seen.append(torch_coder.DISPATCH_LOG.get("encode")))
     t.start()
     t.join()
     assert seen == [None]
-    assert torch_coder.DISPATCH_LOG["encode"] == "plain"
+    assert torch_coder.DISPATCH_LOG["encode"] == "plain-indexed"

@@ -44,7 +44,7 @@ def test_kernels_match_plain(device, overflow):
                         dtype=torch.int32)
     sym = torch.randint(-3, 45, (300, 77), generator=gen, device=device,
                         dtype=torch.int32)
-    out_size = torch_coder.sidecar_out_size(77)
+    out_size = torch_coder.stream_out_size(77)
     before = dict(cuda_coder.LAUNCHES)
     buf, lens = cuda_coder.encode_indexed(sym, idx, cdf, meta, out_size)
     ref_buf, ref_lens = torch.empty_like(buf), torch.empty_like(lens)
@@ -60,3 +60,63 @@ def test_kernels_match_plain(device, overflow):
         "encode_indexed"] + 1
     assert cuda_coder.LAUNCHES["decode_indexed"] == before[
         "decode_indexed"] + 1
+
+
+def _launched(name, before):
+    return cuda_coder.LAUNCHES[name] == before[name] + 1
+
+
+def test_single_row_kernels_match_plain(device):
+    """K4' and K5' against their plain versions, out-of-range symbols and
+    a corrupt stream included."""
+    rng = np.random.RandomState(2)
+    pmf = 1.0 / (1 + np.arange(256)) ** 1.2
+    pmf /= pmf.sum()
+    table = torch_coder.DeviceCdfTable(tables.parse_ragged_cdf(
+        tables.build_ragged_cdf([tables.pmf_to_quantized_cdf(pmf, 12)],
+                                [12], [False])), device)
+    cdf, meta = table.indexed_arrays()
+    sym = rng.choice(256, size=(300, 64), p=pmf).astype(np.int32)
+    sym[0, :3] = [-4, 300, 2 ** 31 - 1]
+    sym = torch.as_tensor(sym, device=device)
+    out_size = torch_coder.stream_out_size(64)
+    before = dict(cuda_coder.LAUNCHES)
+    buf, lens = cuda_coder.encode_single_row(sym, cdf, meta, out_size)
+    ref_buf, ref_lens = torch.empty_like(buf), torch.empty_like(lens)
+    cuda_coder.encode_single_row_plain(sym, cdf, meta, ref_buf, ref_lens)
+    assert torch.equal(buf, ref_buf) and torch.equal(lens, ref_lens)
+    assert _launched("encode_single_row", before)
+    lens[1] //= 2  # a truncated stream
+    out, ok = cuda_coder.decode_single_row(buf, lens, 64, cdf, meta)
+    ref_out, ref_ok = torch.empty_like(out), torch.empty_like(ok)
+    cuda_coder.decode_single_row_plain(buf, lens, cdf, meta, ref_out, ref_ok)
+    assert torch.equal(out, ref_out) and torch.equal(ok, ref_ok)
+    assert _launched("decode_single_row", before)
+    assert bool(ok[2:].all())
+
+
+def test_gamma_kernels_match_plain(device):
+    """K6' and K3' against their plain versions on escapes of every size,
+    the INT32 extremes included."""
+    table = _table(3, True, device)
+    cdf, meta = table.indexed_arrays()
+    rng = np.random.RandomState(3)
+    idx = torch.as_tensor(rng.randint(0, 8, (200, 50)), dtype=torch.int32,
+                          device=device)
+    sym = np.round(rng.laplace(0, 30, (200, 50))).astype(np.int32)
+    sym[:6, 0] = [-2 ** 31, 2 ** 31 - 1, 2 ** 20, -2 ** 20, 2 ** 30, -1]
+    sym = torch.as_tensor(sym, device=device)
+    counts, _, _, _ = cuda_coder.interval_counts(sym, idx, meta)
+    out_size = torch_coder.stream_out_size(int(counts.sum(1).max()))
+    before = dict(cuda_coder.LAUNCHES)
+    buf, lens = cuda_coder.encode_gamma(sym, idx, cdf, meta, out_size)
+    ref_buf, ref_lens = torch.empty_like(buf), torch.empty_like(lens)
+    cuda_coder.encode_gamma_plain(sym, idx, cdf, meta, ref_buf, ref_lens)
+    assert torch.equal(buf, ref_buf) and torch.equal(lens, ref_lens)
+    assert _launched("encode_gamma", before)
+    out, ok = cuda_coder.decode_gamma(buf, lens, idx, cdf, meta)
+    ref_out, ref_ok = torch.empty_like(out), torch.empty_like(ok)
+    cuda_coder.decode_gamma_plain(buf, lens, idx, cdf, meta, ref_out, ref_ok)
+    assert torch.equal(out, ref_out) and torch.equal(ok, ref_ok)
+    assert _launched("decode_gamma", before)
+    assert bool(ok[2:].all())

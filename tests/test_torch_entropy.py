@@ -53,10 +53,11 @@ def models(priors):
     jp, tp = priors
     jem = JEM(prior=jp, coding_rank=3, compression=True)
     own = ContinuousBatchedEntropyModel(prior=tp, coding_rank=3,
-                                        compression=True)
+                                        compression=True, device="cpu")
     same = ContinuousBatchedEntropyModel(
         prior=tp, coding_rank=3, compression=True,
-        quantization_offset=np.asarray(jem.quantization_offset))
+        quantization_offset=np.asarray(jem.quantization_offset),
+        device="cpu")
     return jem, own, same
 
 
@@ -123,7 +124,7 @@ def test_golden_em_tables():
     }
     _, tp = _priors(params, 4)
     em = ContinuousBatchedEntropyModel(prior=tp, coding_rank=3,
-                                       compression=True)
+                                       compression=True, device="cpu")
     np.testing.assert_array_equal(em.cdf, gold["dfb__cdf"])
     np.testing.assert_array_equal(em.cdf_offset, gold["dfb__cdf_offset"])
     np.testing.assert_allclose(em.quantization_offset.numpy(),
@@ -182,7 +183,8 @@ def test_carried_weights(models):
     cdf, cdf_offset, offset = jem.get_weights()
     carried = ContinuousBatchedEntropyModel(
         prior_shape=(CHANNELS,), cdf=cdf, cdf_offset=cdf_offset,
-        quantization_offset=offset, coding_rank=3, compression=True)
+        quantization_offset=offset, coding_rank=3, compression=True,
+        device="cpu")
     y = torch.as_tensor(_latent(3, 30.0))
     for a, b in zip(carried.compress_sidecar_device(y),
                     same.compress_sidecar_device(y)):
