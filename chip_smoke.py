@@ -8,19 +8,31 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, one JSON line each (any failure exits non-zero):
   1. card: nvidia-smi name and power limit, torch/CUDA versions, TF32 flags;
   2. build: nvcc builds every kernel under compression_tpu_torch/codec/csrc;
-  3. kernels: each of the six kernels against its plain PyTorch version on
+  3. kernels: each of the nine kernels against its plain PyTorch version on
      the card, all results identical --
-     K1/K2 (indexed sidecar) at the native path's shapes, on a stress shape,
-     on every golden case of tests/golden/golden.npz (bytes equal the
+     K1/K2 (indexed sidecar) at the shapes both models' native containers
+     and bmshj2018's classic z stream give them, on a stress shape, on
+     every golden case of tests/golden/golden.npz (bytes equal the
      reference coder's) and on corrupted streams;
      K4'/K5' (single row) at the coder micro-bench's regime (32768 streams x
      512 symbols of a zipf row at precision 12), on every golden case and
      on corrupted streams;
-     K6'/K3' (in-stream gamma) at the classic container's shape (one stream
-     of a 512x512 image's latent), on 8192 x 512 of a 64-row Gaussian
-     overflow table with escapes at rate 2^-8, on one 8192-symbol stream,
-     on escapes of every size up to the INT32 extremes and on corrupted
-     streams;
+     K6'/K3' (in-stream gamma) on the classic containers' one stream of a
+     512x512 image's latent (bls2017: 1 x 131072 on its 128-row table;
+     bmshj2018: y, 1 x 196608 on its 64-row table with the escapes the
+     seeded model gives it, and z, 1 x 12288), on 8192 x 512 of a 64-row
+     Gaussian overflow table with escapes at rate 2^-8, on one 8192-symbol
+     stream, on escapes of every size up to the INT32 extremes and on
+     corrupted streams;
+     K7' (pair lookup) and K6 in its micro-op mode on what compress_device
+     gives them for those y and z latents (1 x 196608 indices and
+     198848 x 1 micro-ops for y), K7' also at 512 x 32768 indices into
+     both of bmshj2018's tables, with the one PyTorch call that computes
+     the same, flat[idx] and flat[idx + 1], timed beside it, and the
+     micro-op mode also against K6''s bytes at 8192 x 512 with escapes at
+     2^-8;
+     K8' (bucketed single-row decode) against its plain version and against
+     K5' at 32768 x 512, on every golden case and on corrupted streams;
   4. main paths, each with the launch counts reset just before it and read
      just after: (a) bls2017 at num_filters=128 (seeded init, its own
      tables) on a 512x512 and a 768x512 image through compress_native /
@@ -28,12 +40,27 @@ Phases, one JSON line each (any failure exits non-zero):
      decompress_native_many; (b) the same images through the classic
      .tfci container, compress / decompress, and a latent scaled past the
      table through the entropy model's compress / decompress; (c) the coder
-     front end, encode_streams / decode_streams, at the micro-bench regime;
-  5. reference: the CPU codec writes the same containers on a small image,
-     and the reference's golden_model.npz .tfci container decodes on the
-     card to its exact uint8 image;
+     front end, encode_streams / decode_streams, and the second single-row
+     decoder on the same streams, at the micro-bench regime; (d) bmshj2018 at
+     num_filters=192 (seeded init, its own tables, nothing cut) on the same
+     two image sizes through both containers, the *_many calls and
+     reconstruct, and on latents scaled past the tables; (e) compress_device
+     / decompress_device of both of its entropy models on the 512x512
+     image's latents under the default budget (y as the seeded model
+     gives it; shrunk free of escapes with 40 large ones planted; and the
+     seeded one with 200 large ones on top, which the budget must report
+     as too many), with no copy to the host before the result is asked
+     for;
+  5. reference: the CPU codecs write the same containers on a small image;
+     the reference's golden_model.npz .tfci container decodes on the card to
+     its exact uint8 image; golden_bmshj.npz (24 filters) and
+     golden_bmshj_full.npz (192 filters, weights regenerated by
+     tests/golden/synth_weights.py) decode on the card to their uint8
+     images, code their golden latents to the reference's strings, and the
+     tables built here equal theirs;
   6. times: kernels and plain versions at the main paths' shapes (CUDA
-     events), their bounds, and end-to-end ms per image of both containers.
+     events), their bounds, and end-to-end ms per image of both containers
+     of both models.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.  Nothing of
@@ -70,6 +97,16 @@ SINGLE_ROW_SHAPE = (32768, 512)
 # The indexed in-stream regime (bench.py bench_indexed) and one long stream.
 GAMMA_SHAPE = (8192, 512)
 LONG_STREAM = (1, 8192)
+# bmshj2018 at the reference's published width, and K7''s shape.
+BMSHJ_FILTERS = 192
+PAIR_LOOKUP_SHAPE = (512, 32768)
+# compress_device's default budget: 64 escapes of 2 * 16 + 3 slots each.
+ESCAPE_BUDGET = 64
+MICRO_SLOTS = 2 * 16 + 3
+# A rounded pixel may differ from a golden image only where the float image
+# lies this close to a rounding boundary (the float error of the transforms
+# between two implementations reaches 1e-4).
+PIXEL_BOUNDARY = 2e-4
 # (kernel name, source, TPU kernel it replaces)
 KERNELS = [
     ("encode_indexed", "encode_indexed.cu", "pallas_coder.py:1819"),
@@ -78,6 +115,9 @@ KERNELS = [
     ("encode_single_row", "encode_indexed.cu", "pallas_coder.py:1542"),
     ("decode_single_row", "decode_indexed.cu", "pallas_coder.py:637"),
     ("encode_gamma", "encode_indexed.cu", "pallas_coder.py:134"),
+    ("encode_scan", "encode_indexed.cu", "pallas_coder.py:134"),
+    ("pair_lookup", "pair_lookup.cu", "pallas_coder.py:1924"),
+    ("decode_single_row_bucketed", "decode_indexed.cu", "pallas_coder.py:319"),
 ]
 
 
@@ -237,13 +277,22 @@ def compare_single_row(name, table, symbols, fails, expect=None):
         lambda b, ln, c, m: cc.decode_single_row(b, ln, n, c, m),
         cc.decode_single_row_plain, (out_k, len_k, cdf, meta))
     exact = bool(torch.equal(sym_k, symbols if expect is None else expect))
+    # K8', the second single-row decoder: its plain version, and K5'.
+    sym_b, san_b, buck_ok, buck_ms = check_decode(
+        "decode_single_row_bucketed",
+        lambda b, ln, *row: cc.decode_single_row_bucketed(b, ln, n, *row),
+        cc.decode_single_row_bucketed_plain,
+        (out_k, len_k) + table.bucketed_arrays())
+    agree = bool(torch.equal(sym_b, sym_k) and torch.equal(san_b, san_k))
     log("kernels", case=name, streams=int(symbols.shape[0]), symbols=n,
         rows=1, max_precision=int(meta[0, 1]), encode_identical=enc_ok,
         decode_identical=dec_ok, sanity_all=bool(san_k.all()),
-        round_trip=exact)
-    if not (enc_ok and dec_ok and exact and bool(san_k.all())):
+        round_trip=exact, bucketed_identical=buck_ok,
+        bucketed_equals_single_row=agree)
+    if not (enc_ok and dec_ok and exact and bool(san_k.all()) and buck_ok
+            and agree):
         fails.append(name)
-    return out_k, len_k, enc_ms, dec_ms
+    return out_k, len_k, enc_ms, dec_ms, buck_ms
 
 
 def compare_gamma(name, table, symbols, indexes, fails, round_trip=True):
@@ -273,6 +322,49 @@ def compare_gamma(name, table, symbols, indexes, fails, round_trip=True):
     return out_k, len_k, intervals, enc_ms, dec_ms
 
 
+def compare_micro(name, table, symbols, indexes, escape_budget, fails):
+    """K7' and K6's micro-op mode against their plain versions on what
+    compress_device gives them for these symbols: the expansion's table
+    indices, and its micro-ops at the budget's scan length.  Also holds
+    the micro-op mode's bytes against K6''s on the same symbols.  Returns
+    (K7' inputs, micro-ops, bytes, lengths, plain scan ms)."""
+    import torch
+    from compression_tpu_torch.codec import cuda_coder as cc
+    cdf, meta = table.indexed_arrays()
+    n = int(symbols.shape[1])
+    # The scan length and row width of continuous_base.compress_budgeted.
+    num_steps = -(-(n + escape_budget * MICRO_SLOTS) // 64) * 64
+    out_size = -(-(2 * num_steps + 2) // 4) * 4
+    seen = []
+
+    def lookup(flat, idx):
+        seen.append((flat, idx))
+        return cc.pair_lookup(flat, idx)
+
+    ops = tuple(t.contiguous() for t in cc.gamma_micro_ops(
+        symbols, indexes, cdf, meta, num_steps, MICRO_SLOTS, lookup=lookup))
+    flat, idx = seen[0]
+    lo_k, hi_k = cc.pair_lookup(flat, idx)
+    lo_p, hi_p = cc.pair_lookup_plain(flat, idx)
+    pair_ok = bool(torch.equal(lo_k, lo_p) and torch.equal(hi_k, hi_p))
+    MAX_ABS_ERR["pair_lookup"] = max(
+        MAX_ABS_ERR["pair_lookup"], _err((lo_k, lo_p), (hi_k, hi_p)))
+    buf, lens, scan_ok, scan_ms = check_encode(
+        "encode_scan", cc.encode_scan, cc.encode_scan_plain, ops, out_size)
+    gbuf, glens = cc.encode_gamma(symbols, indexes, cdf, meta, out_size)
+    fits = bool((cc.interval_counts(symbols, indexes, meta)[0].sum(1)
+                 <= num_steps).all())
+    same = bool(torch.equal(buf, gbuf) and torch.equal(lens, glens))
+    log("kernels", case=name, pair_lookup_shape=list(idx.shape),
+        table_bytes=int(flat.numel() * 4), micro_ops=list(ops[0].shape),
+        coded=int(ops[3].sum()), budget_holds=fits,
+        pair_lookup_identical=pair_ok, encode_scan_identical=scan_ok,
+        equals_encode_gamma=same)
+    if not (pair_ok and scan_ok and fits and same):
+        fails.append(name)
+    return (flat, idx), ops, buf, lens, scan_ms
+
+
 def golden_cases(table_cls, device, fails):
     """Every golden.npz case through K1/K2 (on an indexed table) and K4'/K5'
     (on its single row): kernel bytes == reference bytes == plain."""
@@ -297,7 +389,7 @@ def golden_cases(table_cls, device, fails):
         got = out[0, : int(lens[0])].cpu().numpy().tobytes()
         dec, san = torch_coder.decode_dispatch(out, lens, sym.shape[1], table,
                                                idx)
-        out1, lens1, _, _ = compare_single_row(
+        out1, lens1, _, _, _ = compare_single_row(
             f"golden/{name}/single_row", table, sym, fails_here)
         got1 = out1[0, : int(lens1[0])].cpu().numpy().tobytes()
         if fails_here or got != ref or got1 != ref \
@@ -306,7 +398,8 @@ def golden_cases(table_cls, device, fails):
     log("golden", cases=len(names), kernels=["encode_indexed",
                                              "decode_indexed",
                                              "encode_single_row",
-                                             "decode_single_row"],
+                                             "decode_single_row",
+                                             "decode_single_row_bucketed"],
         mismatched=bad)
     fails.extend(f"golden/{b}" for b in bad)
 
@@ -424,6 +517,99 @@ def e2e_times(compress, decompress, img, runs=10):
             "container_bytes": len(container)}
 
 
+def pixels_off(codec, container, expect):
+    """(pixels that differ from ``expect``, pixels that differ although
+    the float image is not within PIXEL_BOUNDARY of a rounding boundary,
+    the least distance of any pixel from a boundary)."""
+    import torch
+    with torch.no_grad():
+        y_hat, _, x_hw = codec._decode_latent(codec._unpack(container))
+        x_float = codec.model.decode(y_hat)[0, : x_hw[0], : x_hw[1]]
+        x_float = x_float.cpu().numpy()
+    out = codec.decompress(container)
+    margin = np.abs(x_float - np.floor(x_float) - 0.5)
+    off = out != expect
+    unexplained = off & ((margin >= PIXEL_BOUNDARY) | (
+        np.abs(out.astype(int) - expect.astype(int)) > 1))
+    return int(off.sum()), int(unexplained.sum()), float(margin.min())
+
+
+def golden_strings(gold, prefix):
+    sizes = gold[f"{prefix}_nbytes"]
+    buf = gold[f"{prefix}_bytes"].tobytes()
+    out, off = [], 0
+    for n in sizes:
+        out.append(buf[off:off + int(n)])
+        off += int(n)
+    return out
+
+
+def synthesized_weights(gold):
+    """The weights of a full-width golden fixture, regenerated from their
+    names by tests/golden/synth_weights.py (numpy and hashlib only, loaded
+    by path) and checked against the fixture's digests."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "synth_weights", os.path.join(REPO, "tests", "golden",
+                                      "synth_weights.py"))
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    manifest = json.loads(gold["manifest"].tobytes().decode())
+    tf_vars = {}
+    for name, (shape, digest) in manifest.items():
+        tf_vars[name] = synth.synth(name, shape)
+        if synth.digest(tf_vars[name]) != digest:
+            raise RuntimeError(f"synthesized weight drifted: {name}")
+    return tf_vars
+
+
+def golden_bmshj(fixture, weights, device, fails):
+    """A bmshj2018 golden fixture on the card: tables built here equal the
+    reference's, the golden latents code to its strings, compress writes
+    them too, and its container decodes to its uint8 image (a pixel may
+    differ only within PIXEL_BOUNDARY of a rounding boundary)."""
+    import torch
+    from compression_tpu_torch.models import bmshj2018
+    from compression_tpu_torch.util.packed_tensors import PackedTensors
+    gold = dict(np.load(os.path.join(REPO, "tests", "golden", fixture)))
+    model = bmshj2018.BMSHJ2018Model(num_filters=int(gold["num_filters"]),
+                                     num_scales=int(gold["num_scales"]))
+    model.load_state_dict(bmshj2018.params_from_tf(weights(gold)))
+    codec = bmshj2018.BMSHJ2018Codec(model, device=device)
+    with torch.no_grad():
+        z = torch.as_tensor(gold["z"], device=device)
+        y = torch.as_tensor(gold["y"], device=device)
+        indexes = codec._indexes(codec.side_em.quantize(z), y.shape[1:3])
+        from_latents = (codec.em.compress_to_strings(y, indexes),
+                        codec.side_em.compress_to_strings(z))
+        my, mz, _ = codec._encode(codec._upload(gold["x_test"]))
+    own = PackedTensors(codec.compress(gold["x_test"])).unpack(
+        ["bytes", "bytes", np.int32, np.int32, np.int32])[:2]
+    ref = (golden_strings(gold, "y"), golden_strings(gold, "z"))
+    off, unexplained, margin = pixels_off(
+        codec, gold["container"].tobytes(), gold["x_hat_uint8"])
+    result = {
+        "tables_equal": bool(
+            np.array_equal(codec.em.cdf, gold["cdf_y"])
+            and np.array_equal(codec.em.cdf_offset, gold["cdf_offset_y"])
+            and np.array_equal(codec.side_em.cdf, gold["cdf_z"])
+            and np.array_equal(codec.side_em.cdf_offset,
+                               gold["cdf_offset_z"])),
+        "latents_max_abs_err": max(
+            float((my.cpu() - torch.as_tensor(gold["y"])).abs().max()),
+            float((mz.cpu() - torch.as_tensor(gold["z"])).abs().max())),
+        "strings_from_latents_equal": from_latents == ref,
+        "strings_from_image_equal": tuple(own) == ref,
+        "pixels_off": off, "pixels_off_unexplained": unexplained,
+        "least_distance_from_boundary": margin}
+    log("golden_bmshj", fixture=fixture,
+        num_filters=int(gold["num_filters"]), **result)
+    if not (result["tables_equal"] and result["strings_from_latents_equal"]
+            and result["strings_from_image_equal"] and unexplained == 0
+            and result["latents_max_abs_err"] < 3e-4):
+        fails.append(f"golden_bmshj/{fixture}")
+
+
 def main():
     try:
         import torch
@@ -441,7 +627,7 @@ def main():
     sys.path.insert(0, REPO)
     from compression_tpu_torch.codec import cuda_coder as cc
     from compression_tpu_torch.codec import torch_coder
-    from compression_tpu_torch.models import bls2017, native_format
+    from compression_tpu_torch.models import bls2017, bmshj2018, native_format
     from compression_tpu_torch.util.packed_tensors import PackedTensors
 
     t_start = time.time()
@@ -529,7 +715,7 @@ def main():
     zcdf, zmeta = ztable.indexed_arrays()
     zsym = torch.as_tensor(np.random.RandomState(0).choice(
         256, size=SINGLE_ROW_SHAPE, p=zpmf).astype(np.int32), device=device)
-    zbuf, zlens, k4_plain, k5_plain = compare_single_row(
+    zbuf, zlens, k4_plain, k5_plain, k8_plain = compare_single_row(
         "single_row/zipf", ztable, zsym, fails)
     n_z = SINGLE_ROW_SHAPE[1]
     clipped = zsym.clone()
@@ -540,6 +726,12 @@ def main():
                   lambda b, ln, c, m: cc.decode_single_row(b, ln, n_z, c, m),
                   cc.decode_single_row_plain, zbuf[:4096].contiguous(),
                   zlens[:4096].contiguous(), (zcdf, zmeta), 6, fails)
+    corrupt_cases("decode_single_row_bucketed",
+                  lambda b, ln, *row: cc.decode_single_row_bucketed(
+                      b, ln, n_z, *row),
+                  cc.decode_single_row_bucketed_plain,
+                  zbuf[:4096].contiguous(), zlens[:4096].contiguous(),
+                  ztable.bucketed_arrays(), 6, fails)
     golden_cases(torch_coder.DeviceCdfTable, device, fails)
 
     # K6'/K3': the bench's indexed regime with escapes at rate 2^-8, one
@@ -589,6 +781,96 @@ def main():
     cidx = crow.to(torch.int32)[None].expand_as(csym).contiguous()
     cbuf, clens, c_intervals, k6_plain, k3_plain = compare_gamma(
         f"gamma/classic_{first}", table, csym, cidx, fails)
+
+    # The bmshj2018 codec at full width: its tables give K7' its shapes.
+    t0 = time.time()
+    hcodec = bmshj2018.BMSHJ2018Codec(
+        bmshj2018.BMSHJ2018Model(num_filters=BMSHJ_FILTERS, seed=0),
+        device=device)
+    ytable, htable = hcodec.em.device_table, hcodec.side_em.device_table
+    log("codec", model="bmshj2018", num_filters=BMSHJ_FILTERS,
+        seconds=round(time.time() - t0, 3),
+        y_table=[ytable.num_rows, ytable.max_len],
+        z_table=[htable.num_rows, htable.max_len],
+        latent_depth=hcodec.latent_depth)
+
+    # The kernels at the shapes bmshj2018's main path gives them for the
+    # first image: K1/K2 on the native containers' y and z streams; K1,
+    # K6' and K3' on the classic container's one y and one z stream (an
+    # escape-free latent is encoded by K1, one with escapes by K6', both
+    # are decoded by K3'); K7' and the micro-op mode on what
+    # compress_device expands those streams into.
+    ycdf, ymeta = ytable.indexed_arrays()
+    with torch.no_grad():
+        hy, hz, hidx = hcodec._encode(hcodec._upload(images[first]))
+        ysym, yidx1, _ = hcodec.em._symbols(hy, hidx)
+        zsym1, _, zrow = hcodec.side_em._symbols_from_bottleneck(hz)
+        zidx1 = zrow.to(torch.int32)[None].expand_as(zsym1).contiguous()
+        ysym_n, yidx_n, _ = hcodec.em._symbols(
+            native_format.to_streams(hy), native_format.to_streams(hidx))
+        zsym_n, _, zrow_n = hcodec.side_em._symbols_from_bottleneck(
+            native_format.to_streams(hz))
+        zidx_n = zrow_n.to(torch.int32)[None].expand_as(zsym_n).contiguous()
+    y_counts, y_escape, _, _ = cc.interval_counts(ysym, yidx1, ymeta)
+    y_natural = int(y_escape.sum())
+    log("main_shape", model="bmshj2018", image=first,
+        y_native=list(ysym_n.shape), z_native=list(zsym_n.shape),
+        y_classic=list(ysym.shape), z_classic=list(zsym1.shape),
+        y_escapes=y_natural,
+        z_escapes=int(cc.interval_counts(
+            zsym1, zidx1, htable.indexed_arrays()[1])[1].sum()))
+    for label, tab, sym_c, idx_c in (
+            ("bmshj2018/y_native", ytable, ysym_n, yidx_n),
+            ("bmshj2018/z_native", htable, zsym_n, zidx_n),
+            ("bmshj2018/z_classic", htable, zsym1, zidx1)):
+        compare_kernels(label, tab, sym_c.contiguous(), idx_c.contiguous(),
+                        torch_coder.stream_out_size(sym_c.shape[1]), fails)
+    ybuf1, ylens1, _, k6_plain_y, k3_plain_y = compare_gamma(
+        "gamma/bmshj2018/y_classic", ytable, ysym.contiguous(),
+        yidx1.contiguous(), fails)
+    compare_gamma("gamma/bmshj2018/z_classic", htable, zsym1.contiguous(),
+                  zidx1, fails)
+    ypair, yops, ysbuf, yslens, scan_plain_y = compare_micro(
+        "micro/bmshj2018/y", ytable, ysym.contiguous(), yidx1.contiguous(),
+        ESCAPE_BUDGET, fails)
+    compare_micro("micro/bmshj2018/z", htable, zsym1.contiguous(), zidx1,
+                  ESCAPE_BUDGET, fails)
+
+    # K7' at 512 x 32768 indices into the y table and the z table.
+    pair_inputs = {}
+    prng = np.random.RandomState(4)
+    for label, tab in (("y_table", ytable), ("z_table", htable)):
+        flat = tab.indexed_arrays()[0].reshape(-1)
+        rows = prng.randint(0, tab.num_rows, PAIR_LOOKUP_SHAPE)
+        vq = prng.randint(0, 1 << 30, PAIR_LOOKUP_SHAPE) % (
+            np.asarray(tab.host.length)[rows] - 1)
+        pidx2 = torch.as_tensor((rows * tab.max_len + vq).astype(np.int32),
+                                device=device)
+        lo_k, hi_k = cc.pair_lookup(flat, pidx2)
+        lo_p, hi_p = cc.pair_lookup_plain(flat, pidx2)
+        same = bool(torch.equal(lo_k, lo_p) and torch.equal(hi_k, hi_p))
+        MAX_ABS_ERR["pair_lookup"] = max(
+            MAX_ABS_ERR["pair_lookup"], _err((lo_k, lo_p), (hi_k, hi_p)))
+        log("kernels", case=f"pair_lookup/{label}",
+            shape=list(PAIR_LOOKUP_SHAPE), table_bytes=int(flat.numel() * 4),
+            identical=same)
+        if not same:
+            fails.append(f"pair_lookup/{label}")
+        pair_inputs[label] = (flat, pidx2)
+
+    # K6 in its micro-op mode: the expansion of the Gaussian regime's data,
+    # scanned by the kernel, against the plain recurrence and K6''s bytes.
+    gops = cc.gamma_micro_ops(gsym_t, gidx_t, gcdf, gmeta)
+    gops = tuple(t.contiguous() for t in gops)
+    sbuf, slens, scan_ok, scan_plain = check_encode(
+        "encode_scan", cc.encode_scan, cc.encode_scan_plain, gops,
+        gbuf.shape[1])
+    scan_same = bool(torch.equal(sbuf, gbuf) and torch.equal(slens, glens))
+    log("kernels", case="encode_scan/gaussian", steps=int(gops[0].shape[0]),
+        streams=int(gops[0].shape[1]), coded=int(gops[3].sum()),
+        identical=scan_ok, equals_encode_gamma=scan_same)
+    if not (scan_ok and scan_same):
+        fails.append("encode_scan/gaussian")
 
     # Phase 4a: the native container (PR 1's main path).
     reset_counts()
@@ -696,15 +978,211 @@ def main():
     reset_counts()
     fbuf, flens = torch_coder.encode_streams(zsym, ztable)
     fsym, fok = torch_coder.decode_streams(fbuf, flens, n_z, ztable)
+    # The second, independent single-row decoder on the same streams.
+    bsym, bok = cc.decode_single_row_bucketed(fbuf, flens, n_z,
+                                              *ztable.bucketed_arrays())
     front_launches, front_paths = read_counts(("encode", "decode"))
     front_ok = bool(torch.equal(fsym, zsym) and fok.all()
-                    and torch.equal(fbuf, zbuf))
+                    and torch.equal(fbuf, zbuf) and torch.equal(bsym, fsym)
+                    and torch.equal(bok, fok))
     log("coder_front_end", shape=list(SINGLE_ROW_SHAPE), round_trip=front_ok,
         launches=front_launches, dispatch=front_paths)
     if not (front_ok and front_launches["encode_single_row"] == 1
             and front_launches["decode_single_row"] == 1
+            and front_launches["decode_single_row_bucketed"] == 1
             and set(front_paths.values()) == {"cuda-single"}):
         fails.append("coder_front_end")
+
+    # Phase 4d: bmshj2018 at full width through both containers.
+    # Predicted launches per image: native compress 2 x K1 (y and z),
+    # native decompress 2 x K2, classic compress 2 encodes (K1 for a latent
+    # without escapes, else K6'), classic decompress 2 x K3'.
+    reset_counts()
+    hyper_ok = True
+    calls = {"native_compress": 0, "native_decompress": 0,
+             "classic_compress": 0, "classic_decompress": 0}
+    for name, img in images.items():
+        native = hcodec.compress_native(img)
+        classic_c = hcodec.compress(img)
+        recon = hcodec.reconstruct(img)
+        from_native = hcodec.decompress(native)
+        from_classic = hcodec.decompress(classic_c)
+        calls["native_compress"] += 1
+        calls["classic_compress"] += 1
+        calls["native_decompress"] += 1
+        calls["classic_decompress"] += 1
+        exact = bool(np.array_equal(from_native, recon)
+                     and np.array_equal(from_classic, recon))
+        hyper_ok &= exact and recon.shape == img.shape and (
+            recon.dtype == np.uint8) and (
+                PackedTensors(native).num_tensors == 9) and (
+                    PackedTensors(classic_c).num_tensors == 5)
+        pixels = img.shape[0] * img.shape[1]
+        log("bmshj2018_path", image=name, native_bytes=len(native),
+            classic_bytes=len(classic_c),
+            native_bits_per_pixel=8 * len(native) / pixels,
+            classic_bits_per_pixel=8 * len(classic_c) / pixels,
+            decompress_equals_reconstruct=exact, shape=list(recon.shape))
+    hmany = hcodec.compress_native_many(batch)
+    calls["native_compress"] += len(batch)
+    hsingle = [hcodec.compress_native(x) for x in batch]
+    calls["native_compress"] += len(batch)
+    mixed = hmany + [hcodec.compress(batch[1])]
+    calls["classic_compress"] += 1
+    hdec = hcodec.decompress_native_many(mixed)
+    hmany_ok = hmany == hsingle and all(
+        np.array_equal(a, hcodec.decompress(c)) for a, c in zip(hdec, mixed))
+    calls["native_decompress"] += 2 * len(hmany)
+    calls["classic_decompress"] += 2
+    hyper_launches, hyper_paths = read_counts(
+        ("encode", "decode", "decode_sidecar"))
+    expect = {
+        "encode_indexed+encode_gamma": 2 * (calls["native_compress"]
+                                            + calls["classic_compress"]),
+        "decode_indexed": 2 * calls["native_decompress"],
+        "decode_gamma": 2 * calls["classic_decompress"]}
+    got = {
+        "encode_indexed+encode_gamma": hyper_launches["encode_indexed"]
+        + hyper_launches["encode_gamma"],
+        "decode_indexed": hyper_launches["decode_indexed"],
+        "decode_gamma": hyper_launches["decode_gamma"]}
+    log("bmshj2018_many", images=len(batch), containers_equal=hmany_ok,
+        calls=calls, launches=hyper_launches, expected=expect,
+        dispatch=hyper_paths)
+    if not (hyper_ok and hmany_ok and got == expect
+            and all(p.startswith("cuda-") for p in hyper_paths.values())):
+        fails.append("bmshj2018_path")
+
+    # Latents scaled past the tables: escapes in the streams (classic) and
+    # in the sidecar (native); both decode to the quantized latents.
+    with torch.no_grad():
+        hy_wide = hy * (2.0 * ytable.max_len / float(hy.abs().max()))
+        hz_wide = hz * (4.0 * htable.max_len / float(hz.abs().max()))
+        y_strings = hcodec.em.compress_to_strings(hy_wide, hidx)
+        y_route = torch_coder.DISPATCH_LOG["encode"]
+        z_strings = hcodec.side_em.compress_to_strings(hz_wide)
+        y_back = hcodec.em.decompress(y_strings, hidx)
+        z_back = hcodec.side_em.decompress(z_strings, tuple(hz.shape[1:3]))
+        y_side = hcodec.em.compress_sidecar_device(
+            native_format.to_streams(hy_wide), native_format.to_streams(hidx))
+        y_rows, y_sane = hcodec.em.decompress_sidecar_device(
+            y_side[0], y_side[1], native_format.to_streams(hidx), y_side[2],
+            y_side[3])
+    wide_hyper_ok = bool(
+        torch.equal(y_back, hcodec.em.quantize(hy_wide))
+        and torch.equal(z_back, hcodec.side_em.quantize(hz_wide))
+        and torch.equal(y_rows.reshape(hy.shape),
+                        hcodec.em.quantize(hy_wide)) and y_sane.all())
+    log("bmshj2018_escapes", image=first, y_escapes=int(y_side[2].numel()),
+        y_encode_route=y_route, y_stream_bytes=len(y_strings[0]),
+        z_stream_bytes=len(z_strings[0]),
+        decode_equals_quantize=wide_hyper_ok)
+    if not (wide_hyper_ok and y_side[2].numel() > 0
+            and y_route == "cuda-gamma"):
+        fails.append("bmshj2018_escapes")
+
+    # Phase 4e: compress_device / decompress_device of both entropy models
+    # on the first image's latents, under the default budget.  Three y
+    # latents: the seeded model's own (it has escapes, and they fit); the
+    # same shrunk until it has none, with 40 values pushed far past its
+    # rows; and the seeded one with 200 such values on top, whose intervals
+    # outnumber the scan's steps, so that ``ok`` must come back False.
+    # Predicted launches per compress_device: 1 x K7' + 1 x K6 micro-op
+    # mode; per decompress_device 1 x K3'.
+    with torch.no_grad():
+        shrink = 1.0
+        while int(cc.interval_counts(*hcodec.em._symbols(
+                hy * shrink, hidx)[:2], ymeta)[1].sum()):
+            shrink *= 0.5
+        pos = torch.as_tensor(prng.choice(hy.numel(), 200, replace=False),
+                              device=device)
+        far = torch.as_tensor(
+            prng.choice([-1.0, 1.0], 200) * prng.randint(2000, 60000, 200),
+            dtype=torch.float32, device=device)
+
+        def planted(latent, count):
+            flat = latent.reshape(-1).clone()
+            flat[pos[:count]] = far[:count]
+            return flat.reshape(hy.shape)
+
+        hy_esc, hy_over = planted(hy * shrink, 40), planted(hy, 200)
+        over_intervals = int(cc.interval_counts(*hcodec.em._symbols(
+            hy_over, hidx)[:2], ymeta)[0].sum())
+        scan_steps = -(-(ysym.shape[1] + ESCAPE_BUDGET * MICRO_SLOTS)
+                       // 64) * 64
+        ref_y = hcodec.em.compress(hy, hidx)
+        ref_planted = hcodec.em.compress(hy_esc, hidx)
+        ref_z = hcodec.side_em.compress(hz)
+        # Once outside the check, so that tables and offsets are on the
+        # card; then again with every wait for the card made an error.
+        hcodec.em.compress_device(hy_esc, hidx)
+        hcodec.side_em.compress_device(hz)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dev_y = hcodec.em.compress_device(hy, hidx,
+                                              escape_budget=ESCAPE_BUDGET)
+            route_y = torch_coder.DISPATCH_LOG["encode"]
+            dev_planted = hcodec.em.compress_device(
+                hy_esc, hidx, escape_budget=ESCAPE_BUDGET)
+            dev_over = hcodec.em.compress_device(
+                hy_over, hidx, escape_budget=ESCAPE_BUDGET)
+            dev_z = hcodec.side_em.compress_device(
+                hz, escape_budget=ESCAPE_BUDGET)
+            back_y, sane_y = hcodec.em.decompress_device(
+                dev_y[0].reshape(1, -1), dev_y[1].reshape(1), hidx)
+            back_planted, sane_planted = hcodec.em.decompress_device(
+                dev_planted[0].reshape(1, -1), dev_planted[1].reshape(1),
+                hidx)
+            back_z, sane_z = hcodec.side_em.decompress_device(
+                dev_z[0].reshape(1, -1), dev_z[1].reshape(1),
+                tuple(hz.shape[1:3]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    device_launches, device_paths = read_counts(("encode", "decode"))
+
+    def same_stream(dev, ref):
+        n = int(ref[1].reshape(-1)[0])
+        return bool(torch.equal(dev[1].reshape(-1), ref[1].reshape(-1))
+                    and torch.equal(dev[0].reshape(-1)[:n],
+                                    ref[0].reshape(-1)[:n])
+                    and not dev[0].reshape(-1)[n:].any())
+
+    device_ok = {
+        "ok_y": bool(dev_y[2]), "ok_planted": bool(dev_planted[2]),
+        "ok_z": bool(dev_z[2]),
+        "over_budget_reported": over_intervals > scan_steps
+        and not bool(dev_over[2]),
+        "y_bytes_equal_compress": same_stream(dev_y, ref_y),
+        "planted_bytes_equal_compress": same_stream(dev_planted,
+                                                    ref_planted),
+        "z_bytes_equal_compress": same_stream(dev_z, ref_z),
+        "y_round_trip": bool(torch.equal(back_y, hcodec.em.quantize(hy))
+                             and sane_y.all()),
+        "planted_round_trip": bool(
+            torch.equal(back_planted, hcodec.em.quantize(hy_esc))
+            and sane_planted.all()),
+        "z_round_trip": bool(torch.equal(back_z.reshape(hz.shape),
+                                         hcodec.side_em.quantize(hz))
+                             and sane_z.all()),
+        "no_wait_for_the_card": True}
+    log("compress_device", y_shape=list(hy.shape), z_shape=list(hz.shape),
+        escape_budget=ESCAPE_BUDGET, scan_steps=scan_steps,
+        y_escapes=y_natural, y_intervals=int(y_counts.sum()),
+        planted_escapes=40, planted_latent_shrunk_by=shrink,
+        over_budget_planted=200, over_budget_intervals=over_intervals,
+        y_stream_bytes=int(dev_y[1].reshape(-1)[0]),
+        planted_stream_bytes=int(dev_planted[1].reshape(-1)[0]),
+        z_stream_bytes=int(dev_z[1].reshape(-1)[0]), route=route_y,
+        launches=device_launches, dispatch=device_paths, **device_ok)
+    if not (all(device_ok.values()) and route_y == "cuda-micro"
+            and y_natural > 0
+            and device_launches["pair_lookup"] == 4
+            and device_launches["encode_scan"] == 4
+            and device_launches["decode_gamma"] == 3
+            and device_launches["encode_gamma"] == 0):
+        fails.append("compress_device")
 
     # Phase 5: reference on a small input -- the CPU codec (plain coder)
     # given the same latent and tables writes the same containers.
@@ -752,6 +1230,35 @@ def main():
     if not all(v for k, v in golden_ok.items() if k != "pixels_off"):
         fails.append("golden_model")
 
+    # bmshj2018: the CPU codec (plain coder) writes the same containers
+    # from the same latents, and the golden fixtures.
+    hcpu = bmshj2018.BMSHJ2018Codec(
+        bmshj2018.BMSHJ2018Model(num_filters=BMSHJ_FILTERS, seed=0),
+        device="cpu",
+        tables=(hcodec.em.get_weights(), hcodec.side_em.get_weights()))
+    with torch.no_grad():
+        sy, sz, sidx = hcodec._encode(hcodec._upload(small))
+        sy = sy * 3.0  # some escapes
+        on_card = (hcodec.em.compress_to_strings(sy, sidx),
+                   hcodec.side_em.compress_to_strings(sz),
+                   hcodec.em.compress_sidecar_device(sy, sidx),
+                   hcodec.em.compress_device(sy, sidx))
+        on_cpu = (hcpu.em.compress_to_strings(sy.cpu(), sidx.cpu()),
+                  hcpu.side_em.compress_to_strings(sz.cpu()),
+                  hcpu.em.compress_sidecar_device(sy.cpu(), sidx.cpu()),
+                  hcpu.em.compress_device(sy.cpu(), sidx.cpu()))
+    small_hyper = {
+        "classic_strings_identical": on_card[:2] == on_cpu[:2],
+        "sidecar_identical": all(torch.equal(a.cpu(), b) for a, b in zip(
+            on_card[2], on_cpu[2])),
+        "compress_device_identical": all(
+            torch.equal(a.cpu(), b) for a, b in zip(on_card[3], on_cpu[3]))}
+    log("reference_small_bmshj2018", image="64x96", **small_hyper)
+    if not all(small_hyper.values()):
+        fails.append("reference_small_bmshj2018")
+    golden_bmshj("golden_bmshj.npz", lambda gold: gold, device, fails)
+    golden_bmshj("golden_bmshj_full.npz", synthesized_weights, device, fails)
+
     # Phase 6: times at the main paths' shapes.
     saved = dict(cc.LAUNCHES)
     symbols, idx, out_size, buf, lens = main_inputs[first]
@@ -772,7 +1279,19 @@ def main():
             csym, cidx, cdf, meta, cbuf.shape[1]), 5),
         "decode_gamma": cuda_ms(lambda: cc.decode_gamma(
             cbuf, clens, cidx, cdf, meta), 5),
+        "encode_scan": cuda_ms(lambda: cc.encode_scan(
+            *yops, ysbuf.shape[1]), 5),
+        "pair_lookup": cuda_ms(lambda: cc.pair_lookup(*ypair), 50),
+        "decode_single_row_bucketed": cuda_ms(
+            lambda: cc.decode_single_row_bucketed(
+                zbuf, zlens, n_z, *ztable.bucketed_arrays()), 20),
     }
+    yflat, yidx2 = pair_inputs["y_table"]
+    yidx_long, ypair_long = yidx2.long(), ypair[1].long()
+    # The one PyTorch call that computes K7''s function: two gathers.
+    library_ms = {name: None for name, _, _ in KERNELS}
+    library_ms["pair_lookup"] = cuda_ms(
+        lambda: (ypair[0][ypair_long], ypair[0][ypair_long + 1]), 50)
     plain_ms = {
         "encode_indexed": cuda_ms(lambda: cc.encode_indexed_plain(
             symbols, idx, cdf, meta, out_p, len_p), 3),
@@ -780,6 +1299,9 @@ def main():
             buf, lens, idx, cdf, meta, sym_p, san_p), 3),
         "encode_single_row": k4_plain, "decode_single_row": k5_plain,
         "encode_gamma": k6_plain, "decode_gamma": k3_plain,
+        "encode_scan": scan_plain_y,
+        "pair_lookup": cuda_ms(lambda: cc.pair_lookup_plain(*ypair), 50),
+        "decode_single_row_bucketed": k8_plain,
     }
     bounds = {
         "encode_indexed": encode_bound(*symbols.shape, cdf, meta, out_size),
@@ -792,13 +1314,30 @@ def main():
                                      intervals=c_intervals),
         "decode_gamma": decode_bound(clens, csym.shape[1], cdf, meta,
                                      gamma_bits=c_intervals - csym.numel()),
+        # Micro-op mode: three uint32 arrays and a byte mask read once,
+        # bytes and lengths written once; ~12 operations per coded step.
+        "encode_scan": _bound(
+            yops[0].numel() * 13 + ysbuf.numel() + yslens.numel() * 4,
+            12 * int(yops[3].sum())),
+        # Pair lookup: index read, pair written, table read once; an index
+        # clamp, two address computations and two loads per element.
+        "pair_lookup": _bound(ypair[1].numel() * 12 + ypair[0].numel() * 4,
+                              6 * ypair[1].numel()),
+        # Bucketed search: a compare per bucket and per window entry.
+        "decode_single_row_bucketed": _bound(
+            int(zlens.sum()) + zlens.numel() * 4 + _table_bytes(zcdf, zmeta)
+            + zsym.numel() * 4 + zsym.shape[0],
+            (2 * (-(-zcdf.shape[1] // 16) + 17) + 10) * zsym.numel()),
     }
     shapes = {
         "encode_indexed": list(symbols.shape),
         "decode_indexed": list(symbols.shape),
         "encode_single_row": list(zsym.shape),
         "decode_single_row": list(zsym.shape),
-        "encode_gamma": list(csym.shape), "decode_gamma": list(csym.shape)}
+        "encode_gamma": list(csym.shape), "decode_gamma": list(csym.shape),
+        "encode_scan": list(yops[0].shape),
+        "pair_lookup": list(ypair[1].shape),
+        "decode_single_row_bucketed": list(zsym.shape)}
     # The kernels' time as streams grow, and in the other regimes.
     st_sym, st_idx, st_table, st_out_size = stress_input
     st_cdf, st_meta = st_table.indexed_arrays()
@@ -816,7 +1355,27 @@ def main():
     wbuf, wlens = cc.encode_gamma(wsym, widx, cdf, meta,
                                   torch_coder.stream_out_size(
                                       int(wcounts.sum(1).max())))
+    zflat, zidx2 = pair_inputs["z_table"]
+    ysym_c, yidx_c = ysym.contiguous(), yidx1.contiguous()
     other_ms = {
+        at("encode_gamma", ysym) + "/bmshj2018_y": cuda_ms(
+            lambda: cc.encode_gamma(ysym_c, yidx_c, ycdf, ymeta,
+                                    ybuf1.shape[1]), 5),
+        at("decode_gamma", ysym) + "/bmshj2018_y": cuda_ms(
+            lambda: cc.decode_gamma(ybuf1, ylens1, yidx_c, ycdf, ymeta), 5),
+        at("encode_scan", gops[0]): cuda_ms(lambda: cc.encode_scan(
+            *gops, gbuf.shape[1]), 10),
+        at("pair_lookup", yidx2) + "/y_table": cuda_ms(
+            lambda: cc.pair_lookup(yflat, yidx2), 20),
+        at("pair_lookup", zidx2) + "/z_table": cuda_ms(
+            lambda: cc.pair_lookup(zflat, zidx2), 20),
+        at("pair_lookup_plain", yidx2) + "/y_table": cuda_ms(
+            lambda: cc.pair_lookup_plain(yflat, yidx2), 20),
+        at("pair_lookup_library", yidx2) + "/y_table": cuda_ms(
+            lambda: (yflat[yidx_long], yflat[yidx_long + 1]), 20),
+        at("decode_single_row_bucketed", z256): cuda_ms(
+            lambda: cc.decode_single_row_bucketed(
+                zb256, zl256, n_z, *ztable.bucketed_arrays()), 20),
         at("encode_indexed", st_sym): cuda_ms(lambda: cc.encode_indexed(
             st_sym, st_idx, st_cdf, st_meta, st_out_size), 10),
         at("decode_indexed", st_sym): cuda_ms(lambda: cc.decode_indexed(
@@ -844,8 +1403,39 @@ def main():
                                              codec.decompress, img)
         e2e_ms[f"classic/{name}"] = e2e_times(codec.compress,
                                               codec.decompress, img)
+        e2e_ms[f"bmshj2018/native/{name}"] = e2e_times(
+            hcodec.compress_native, hcodec.decompress, img)
+        e2e_ms[f"bmshj2018/classic/{name}"] = e2e_times(
+            hcodec.compress, hcodec.decompress, img)
+    # compress_device / decompress_device of the y model (host clock around
+    # work that ends in a synchronize): the seeded latent, and the shrunk
+    # one with 40 planted escapes.
+    for label, latent in (("seeded_y", hy), ("planted_y", hy_esc)):
+        dev_times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = hcodec.em.compress_device(latent, hidx)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                hcodec.em.decompress_device(out[0].reshape(1, -1),
+                                            out[1].reshape(1), hidx)
+            torch.cuda.synchronize()
+            dev_times.append(((t1 - t0) * 1e3,
+                              (time.perf_counter() - t1) * 1e3))
+        e2e_ms[f"bmshj2018/{label}/compress_device_ms_median"] = float(
+            np.median([t[0] for t in dev_times]))
+        e2e_ms[f"bmshj2018/{label}/decompress_device_ms_median"] = float(
+            np.median([t[1] for t in dev_times]))
     cc.LAUNCHES.update(saved)
-    log("times", kernel_ms=ms, plain_ms=plain_ms, shapes=shapes,
+    log("times", kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        shapes=shapes,
+        other_plain_ms={
+            at("encode_gamma", ysym) + "/bmshj2018_y": k6_plain_y,
+            at("decode_gamma", ysym) + "/bmshj2018_y": k3_plain_y,
+            at("encode_scan", gops[0]): scan_plain},
         bound_ms={k: v[0] for k, v in bounds.items()},
         other_kernel_ms=other_ms,
         scaled_latent={"escapes": int(wesc.sum()),
@@ -853,7 +1443,11 @@ def main():
         end_to_end=e2e_ms, card=smi)
 
     launches = {k: native_launches[k] + classic_launches[k]
-                + front_launches[k] for k in cc.LAUNCHES}
+                + front_launches[k] + hyper_launches[k] + device_launches[k]
+                for k in cc.LAUNCHES}
+    for name, count in launches.items():
+        if count == 0:
+            fails.append(f"no_launch_on_a_main_path/{name}")
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"compression_tpu_torch/codec/csrc/{source}",
@@ -861,7 +1455,7 @@ def main():
          "launches": launches[name], "max_abs_err": MAX_ABS_ERR[name],
          "ms": ms[name], "plain_ms": plain_ms[name],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
+         "library_ms": library_ms[name], "shape": shapes[name]}
         for name, source, replaces in KERNELS]
     if fails:
         log("failed", cases=fails, max_abs_err=MAX_ABS_ERR)

@@ -1,5 +1,6 @@
-// Range decode, one thread per coder stream: three kernels from one
-// template over the same RangeDecoder recurrence.
+// Range decode, one thread per coder stream: four kernels over one copy of
+// the RangeDecoder recurrence (three from one template, one with the
+// bucketed symbol search).
 //
 //   ctpu_decode_indexed     (K2)  replaces compression_tpu/codec/pallas_coder.py:
 //       decode_indexed_pallas(in_stream_gamma=False) -> _decode_indexed_call
@@ -18,7 +19,23 @@
 //       n < 31 (what keeps a corrupt stream from looping), then n bits, then
 //       the sign; the value is sign ? -g : g + (len-2) - 1 in int32.
 //
-// All three compute the same function as the XLA scan the TPU kernels are
+//   ctpu_decode_single_row_bucketed (K8') replaces pallas_coder.py:
+//       decode_scan_pallas (v1, kernel body _make_decode_kernel): one shared
+//       CDF row, no overflow, symbol found by the two-level search of
+//       pallas_coder.py:260-278 -- count the bucket-last values below the
+//       threshold, then search the 17-entry window of that bucket
+//       (jax_coder._bucketize_row: the last entry of the bucket before, then
+//       the bucket's 16 entries).  "Below the threshold t = ceil(lower_bound
+//       / size)" is tested as size * c < lower_bound with 64-bit products;
+//       the TPU kernel's f32 quotient and +-2 fix-up is Mosaic's way around
+//       its missing wide multiply and is not carried over.  The interval is
+//       [largest window entry below, smallest one not below (at most 2^16)),
+//       the symbol min(16 * full buckets + entries below in the window,
+//       max_len - 1) - 1, and the sanity flag that of pallas_coder.py:301-313
+//       (the same check as the other kernels').  It is the second,
+//       independent single-row decoder that K5' is held against.
+//
+// The template's three compute the same function as the XLA scan the TPU kernels are
 // held to, jax_coder.decode_core (jax_coder.py:779-914), also on corrupt
 // input.  Bytes past the stream end read as zero (Read16BitValue); the
 // sanity flag is RangeDecoder::Finalize's check and 2 * chunks_read >=
@@ -205,6 +222,60 @@ __global__ void decode_kernel(
   sanity[s] = dec.sane(src_len) ? 1 : 0;
 }
 
+// bucket_last: int32 [num_buckets]; win17: int32 [num_buckets, 17].
+__global__ void decode_bucketed_kernel(
+    const uint8_t* __restrict__ buf, int64_t buf_width,
+    const int32_t* __restrict__ byte_lens, int64_t num_streams,
+    int64_t num_elements, const int32_t* __restrict__ bucket_last,
+    const int32_t* __restrict__ win17, int num_buckets, int max_pv, int prec,
+    int32_t* __restrict__ symbols, uint8_t* __restrict__ sanity) {
+  extern __shared__ int32_t smem[];
+  int32_t* blast = smem;
+  int32_t* win = smem + num_buckets;
+  for (int i = threadIdx.x; i < num_buckets; i += blockDim.x)
+    blast[i] = bucket_last[i];
+  for (int i = threadIdx.x; i < 17 * num_buckets; i += blockDim.x)
+    win[i] = win17[i];
+  __syncthreads();
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= num_streams) return;
+
+  const int64_t src_len = byte_lens[s];
+  Decoder dec;
+  dec.src = buf + s * buf_width;
+  dec.avail = src_len < buf_width ? src_len : buf_width;
+  dec.start();
+  int32_t* orow = symbols + s * num_elements;
+  for (int64_t j = 0; j < num_elements; ++j) {
+    const uint64_t size = static_cast<uint64_t>(dec.sm1) + 1;
+    const uint64_t lower_bound =
+        (static_cast<uint64_t>(dec.value - dec.base) + 1) << prec;
+    int nfull = 0;
+    for (int b = 0; b < num_buckets; ++b)
+      nfull += size * static_cast<uint64_t>(blast[b]) < lower_bound ? 1 : 0;
+    const int bsel = nfull < num_buckets - 1 ? nfull : num_buckets - 1;
+    const int32_t* w = win + 17 * bsel;
+    int fine = 0;
+    uint32_t c_lo = 0, c_hi = 1u << 17;
+    for (int k = 0; k < 17; ++k) {
+      const uint32_t c = static_cast<uint32_t>(w[k]);
+      if (size * static_cast<uint64_t>(c) < lower_bound) {
+        if (k > 0) ++fine;
+        if (c > c_lo) c_lo = c;
+      } else if (c < c_hi) {
+        c_hi = c;
+      }
+    }
+    if (c_hi > 65536u) c_hi = 65536u;
+    int pv = 16 * nfull + fine;
+    if (pv > max_pv) pv = max_pv;
+    dec.refine(static_cast<uint32_t>((size * c_lo) >> prec),
+               static_cast<uint32_t>((size * c_hi) >> prec) - 1u);
+    orow[j] = pv - 1;
+  }
+  sanity[s] = dec.sane(src_len) ? 1 : 0;
+}
+
 template <int kMode>
 int launch(const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
            const int32_t* indexes, int64_t num_streams, int64_t num_elements,
@@ -263,4 +334,28 @@ extern "C" int ctpu_decode_gamma(
   return launch<kGamma>(buf, buf_width, byte_lens, indexes, num_streams,
                         num_elements, cdf, meta, num_rows, max_len, symbols,
                         sanity, stream);
+}
+
+extern "C" int ctpu_decode_single_row_bucketed(
+    const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
+    int64_t num_streams, int64_t num_elements, const int32_t* bucket_last,
+    const int32_t* win17, int num_buckets, int max_pv, int prec,
+    int32_t* symbols, uint8_t* sanity, void* stream) {
+  const size_t smem = sizeof(int32_t) * 18 * static_cast<size_t>(num_buckets);
+  if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_bucketed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = num_streams >= 128 * 132 ? 128 : 32;
+  const int64_t blocks = (num_streams + threads - 1) / threads;
+  if (blocks > 0) {
+    decode_bucketed_kernel<<<static_cast<unsigned>(blocks), threads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        buf, buf_width, byte_lens, num_streams, num_elements, bucket_last,
+        win17, num_buckets, max_pv, prec, symbols, sanity);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-// Range encode, one thread per coder stream: three kernels from one
-// template over the same RangeEncoder recurrence.
+// Range encode, one thread per coder stream: four kernels over one copy of
+// the RangeEncoder recurrence (three from one template, one that reads
+// precomputed intervals).
 //
 //   ctpu_encode_indexed     (K1)  replaces compression_tpu/codec/pallas_coder.py:
 //       encode_indexed_device -> _encode_indexed_call (with the fused
@@ -22,6 +23,16 @@
 //       micro-ops first because a TPU lane cannot run a loop of its own
 //       length; a thread can, so the kernel reads symbols and indexes
 //       directly and needs no micro-op arrays.
+//   ctpu_encode_scan        (K6, micro-op mode) is pallas_coder.py:
+//       encode_scan_pallas as the JAX package calls it: it reads the
+//       precomputed micro-ops (lower, upper, precision as uint32, mask as
+//       bytes, each [T, S] with the stream axis fastest) that
+//       jax_coder.micro_ops_from_symbols produced and runs the recurrence
+//       over the steps whose mask is set.  Thread s reads element t * S + s
+//       at step t, so a warp's reads are consecutive.  Where the TPU kernel
+//       returns per-step records and the final state for a post-pass
+//       (jax_coder._encode_postpass), this one writes the stream's bytes and
+//       length itself, like the other three.
 //
 // Output is the byte stream of the reference RangeEncoder
 // (compression_tpu/native/range_coder.cc, copied below, not included) with
@@ -204,6 +215,25 @@ __global__ void encode_kernel(
   lengths[s] = static_cast<int32_t>(enc.len);
 }
 
+__global__ void encode_scan_kernel(
+    const uint32_t* __restrict__ lower, const uint32_t* __restrict__ upper,
+    const uint32_t* __restrict__ prec, const uint8_t* __restrict__ mask,
+    int64_t num_steps, int64_t num_streams, uint8_t* __restrict__ out,
+    int64_t out_size, int32_t* __restrict__ lengths) {
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= num_streams) return;
+  Encoder enc;
+  enc.out = out + s * out_size;
+  enc.cap = out_size;
+  for (int64_t t = 0; t < num_steps; ++t) {
+    const int64_t p = t * num_streams + s;
+    if (mask[p]) enc.encode(lower[p], upper[p], static_cast<int>(prec[p]));
+  }
+  enc.finalize();
+  for (int64_t p = enc.len; p < out_size; ++p) enc.out[p] = 0;
+  lengths[s] = static_cast<int32_t>(enc.len);
+}
+
 template <int kMode>
 int launch(const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
            int64_t num_elements, const int32_t* cdf, const int32_t* meta,
@@ -260,4 +290,21 @@ extern "C" int ctpu_encode_gamma(
   return launch<kGamma>(symbols, indexes, num_streams, num_elements, cdf,
                         meta, num_rows, max_len, out, out_size, lengths,
                         stream);
+}
+
+// lower, upper, prec: uint32 [num_steps, num_streams]; mask: uint8 of the
+// same shape (nonzero = the step codes).
+extern "C" int ctpu_encode_scan(
+    const uint32_t* lower, const uint32_t* upper, const uint32_t* prec,
+    const uint8_t* mask, int64_t num_steps, int64_t num_streams, uint8_t* out,
+    int64_t out_size, int32_t* lengths, void* stream) {
+  const int threads = num_streams >= 128 * 132 ? 128 : 32;
+  const int64_t blocks = (num_streams + threads - 1) / threads;
+  if (blocks > 0) {
+    encode_scan_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        lower, upper, prec, mask, num_steps, num_streams, out, out_size,
+        lengths);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 """The range coder's hand-written CUDA kernels, their wrappers and plain
 PyTorch versions (counterpart of compression_tpu/codec/pallas_coder.py).
 
-Six kernels, all one thread per coder stream, from two templated sources in
-``csrc/`` (one copy of the encoder recurrence, one of the decoder's):
+Nine kernels from three sources in ``csrc/``; the coders run one thread per
+coder stream over one copy of the encoder recurrence and one of the
+decoder's, the pair lookup one thread per element:
 
 * ``encode_indexed`` (K1) replaces ``pallas_coder.encode_indexed_device``
   with its fused chunk post-pass: a CDF row per element, escapes coded as
@@ -19,8 +20,19 @@ Six kernels, all one thread per coder stream, from two templated sources in
 * ``decode_gamma`` (K3') replaces
   ``pallas_coder.decode_indexed_pallas(in_stream_gamma=True)``.
 
-K1, K4' and K6' are in ``csrc/encode_indexed.cu``; K2, K5' and K3' in
-``csrc/decode_indexed.cu``.
+* ``encode_scan`` (K6, micro-op mode) is ``pallas_coder.encode_scan_pallas``
+  as the JAX package calls it: it reads precomputed micro-ops ``(lower,
+  upper, prec, mask)`` [T, S] and writes the streams' bytes.
+* ``pair_lookup`` (K7') replaces ``pallas_coder.pair_lookup_pallas``:
+  ``(flat[i], flat[i + 1])`` for flat table indices, the encoder prep of
+  ``gamma_micro_ops``.
+* ``decode_single_row_bucketed`` (K8') replaces
+  ``pallas_coder.decode_scan_pallas`` (v1): the single-row decode with the
+  two-level bucketed search, a second decoder independent of K5'.
+
+K1, K4', K6' and the micro-op mode are in ``csrc/encode_indexed.cu``; K2,
+K5', K3' and K8' in ``csrc/decode_indexed.cu``; K7' in
+``csrc/pair_lookup.cu``.
 
 Each wrapper checks its inputs, allocates the outputs with ``torch.empty``
 and then runs the plain version when the tensors lie on the CPU, or
@@ -33,11 +45,16 @@ The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use (or by
 git-ignored ``_build/`` directory, and bound with ctypes through a plain C
 interface that returns ``cudaGetLastError()``.
 
-All kernels take the table in the padded dense layout of
+The coder kernels take the table in the padded dense layout of
 ``tables.CdfTable`` (int32 ``cdf[num_rows, max_len]``, rows padded with
 their terminal value) plus an int32 ``meta[num_rows, 3]`` of (escape marker
 ``length - 2``, precision, overflow flag) per row; the single-row kernels
-take a table of one row.
+take a table of one row, K8' that row in 16-entry buckets
+(``bucketize_row``).
+
+The plain versions of the coders are vectorized over streams and take one
+step per coded interval; a step never waits for the device, so that on a
+CUDA device a long run is replayed from a CUDA graph (``_run_steps``).
 """
 
 from __future__ import annotations
@@ -49,6 +66,7 @@ import shutil
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from compression_tpu_torch import native
 
@@ -61,12 +79,19 @@ __all__ = [
     "decode_single_row",
     "encode_gamma",
     "decode_gamma",
+    "encode_scan",
+    "pair_lookup",
+    "decode_single_row_bucketed",
     "encode_indexed_plain",
     "decode_indexed_plain",
     "encode_single_row_plain",
     "decode_single_row_plain",
     "encode_gamma_plain",
     "decode_gamma_plain",
+    "encode_scan_plain",
+    "pair_lookup_plain",
+    "decode_single_row_bucketed_plain",
+    "bucketize_row",
     "interval_counts",
     "gamma_micro_ops",
 ]
@@ -74,7 +99,9 @@ __all__ = [
 #: Kernel launches per wrapper since the counts were last reset.
 LAUNCHES = {"encode_indexed": 0, "decode_indexed": 0,
             "encode_single_row": 0, "decode_single_row": 0,
-            "encode_gamma": 0, "decode_gamma": 0}
+            "encode_gamma": 0, "decode_gamma": 0,
+            "encode_scan": 0, "pair_lookup": 0,
+            "decode_single_row_bucketed": 0}
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -98,6 +125,11 @@ _ARGTYPES = {
     "ctpu_decode_gamma": _DECODE_ARGS,
     "ctpu_decode_single_row": [_vp, _i64, _vp, _i64, _i64, _vp, _vp, _int,
                                _vp, _vp, _vp],
+    "ctpu_encode_scan": [_vp, _vp, _vp, _vp, _i64, _i64, _vp, _i64, _vp,
+                         _vp],
+    "ctpu_pair_lookup": [_vp, _i64, _vp, _i64, _vp, _vp, _vp],
+    "ctpu_decode_single_row_bucketed": [_vp, _i64, _vp, _i64, _i64, _vp, _vp,
+                                        _int, _int, _int, _vp, _vp, _vp],
 }
 
 
@@ -320,87 +352,257 @@ def encode_single_row_plain(symbols, cdf, meta, out, lengths):
 def encode_gamma_plain(symbols, indexes, cdf, meta, out, lengths):
     """Plain PyTorch version of K6' (writes out, lengths): the micro-op
     expansion of ``gamma_micro_ops`` run through the plain recurrence."""
-    _encode_plain(*gamma_micro_ops(symbols, indexes, cdf, meta), out,
-                  lengths)
+    encode_scan_plain(*gamma_micro_ops(symbols, indexes, cdf, meta), out,
+                      lengths)
 
 
-def gamma_micro_ops(symbols, indexes, cdf, meta, num_steps=None):
+def gamma_micro_ops(symbols, indexes, cdf, meta, num_steps=None, slots=None,
+                    lookup=None):
     """Torch port of jax_coder.micro_ops_from_symbols: every element's
     coded intervals, compacted per stream.
 
     Args:
       symbols, indexes: int32 [S, N].
       cdf, meta: the table.
-      num_steps: scan length T (default: the most intervals of any stream).
+      num_steps: scan length T (default: the most intervals of any stream,
+        which costs a copy to the host).  Intervals past T are dropped.
+      slots: micro-op slots K per element (default: the most any element
+        needs, which costs a copy to the host).  With ``slots=1`` escapes
+        are coded as the bare marker; an escape that needs more than K
+        slots is cut after K (the caller's ``ok`` flag reports it).  With
+        both given, nothing is copied to the host.
+      lookup: the pair lookup, ``pair_lookup_plain`` (default) or
+        ``pair_lookup`` (K7' on CUDA tensors).
 
     Returns:
-      (lower, upper, precision int64, mask bool), each [T, S]; padding
+      (lower, upper, precision int32, mask bool), each [T, S]; padding
       steps are (0, 1, 1, False) as in the JAX package.
     """
+    lookup = pair_lookup_plain if lookup is None else lookup
     dev = symbols.device
     num_streams, n = symbols.shape
+    max_len = cdf.shape[1]
+    flat = cdf.reshape(-1)
     rows = indexes.long().clamp(0, cdf.shape[0] - 1)
+    maxs, prec_r, ovf_r = meta.long().unbind(1)
+    v = symbols.long()
+    if slots is None or num_steps is None:
+        count = interval_counts(symbols, indexes, meta)[0]
+        if slots is None:
+            slots = int(count.max()) if count.numel() else 1
+        if num_steps is None:
+            num_steps = int(count.sum(1).max()) if count.numel() else 0
+    slots, num_steps = int(slots), int(num_steps)
+
+    def table_index(v, rows):
+        # Escape map: marker on overflow rows, clip on bounded rows.
+        mx = maxs[rows]
+        vq = torch.where(v < 0, torch.where(ovf_r[rows] != 0, mx, 0),
+                         torch.minimum(v, mx))
+        return (rows * max_len + vq).to(torch.int32).contiguous()
+
+    if slots == 1:
+        # One interval per element: work in the scan's [N, S] layout and
+        # pad the step axis (identity compaction).
+        if num_steps < n:
+            raise ValueError(f"num_steps {num_steps} < {n} elements")
+        rows_t = rows.t()
+        c_lo, c_hi = lookup(flat, table_index(v.t(), rows_t))
+        pad = (0, 0, 0, num_steps - n)
+        mask = torch.ones((n, num_streams), dtype=torch.bool, device=dev)
+        return (F.pad(c_lo, pad, value=0), F.pad(c_hi, pad, value=1),
+                F.pad(prec_r[rows_t].to(torch.int32), pad, value=1),
+                F.pad(mask, pad, value=False))
+
     count, escape, g, nbits = interval_counts(symbols, indexes, meta)
-    c_lo, c_hi, prec_r = _main_intervals(symbols, rows, cdf, meta,
-                                         bounded=False)
-    if num_steps is None:
-        num_steps = int(count.sum(1).max()) if count.numel() else 0
-    shape = (num_streams, num_steps)
-    lower = torch.zeros(shape, dtype=torch.int64, device=dev)
-    upper = torch.ones(shape, dtype=torch.int64, device=dev)
-    prec = torch.ones(shape, dtype=torch.int64, device=dev)
-    mask = torch.zeros(shape, dtype=torch.bool, device=dev)
-    offsets = count.cumsum(1) - count
-    sid = torch.arange(num_streams, device=dev)[:, None].expand(-1, n)
-    lower[sid, offsets] = c_lo
-    upper[sid, offsets] = c_hi
-    prec[sid, offsets] = prec_r
-    mask[sid, offsets] = True
-    es, ej = torch.nonzero(escape, as_tuple=True)
-    if es.numel():
-        # Slot k >= 1 of an escape: k <= nb unary zeros, then the nb + 1
-        # bits of g from the top one down, then the sign.
-        k = torch.arange(1, int(count.max()), device=dev)[None, :]
-        nb = nbits[es, ej][:, None]
-        ge = g[es, ej][:, None]
-        sgn = (symbols[es, ej] < 0).long()[:, None]
-        bit = (ge >> (2 * nb + 1 - k).clamp(0, 31)) & 1
-        lo = torch.where(k <= nb, 0,
-                         torch.where(k <= 2 * nb + 1, bit, sgn))
-        active = k < count[es, ej][:, None]
-        pos = (offsets[es, ej][:, None] + k)[active]
-        rs = es[:, None].expand(-1, k.shape[1])[active]
-        lower[rs, pos] = lo[active]
-        upper[rs, pos] = lo[active] + 1
-        mask[rs, pos] = True
-    return lower.t(), upper.t(), prec.t(), mask.t()
+    c_lo, c_hi = lookup(flat, table_index(v, rows))
+    # Slot k of an element: 0 its symbol or marker; for an escape then
+    # k <= nb unary zeros, the nb + 1 bits of g from the top one down, and
+    # the sign.
+    k = torch.arange(slots, device=dev)[None, None, :]
+    nb = nbits[..., None]
+    bit = (g[..., None] >> (2 * nb + 1 - k).clamp(0, 31)) & 1
+    sgn = (escape & (v < 0)).long()[..., None]
+    tail = torch.where(k <= nb, 0, torch.where(k <= 2 * nb + 1, bit, sgn))
+    main = k == 0
+    lower = torch.where(main, c_lo.long()[..., None], tail)
+    upper = torch.where(main, c_hi.long()[..., None], tail + 1)
+    prec = torch.where(main, prec_r[rows][..., None], 1)
+    # Compact: slot k of element j lands at the stream's running interval
+    # count; inactive slots and those past T park in an extra column.
+    pos = (count.cumsum(1) - count)[..., None] + k
+    keep = (k < count[..., None]) & (pos < num_steps)
+    pos = torch.where(keep, pos, num_steps)
+    target = (torch.arange(num_streams, device=dev)[:, None, None]
+              * (num_steps + 1) + pos).reshape(-1)
+
+    def scatter(vals, fill, dtype):
+        out = torch.full((num_streams * (num_steps + 1),), fill, dtype=dtype,
+                         device=dev)
+        out[target] = vals.reshape(-1).to(dtype)
+        return out.reshape(num_streams, num_steps + 1)[:, :num_steps].t()
+
+    return (scatter(lower, 0, torch.int32), scatter(upper, 1, torch.int32),
+            scatter(prec, 1, torch.int32),
+            scatter(keep.expand(pos.shape), False, torch.bool))
+
+
+def pair_lookup(flat, idx):
+    """K7': ``(flat[idx], flat[idx + 1])`` for flat table indices.
+
+    Args:
+      flat: int32 [K] the CDF table flattened (``cdf.reshape(-1)``), K >= 2.
+      idx: int32 [R, C] indices in [0, K - 2].
+
+    Returns:
+      (c_lo, c_hi) int32 [R, C].  On the CPU an index outside [0, K - 2]
+      raises ValueError; the kernel clamps it into that range (it checks
+      nothing, so a bad index gives a wrong pair, never a read outside the
+      table).
+    """
+    device = flat.device
+    _check("flat", flat, torch.int32, 1, device)
+    _check("idx", idx, torch.int32, 2, device)
+    if flat.shape[0] < 2:
+        raise ValueError("the flat table needs at least two entries")
+    if _device_kind(device) == "cpu":
+        if idx.numel() and (int(idx.min()) < 0
+                            or int(idx.max()) > flat.shape[0] - 2):
+            raise ValueError("table index outside [0, K - 2]")
+        return pair_lookup_plain(flat, idx)
+    c_lo = torch.empty_like(idx)
+    c_hi = torch.empty_like(idx)
+    _launch("pair_lookup", _lib("pair_lookup").ctpu_pair_lookup, flat,
+            flat.shape[0], idx, idx.numel(), c_lo, c_hi)
+    return c_lo, c_hi
+
+
+def pair_lookup_plain(flat, idx):
+    """Plain PyTorch version of K7' (indices clamped as the kernel's)."""
+    i = idx.long().clamp(0, flat.shape[0] - 2)
+    return flat[i], flat[i + 1]
+
+
+def encode_scan(lower, upper, prec, mask, out_size: int):
+    """K6 in its micro-op mode: runs the encoder recurrence over
+    precomputed intervals (the output of ``gamma_micro_ops``).
+
+    Args:
+      lower, upper, prec: int32 [T, S] (the uint32 values of the JAX
+        package; they stay below 2^17).
+      mask: bool [T, S]; False steps code nothing.
+      out_size: bytes per output row, >= 2 * T + 2.
+
+    Returns:
+      (bytes uint8 [S, out_size] zero past each length, lengths int32 [S]).
+    """
+    device = lower.device
+    for name, t in (("lower", lower), ("upper", upper), ("prec", prec)):
+        _check(name, t, torch.int32, 2, device)
+    _check("mask", mask, torch.bool, 2, device)
+    if not (lower.shape == upper.shape == prec.shape == mask.shape):
+        raise ValueError("lower, upper, prec and mask must share a shape")
+    num_steps, num_streams = lower.shape
+    if out_size < 2 * num_steps + 2:
+        raise ValueError(f"out_size {out_size} < 2 * {num_steps} + 2")
+    out = torch.empty((num_streams, out_size), dtype=torch.uint8,
+                      device=device)
+    lengths = torch.empty((num_streams,), dtype=torch.int32, device=device)
+    if _device_kind(device) == "cpu":
+        encode_scan_plain(lower, upper, prec, mask, out, lengths)
+        return out, lengths
+    _launch("encode_scan", _lib("encode_indexed").ctpu_encode_scan, lower,
+            upper, prec, mask, num_steps, num_streams, out, out_size, lengths)
+    return out, lengths
+
+
+def encode_scan_plain(lower, upper, prec, mask, out, lengths):
+    """Plain PyTorch version of the micro-op mode (writes out, lengths)."""
+    _encode_plain(lower.long(), upper.long(), prec.long(), mask, out, lengths)
+
+
+#: Steps that ``_run_steps`` captures into one CUDA graph.
+_GRAPH_STEPS = 32
+
+
+def _run_steps(step, num_steps, device, done=None):
+    """Runs ``step(t)`` for t = 0 .. num_steps - 1, t an int64 [1] tensor on
+    ``device`` that advances in place.
+
+    ``step`` must keep its state in tensors that it updates in place and
+    must never wait for the device.  A long run on a CUDA device then goes
+    through a CUDA graph of ``_GRAPH_STEPS`` steps, replayed: the same
+    PyTorch operations, launched without one trip through Python each.
+    With ``done`` (a function returning a bool tensor) ``num_steps`` is an
+    upper bound: the run ends once ``done()`` holds, which is looked at
+    between chunks of steps, so ``step`` must do nothing once it holds.
+    """
+    t = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def advance(k):
+        for _ in range(k):
+            step(t)
+            t.add_(1)
+
+    n = int(num_steps)
+    graph, chunk = None, 1
+    if device.type == "cuda" and n >= 4 * _GRAPH_STEPS:
+        chunk = _GRAPH_STEPS
+        # The steps that do not fill a chunk, and one chunk that every
+        # operation of a step has run in before the capture.
+        with torch.cuda.device(device):
+            advance(n % chunk + chunk)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                advance(chunk)
+        n -= n % chunk + chunk
+    for i in range(n // chunk):
+        if done is not None and i % 8 == 0 and bool(done()):
+            break
+        if graph is None:
+            advance(1)
+        else:
+            graph.replay()
 
 
 def _encode_plain(lower, upper, prec, mask, out, lengths):
     """The encoder recurrence over [T, S] intervals (writes out, lengths).
 
-    Vectorized over streams, one Python step per interval, in int64 with
-    explicit 32-bit masks; ``mask`` (bool [T, S] or None) marks the steps
-    that code.  Every renormalization reserves its two output bytes at
-    once; a delayed-carry group keeps its reserved bytes at zero (the
-    "carry up" fill) and rewrites them to 0xFF when it resolves down, which
-    yields the reference RangeEncoder's bytes.
+    Vectorized over streams, one step per interval, in int64 with explicit
+    32-bit masks; ``mask`` (bool [T, S] or None) marks the steps that code.
+    Every renormalization reserves its two output bytes at once; a
+    delayed-carry group keeps its reserved bytes at zero (the "carry up"
+    fill) and has them turned to 0xFF when it resolves down, which yields
+    the reference RangeEncoder's bytes.  A step never waits for the device
+    (``_run_steps``): a write that a stream does not make lands in two
+    spare columns, and the runs to turn to 0xFF are marked at their ends
+    and filled in after the last step.
     """
     dev = out.device
-    num_streams = out.shape[0]
+    num_streams, width = out.shape
     sid = torch.arange(num_streams, device=dev)
-    cols = torch.arange(out.shape[1], device=dev)
-    out.zero_()
+    cols = torch.arange(width, device=dev)
+    work = torch.zeros((num_streams, width + 2), dtype=torch.uint8,
+                       device=dev)
+    # +1 where a run of 0xFF starts and -1 where it ends; the last column
+    # takes the marks of the streams that have no run in a step.
+    marks = torch.zeros((num_streams, width + 1), dtype=torch.int32,
+                        device=dev)
+    one = torch.ones((num_streams, 1), dtype=torch.int32, device=dev)
 
     def put16(m, pos, val):
-        r = sid[m]
-        out[r, pos[m]] = ((val[m] >> 8) & 0xFF).to(torch.uint8)
-        out[r, pos[m] + 1] = (val[m] & 0xFF).to(torch.uint8)
+        p = torch.where(m, pos, width)[:, None]
+        work.scatter_(1, p, ((val >> 8) & 0xFF).to(torch.uint8)[:, None])
+        work.scatter_(1, p + 1, (val & 0xFF).to(torch.uint8)[:, None])
 
     z = torch.zeros(num_streams, dtype=torch.int64, device=dev)
-    base, sm1, delay, ptr, pend = z, z + _M32, z, z, z
-    for t in range(lower.shape[0]):
-        c_lo, c_hi, p = lower[t], upper[t], prec[t]
+    base, sm1, delay, ptr, pend = (z.clone(), z + _M32, z.clone(), z.clone(),
+                                   z.clone())
+
+    def step(t):
+        c_lo = lower.index_select(0, t)[0]
+        c_hi = upper.index_select(0, t)[0]
+        p = prec.index_select(0, t)[0]
         size = sm1 + 1
         a = (size * c_lo) >> p
         b = ((size * c_hi) >> p) - 1
@@ -412,33 +614,34 @@ def _encode_plain(lower, upper, prec, mask, out, lengths):
         # Straddle resolved: the pending chunk becomes delay (carry up) or
         # delay - 1 with its fill bytes turned to 0xFF (carry down).
         res = ~straddle & (delay != 0)
-        if mask is not None:
-            renorm = renorm & mask[t]
-            res = res & mask[t]
-        if bool(res.any()):
-            put16(res, pend, torch.where(up, delay, delay - 1))
-            down = res & ~up & (ptr > pend + 2)
-            if bool(down.any()):
-                r = sid[down]
-                fill = (cols >= pend[down, None] + 2) & (
-                    cols < ptr[down, None])
-                out[r] = torch.where(fill, torch.full_like(out[r], 0xFF),
-                                     out[r])
-            delay = torch.where(res, 0, delay)
-        top = nb >> 16
         new_base = torch.where(renorm, (nb << 16) & _M32, nb)
         new_sm1 = torch.where(renorm, ((ns << 16) | 0xFFFF) & _M32, ns)
-        if mask is None:
-            base, sm1 = new_base, new_sm1
-        else:
-            base = torch.where(mask[t], new_base, base)
-            sm1 = torch.where(mask[t], new_sm1, sm1)
+        if mask is not None:
+            m = mask.index_select(0, t)[0]
+            renorm = renorm & m
+            res = res & m
+            new_base = torch.where(m, new_base, base)
+            new_sm1 = torch.where(m, new_sm1, sm1)
+        put16(res, pend, torch.where(up, delay, delay - 1))
+        down = res & ~up & (ptr > pend + 2)
+        marks.scatter_add_(1, torch.where(down, pend + 2, width)[:, None],
+                           one)
+        marks.scatter_add_(1, torch.where(down, ptr, width)[:, None], -one)
         emit = renorm & ~straddle
-        ambiguous = emit & (base + sm1 > _M32)
+        ambiguous = emit & (new_base + new_sm1 > _M32)
+        top = nb >> 16
         put16(emit & ~ambiguous, ptr, top)
-        delay = torch.where(ambiguous, top + 1, delay)
-        pend = torch.where(ambiguous, ptr, pend)
-        ptr = ptr + 2 * renorm.long()
+        delay.copy_(torch.where(ambiguous, top + 1,
+                                torch.where(res, 0, delay)))
+        pend.copy_(torch.where(ambiguous, ptr, pend))
+        ptr.add_(2 * renorm.long())
+        base.copy_(new_base)
+        sm1.copy_(new_sm1)
+
+    _run_steps(step, lower.shape[0], dev)
+    out.copy_(torch.where(
+        marks[:, :width].cumsum(1, dtype=torch.int32) > 0,
+        torch.full_like(out, 0xFF), work[:, :width]))
 
     # RangeEncoder::Finalize.
     in_delay = delay != 0
@@ -531,6 +734,89 @@ def decode_gamma(buf, byte_lens, indexes, cdf, meta):
                    decode_gamma_plain)
 
 
+def bucketize_row(row):
+    """(bucket_last int32 [nb], win17 int32 [nb, 17]) of one CDF row (int32
+    [L], padded with its terminal value), as jax_coder._bucketize_row:
+    16-entry buckets, and per bucket the last entry of the bucket before
+    (0 for the first) followed by its 16 entries."""
+    pad = (-row.shape[0]) % 16
+    buckets = torch.cat([row, row[-1:].expand(pad)]).reshape(-1, 16)
+    bucket_last = buckets[:, -1]
+    prev_last = torch.cat([torch.zeros_like(bucket_last[:1]),
+                           bucket_last[:-1]])
+    return (bucket_last.contiguous(),
+            torch.cat([prev_last[:, None], buckets], 1).contiguous())
+
+
+def decode_single_row_bucketed(buf, byte_lens, num_elements, bucket_last,
+                               win17, max_pv: int, precision: int):
+    """K8': as ``decode_single_row`` (one row, no overflow), by the
+    two-level bucketed search of pallas_coder.decode_scan_pallas (v1) and
+    with its sanity rule.  A second single-row decoder, independent of
+    K5', for cross-checks; it returns K5''s symbols on every valid
+    stream.
+
+    The row comes in the v1 kernel's form, which
+    ``DeviceCdfTable.bucketed_arrays`` keeps: ``bucket_last`` int32 [nb],
+    ``win17`` int32 [nb, 17] (see ``bucketize_row``), ``max_pv`` the row's
+    padded length less one, and its ``precision``.
+    """
+    device = buf.device
+    _check("buf", buf, torch.uint8, 2, device)
+    _check("byte_lens", byte_lens, torch.int32, 1, device)
+    _check("bucket_last", bucket_last, torch.int32, 1, device)
+    _check("win17", win17, torch.int32, 2, device)
+    num_buckets = bucket_last.shape[0]
+    if num_buckets < 1 or win17.shape != (num_buckets, 17):
+        raise ValueError("win17 must be [len(bucket_last), 17]")
+    max_pv, precision = int(max_pv), int(precision)
+    if not (1 <= precision <= 16 and 1 <= max_pv < 16 * num_buckets + 1):
+        raise ValueError(f"precision {precision} or max_pv {max_pv} outside "
+                         "the row's range")
+    num_streams, n = buf.shape[0], int(num_elements)
+    if byte_lens.shape[0] != num_streams:
+        raise ValueError("buf and byte_lens disagree on streams")
+    symbols = torch.empty((num_streams, n), dtype=torch.int32, device=device)
+    sanity = torch.empty((num_streams,), dtype=torch.bool, device=device)
+    if _device_kind(device) == "cpu":
+        decode_single_row_bucketed_plain(buf, byte_lens, bucket_last, win17,
+                                         max_pv, precision, symbols, sanity)
+        return symbols, sanity
+    _launch("decode_single_row_bucketed",
+            _lib("decode_indexed").ctpu_decode_single_row_bucketed, buf,
+            buf.shape[1], byte_lens, num_streams, n, bucket_last, win17,
+            num_buckets, max_pv, precision, symbols, sanity)
+    return symbols, sanity
+
+
+def decode_single_row_bucketed_plain(buf, byte_lens, bucket_last, win17,
+                                     max_pv, precision, symbols, sanity):
+    """Plain PyTorch version of K8' (writes symbols, sanity): the steps of
+    the v1 kernel body, with the threshold test as an exact product."""
+    bucket_last, win17 = bucket_last.long(), win17.long()
+    num_buckets = bucket_last.shape[0]
+    prec = int(precision)
+    dec = _PlainDecoder(buf, byte_lens)
+
+    def step(t):
+        size = dec.sm1 + 1
+        lower_bound = (((dec.value - dec.base) & _M32) + 1) << prec
+        full = size[:, None] * bucket_last[None, :] < lower_bound[:, None]
+        nfull = full.sum(1)
+        win = win17[nfull.clamp(max=num_buckets - 1)]
+        below = size[:, None] * win < lower_bound[:, None]
+        fine = below[:, 1:].sum(1)
+        pv = (16 * nfull + fine).clamp(max=max_pv)
+        c_lo = torch.where(below, win, 0).amax(1)
+        c_hi = torch.where(below, 1 << 17, win).amin(1).clamp(max=1 << 16)
+        dec.refine(((size * c_lo) >> prec) & _M32,
+                   (((size * c_hi) >> prec) - 1) & _M32)
+        symbols.index_copy_(1, t, (pv - 1).to(torch.int32)[:, None])
+
+    _run_steps(step, symbols.shape[1], buf.device)
+    sanity.copy_(dec.sane(byte_lens))
+
+
 def decode_indexed_plain(buf, byte_lens, indexes, cdf, meta, symbols,
                          sanity):
     """Plain PyTorch version of K2 (writes symbols, sanity)."""
@@ -549,7 +835,8 @@ def decode_gamma_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity):
 
 class _PlainDecoder:
     """RangeDecoder state of every stream, vectorized over streams in int64
-    with explicit 32-bit masks."""
+    with explicit 32-bit masks, updated in place and without a wait for the
+    device (``_run_steps``)."""
 
     def __init__(self, buf, byte_lens):
         dev = buf.device
@@ -563,7 +850,7 @@ class _PlainDecoder:
         self.data[:, :width] = torch.where(
             cols[None, :] < byte_lens.long()[:, None], buf.long(), 0)
         z = torch.zeros(num_streams, dtype=torch.int64, device=dev)
-        self.base, self.sm1 = z, z + _M32
+        self.base, self.sm1 = z.clone(), z + _M32
         self.value = (self._chunk(z) << 16) | self._chunk(z + 1)
         self.chunks_read = z + 2
 
@@ -582,16 +869,18 @@ class _PlainDecoder:
             renorm = renorm & mask
             new_base = torch.where(mask, new_base, self.base)
             new_sm1 = torch.where(mask, new_sm1, self.sm1)
-        self.base, self.sm1 = new_base, new_sm1
-        self.value = torch.where(
+        self.base.copy_(new_base)
+        self.sm1.copy_(new_sm1)
+        self.value.copy_(torch.where(
             renorm, ((self.value << 16) | self._chunk(self.chunks_read))
-            & _M32, self.value)
-        self.chunks_read = self.chunks_read + renorm.long()
+            & _M32, self.value))
+        self.chunks_read.add_(renorm.long())
 
-    def symbol(self, rows, prec):
-        """Symbol search in rows [S, L] (padded dense rows); returns the
-        count of entries below the threshold, clipped to L - 2, as
-        jax_coder.decode_core resolves it."""
+    def symbol(self, rows, prec, mask=None):
+        """Symbol search in rows [S, L] (padded dense rows) on the streams
+        in ``mask`` (default all); returns the count of entries below the
+        threshold, clipped to L - 2, as jax_coder.decode_core resolves
+        it."""
         max_len = rows.shape[1]
         size = self.sm1 + 1
         lower_bound = (((self.value - self.base) & _M32) + 1) << prec
@@ -602,7 +891,7 @@ class _PlainDecoder:
             rows.gather(1, (count + 1).clamp(max=max_len - 1)[:, None])[:, 0],
             65536)
         self.refine(((size * c_lo) >> prec) & _M32,
-                    (((size * c_hi) >> prec) - 1) & _M32)
+                    (((size * c_hi) >> prec) - 1) & _M32, mask)
         return count.clamp(max=max_len - 2)
 
     def bit(self, mask):
@@ -613,26 +902,6 @@ class _PlainDecoder:
         self.refine(((size * b) >> 1) & _M32,
                     (((size * (b + 1)) >> 1) - 1) & _M32, mask)
         return b
-
-    def gamma(self, esc, mv):
-        """OverflowDecode on the streams in ``esc``: the escaped values
-        (int64, already wrapped to int32 range)."""
-        n = torch.zeros_like(mv)
-        act = esc
-        while bool(act.any()):
-            zero = self.bit(act) == 0
-            n = n + (act & zero).long()
-            act = act & zero & (n < 31)
-        g = torch.where(esc, torch.ones_like(n) << n, 0)
-        k = torch.where(esc, n, 0)
-        while bool((k > 0).any()):
-            act = k > 0
-            g = torch.where(act, g | (self.bit(act) << (k - 1).clamp(min=0)),
-                            g)
-            k = k - act.long()
-        sign = self.bit(esc)
-        value = torch.where(sign == 1, -g, g + mv - 1) & _M32
-        return torch.where(value >= 2 ** 31, value - 2 ** 32, value)
 
     def sane(self, byte_lens):
         """RangeDecoder::Finalize's check and "stream fully consumed"."""
@@ -653,19 +922,72 @@ def _decode_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity,
     as the marker)."""
     num_streams, n = symbols.shape
     num_rows = cdf.shape[0]
+    dev = buf.device
     cdf64 = cdf.long()
     maxs, prec_r, ovf_r = meta.long().unbind(1)
     dec = _PlainDecoder(buf, byte_lens)
-    for t in range(n):
+    z = torch.zeros(num_streams, dtype=torch.int64, device=dev)
+
+    def row_at(elem):
         if indexes is None:
-            row = torch.zeros(num_streams, dtype=torch.int64,
-                              device=buf.device)
-        else:
-            row = indexes[:, t].long().clamp(0, num_rows - 1)
-        sym = dec.symbol(cdf64[row], prec_r[row])
-        if gamma:
-            esc = (ovf_r[row] != 0) & (sym == maxs[row])
-            if bool(esc.any()):
-                sym = torch.where(esc, dec.gamma(esc, maxs[row]), sym)
-        symbols[:, t] = sym.to(torch.int32)
+            return z
+        return indexes.gather(1, elem[:, None])[:, 0].long().clamp(
+            0, num_rows - 1)
+
+    if not gamma:
+        def step(t):
+            row = row_at(t.expand(num_streams))
+            sym = dec.symbol(cdf64[row], prec_r[row])
+            symbols.index_copy_(1, t, sym.to(torch.int32)[:, None])
+
+        _run_steps(step, n, dev)
+        sanity.copy_(dec.sane(byte_lens))
+        return
+
+    # One coded interval per step and stream: the stream's element ``elem``
+    # is in phase 0 (its symbol or escape marker), 1 (the unary zeros of
+    # OverflowDecode), 2 (the bits of the magnitude below its top one) or 3
+    # (the sign).  Streams run apart, since an escape takes its stream
+    # 2 + 2 * zeros more intervals; a stream past its last element does
+    # nothing.  The decoded values go to a buffer with one spare column,
+    # which takes the writes of the streams that finish no element.
+    elem, phase, zeros, left, mag = (z.clone() for _ in range(5))
+    work = torch.zeros((num_streams, n + 1), dtype=torch.int32, device=dev)
+
+    def step(_):
+        active = elem < n
+        at = elem.clamp(max=n - 1)
+        row = row_at(at)
+        mv = maxs[row]
+        in_sym = active & (phase == 0)
+        sym = dec.symbol(cdf64[row], prec_r[row], in_sym)
+        esc = in_sym & (ovf_r[row] != 0) & (sym == mv)
+        b = dec.bit(active & (phase != 0))
+        unary = active & (phase == 1)
+        bits = active & (phase == 2)
+        sign = active & (phase == 3)
+        new_zeros = zeros + (unary & (b == 0)).long()
+        # The zeros end at the first one bit, or after 31 of them.
+        top = unary & ((b == 1) | (new_zeros >= 31))
+        new_left = torch.where(top, new_zeros,
+                               torch.where(bits, left - 1, left))
+        new_mag = torch.where(
+            top, torch.ones_like(mag) << new_zeros,
+            torch.where(bits, mag | (b << (left - 1).clamp(min=0)), mag))
+        value = torch.where(b == 1, -mag, mag + mv - 1) & _M32
+        value = torch.where(value >= 2 ** 31, value - 2 ** 32, value)
+        finished = (in_sym & ~esc) | sign
+        work.scatter_(1, torch.where(finished, at, n)[:, None],
+                      torch.where(sign, value, sym).to(torch.int32)[:, None])
+        phase.copy_(torch.where(
+            esc, 1, torch.where(
+                top | bits, torch.where(new_left > 0, 2, 3),
+                torch.where(sign, 0, phase))))
+        zeros.copy_(torch.where(esc, 0, new_zeros))
+        left.copy_(new_left)
+        mag.copy_(new_mag)
+        elem.add_(finished.long())
+
+    _run_steps(step, 64 * n, dev, done=lambda: (elem >= n).all())
+    symbols.copy_(work[:, :n])
     sanity.copy_(dec.sane(byte_lens))

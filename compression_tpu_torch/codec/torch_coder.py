@@ -14,6 +14,14 @@ of ``cuda_coder`` there (its plain version on the CPU):
   data on other tables the indexed encode (K1), data with escapes the
   in-stream-gamma encode (K6'), overflow tables the in-stream-gamma decode
   (K3') and other tables the indexed decode (K2).
+* the micro-op route, ``micro_ops_from_symbols`` -> ``encode_core``, and
+  ``encode_streams_budgeted`` over it (counterpart of
+  jax_coder._encode_streams_jit): the reference format again, but with the
+  slots per element, the scan length and the buffer width fixed by the
+  caller, so that nothing is copied to the host on the way.  The expansion
+  looks its intervals up with the pair-lookup kernel (K7') and the scan is
+  the encoder's micro-op mode (K6).  The entropy models' ``compress_device``
+  runs on it.
 * the native container's sidecar format, ``encode_dispatch`` /
   ``decode_dispatch``: out-of-range values on overflow rows are coded in the
   stream only as the escape marker ``length - 2``; their values travel out
@@ -46,6 +54,9 @@ __all__ = [
     "DISPATCH_LOG",
     "encode_streams",
     "decode_streams",
+    "micro_ops_from_symbols",
+    "encode_core",
+    "encode_streams_budgeted",
     "stream_out_size",
     "encode_dispatch",
     "decode_dispatch",
@@ -99,12 +110,26 @@ class DeviceCdfTable:
             self.kernel_tables["indexed"] = cached
         return cached
 
+    def bucketed_arrays(self):
+        """(bucket_last int32 [nb], win17 int32 [nb, 17], max_pv, precision)
+        of row 0 for the bucketed single-row decode
+        (``cuda_coder.decode_single_row_bucketed``): the row in 16-entry
+        buckets, its padded length less one and its precision, the last
+        two from the host copy."""
+        cached = self.kernel_tables.get("bucketed")
+        if cached is None:
+            cached = cuda_coder.bucketize_row(self.cdf[0]) + (
+                self.max_len - 1, int(self.host.precision[0]))
+            self.kernel_tables["bucketed"] = cached
+        return cached
+
 
 class _DispatchLog:
     """Thread-local dispatch-path log with a dict-like surface: each entry
     point records the route it took on its own thread only, as
     "cuda-<route>" (the kernel ran) or "plain-<route>" (its plain version
-    ran on the CPU), route one of "indexed", "single" and "gamma"."""
+    ran on the CPU), route one of "indexed", "single", "gamma" and "micro"
+    (the micro-op expansion and scan)."""
 
     def __init__(self):
         self._tls = threading.local()
@@ -309,6 +334,72 @@ def decode_streams(buf, byte_lens, num_elements, table: DeviceCdfTable,
     decode = cuda_coder.decode_gamma if route == "gamma" else \
         cuda_coder.decode_indexed
     return decode(buf, byte_lens, indexes, cdf, meta)
+
+
+# -----------------------------------------------------------------------------
+# Micro-op route (static budget, no copy to the host)
+# -----------------------------------------------------------------------------
+def micro_ops_from_symbols(symbols, indexes, table: DeviceCdfTable,
+                           slots_per_symbol: int, num_steps: int):
+    """Expands symbols into compacted micro-ops (counterpart of
+    jax_coder.micro_ops_from_symbols, all three of its branches).
+
+    Args:
+      symbols: int32 [S, N] (possibly out of range for overflow rows).
+      indexes: int32 [S, N] CDF row per element.
+      table: DeviceCdfTable.
+      slots_per_symbol: K, the micro-ops reserved per element; 1 codes an
+        escape as the bare marker.
+      num_steps: T, the scan length (>= N when K is 1).
+
+    Returns:
+      (lower, upper, prec int32, mask bool), each [T, S], ready for
+      ``encode_core``; the JAX package's uint32 values as int32.
+    """
+    cdf, meta = table.indexed_arrays()
+    return cuda_coder.gamma_micro_ops(
+        symbols.to(torch.int32), indexes.to(torch.int32), cdf, meta,
+        num_steps=int(num_steps), slots=int(slots_per_symbol),
+        lookup=cuda_coder.pair_lookup)
+
+
+def encode_core(lower, upper, prec, mask, out_size: int):
+    """Runs the encoder over micro-ops [T, S] (counterpart of
+    jax_coder.encode_core): K6's micro-op mode on CUDA, the plain
+    recurrence on the CPU.  Returns (bytes uint8 [S, out_size], lengths
+    int32 [S])."""
+    DISPATCH_LOG["encode"] = _route_name(lower.device, "micro")
+    return cuda_coder.encode_scan(
+        lower.contiguous(), upper.contiguous(), prec.contiguous(),
+        mask.contiguous(), int(out_size))
+
+
+def encode_streams_budgeted(symbols, indexes, table: DeviceCdfTable,
+                            slots: int, num_steps: int, out_size: int):
+    """Reference-format encode with a static budget (counterpart of
+    jax_coder._encode_streams_jit): no value is copied to the host.
+
+    With ``slots == 1`` the data is taken as escape-free (escapes become
+    the bare marker) and goes to the single-row or indexed encode kernel;
+    otherwise it is expanded into ``slots`` micro-ops per element and
+    scanned for ``num_steps`` steps.  The caller vouches that the budget
+    holds (the entropy models return it as ``ok``): intervals past the
+    budget are dropped.
+
+    Returns:
+      (bytes uint8 [S, out_size], lengths int32 [S]).
+    """
+    _check_domain(table)
+    symbols = symbols.to(torch.int32).contiguous()
+    if int(slots) == 1:
+        if table.num_rows == 1 and not table.any_overflow:
+            DISPATCH_LOG["encode"] = _route_name(symbols.device, "single")
+            cdf, meta = table.indexed_arrays()
+            return cuda_coder.encode_single_row(symbols, cdf, meta,
+                                                int(out_size))
+        return encode_dispatch(symbols, table, out_size, indexes)
+    ops = micro_ops_from_symbols(symbols, indexes, table, slots, num_steps)
+    return encode_core(*ops, out_size)
 
 
 def sidecar_extract(symbols, escape):

@@ -13,7 +13,7 @@ import torch
 from compression_tpu_torch.distributions import base as base_lib
 from compression_tpu_torch.distributions import helpers
 
-__all__ = ["UniformNoiseAdapter"]
+__all__ = ["UniformNoiseAdapter", "NoisyNormal"]
 
 
 def _logsum_expbig_minus_expsmall(big, small):
@@ -34,6 +34,17 @@ class UniformNoiseAdapter(base_lib.Distribution):
         return self.base.batch_shape
 
     def log_prob(self, y):
+        # Prefer the sf+cdf path (precise on both sides of the median).
+        try:
+            return self._log_prob_with_logsf_and_logcdf(y)
+        except NotImplementedError:
+            return self._log_prob_with_logcdf(y)
+
+    def _log_prob_with_logcdf(self, y):
+        return _logsum_expbig_minus_expsmall(
+            self.base.log_cdf(y + 0.5), self.base.log_cdf(y - 0.5))
+
+    def _log_prob_with_logsf_and_logcdf(self, y):
         # The survival function is precise right of the median, where the
         # CDF saturates.
         logsf_y_plus = self.base.log_survival_function(y + 0.5)
@@ -46,6 +57,15 @@ class UniformNoiseAdapter(base_lib.Distribution):
         return _logsum_expbig_minus_expsmall(big, small)
 
     def prob(self, y):
+        try:
+            return self._prob_with_sf_and_cdf(y)
+        except NotImplementedError:
+            return self._prob_with_cdf(y)
+
+    def _prob_with_cdf(self, y):
+        return self.base.cdf(y + 0.5) - self.base.cdf(y - 0.5)
+
+    def _prob_with_sf_and_cdf(self, y):
         sf_y_plus = self.base.survival_function(y + 0.5)
         sf_y_minus = self.base.survival_function(y - 0.5)
         cdf_y_plus = self.base.cdf(y + 0.5)
@@ -53,6 +73,9 @@ class UniformNoiseAdapter(base_lib.Distribution):
         return torch.where(
             sf_y_plus < cdf_y_plus,
             sf_y_minus - sf_y_plus, cdf_y_plus - cdf_y_minus)
+
+    def mean(self):
+        return self.base.mean()
 
     def _quantization_offset(self):
         return helpers.quantization_offset(self.base)
@@ -62,3 +85,10 @@ class UniformNoiseAdapter(base_lib.Distribution):
 
     def _upper_tail(self, tail_mass):
         return helpers.upper_tail(self.base, tail_mass)
+
+
+class NoisyNormal(UniformNoiseAdapter):
+    """Normal(loc, scale) + U(-.5, .5)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(base_lib.Normal(**kwargs))

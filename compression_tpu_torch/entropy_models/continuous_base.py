@@ -17,12 +17,13 @@ import warnings
 import numpy as np
 import torch
 
+from compression_tpu_torch.codec import cuda_coder
 from compression_tpu_torch.codec import tables
 from compression_tpu_torch.codec import torch_coder
 from compression_tpu_torch.distributions import helpers
 from compression_tpu_torch.util.device import resolve_device
 
-__all__ = ["ContinuousEntropyModelBase"]
+__all__ = ["ContinuousEntropyModelBase", "compress_budgeted"]
 
 
 class ContinuousEntropyModelBase:
@@ -155,3 +156,31 @@ class ContinuousEntropyModelBase:
         if len(weights) != 2:
             raise ValueError("Expected [cdf, cdf_offset].")
         self._init_compression(weights[0], weights[1])
+
+
+def compress_budgeted(symbols, indexes, table, max_gamma_bits,
+                       escape_budget):
+    """Shared body of the entropy models' compress_device: (bytes [S, L],
+    lengths [S], ok) for symbols / indexes int32 [S, N]."""
+    n = symbols.shape[1]
+    if table.any_overflow:
+        slots = 2 * int(max_gamma_bits) + 3
+        num_steps = -(-(n + int(escape_budget) * slots) // 64) * 64
+        _, meta = table.indexed_arrays()
+        _, escape, gamma, _ = cuda_coder.interval_counts(
+            symbols, indexes, meta)
+        # The JAX package's (loose) float estimate of the intervals.
+        count = torch.where(
+            escape,
+            3 + 2 * torch.ceil(torch.log2(
+                gamma.to(torch.float32) + 1)).to(torch.int64), 1)
+        ok = (count.sum(1).max() <= num_steps) & (
+            torch.where(escape, gamma, 0).max() < (1 << int(max_gamma_bits)))
+    else:
+        slots = 1
+        num_steps = -(-max(n, 1) // 64) * 64
+        ok = torch.ones((), dtype=torch.bool, device=symbols.device)
+    out_size = -(-(2 * num_steps + 2) // 4) * 4
+    buf, lengths = torch_coder.encode_streams_budgeted(
+        symbols, indexes, table, slots, num_steps, out_size)
+    return buf, lengths, ok

@@ -5,8 +5,10 @@ Data-independent prior, one CDF row per prior batch element, innermost
 ``coding_rank`` dimensions coded into one stream each.  This slice covers
 eval-mode ``__call__``, ``quantize``, the reference-format ``compress`` /
 ``compress_to_strings`` / ``decompress`` (in-stream Elias-gamma escapes,
-the .tfci format) and the sidecar pair ``compress_sidecar_device`` /
-``decompress_sidecar_device`` the native container runs on.
+the .tfci format), the sidecar pair ``compress_sidecar_device`` /
+``decompress_sidecar_device`` the native container runs on, and the
+budgeted pair ``compress_device`` / ``decompress_device`` that copies
+nothing to the host.
 """
 
 from __future__ import annotations
@@ -180,6 +182,34 @@ class ContinuousBatchedEntropyModel(
         if self.decode_sanity_check and not bool(sanity.all()):
             raise ValueError("Sanity check failed (corrupt bit streams).")
         return outputs.reshape(batch_shape + tuple(outputs.shape[1:]))
+
+    def compress_device(self, bottleneck, max_gamma_bits=16,
+                        escape_budget=64):
+        """Reference-format compress with a static budget: nothing is
+        copied to the host (counterpart of the JAX package's traced
+        compress_device).
+
+        The micro-op expansion reserves ``2 * max_gamma_bits + 3`` slots
+        for every symbol and ``escape_budget`` escapes per stream; ``ok``
+        reports whether the data fit (if not, the bytes are not a valid
+        stream and the caller takes ``compress``, which sizes its buffer
+        from the data).
+
+        Returns:
+          (bytes uint8 [batch..., L], lengths int32 [batch...], ok bool
+           scalar tensor), on the model's device.
+        """
+        self._check_compression()
+        symbols, batch_shape, row_ids = self._symbols_from_bottleneck(
+            torch.as_tensor(bottleneck, dtype=self.bottleneck_dtype,
+                            device=self.device))
+        indexes = row_ids.to(torch.int32)[None, :].expand(
+            symbols.shape).contiguous()
+        buf, lengths, ok = continuous_base.compress_budgeted(
+            symbols, indexes, self.device_table, max_gamma_bits,
+            escape_budget)
+        return (buf.reshape(batch_shape + buf.shape[-1:]),
+                lengths.reshape(batch_shape), ok)
 
     def decompress_device(self, buf, byte_lens, broadcast_shape):
         """Reference-format decode without the sanity check's copy to the

@@ -1,0 +1,560 @@
+"""Scale-hyperprior image codec (Ballé et al. 2018), the serving path
+(PyTorch counterpart of compression_tpu/models/bmshj2018.py).
+
+Four-layer analysis / synthesis transforms (stride 2 each) with GDN, a
+hyper-analysis / hyper-synthesis pair that turns the latent ``y`` into a
+hyper-latent ``z`` and ``z`` into one scale index per element of ``y``, a
+NoisyDeepFactorized hyperprior over ``z`` (batched entropy model) and a
+LocationScaleIndexedEntropyModel over ``y`` with a log-spaced scale table.
+
+``BMSHJ2018Codec`` writes and reads two containers: the reference's classic
+.tfci one (``compress``: one stream for ``y`` and one for ``z``, escapes
+in-stream; 5 tensors) and the native one (``compress_native``,
+``compress_native_many``: one stream per latent row block plus an escape
+sidecar, for both latents; 9 tensors).  ``decompress`` and
+``decompress_native_many`` read both, ``reconstruct`` skips the coder.  The
+JAX package's fetch budgets and compacted transfers, and the fallback that
+goes with them, have no counterpart: the escape list here is exact, so
+``compress_native`` has no budget to overflow.  Weights come from a seeded
+init, from the JAX package (``params_from_jax``) or from the reference's TF
+variables (``params_from_tf``).  Images are uint8 [H, W, 3] (numpy or
+torch) and latents [1, H, W, C], the JAX package's NHWC layout.
+
+"Variational image compression with a scale hyperprior"
+https://openreview.net/forum?id=rkcQFMZRb
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from compression_tpu_torch.codec import torch_coder
+from compression_tpu_torch.distributions import deep_factorized
+from compression_tpu_torch.distributions import uniform_noise
+from compression_tpu_torch.entropy_models.continuous_batched import (
+    ContinuousBatchedEntropyModel)
+from compression_tpu_torch.entropy_models.continuous_indexed import (
+    LocationScaleIndexedEntropyModel)
+from compression_tpu_torch.layers.gdn import GDN
+from compression_tpu_torch.layers.signal_conv import SignalConv2D
+from compression_tpu_torch.models import native_format
+from compression_tpu_torch.util.device import resolve_device
+from compression_tpu_torch.util.packed_tensors import PackedTensors
+
+__all__ = [
+    "AnalysisTransform",
+    "SynthesisTransform",
+    "HyperAnalysisTransform",
+    "HyperSynthesisTransform",
+    "BMSHJ2018Model",
+    "BMSHJ2018Codec",
+    "make_scale_fn",
+    "params_from_jax",
+    "params_from_tf",
+]
+
+_TRANSFORMS = (("analysis", 4, "gdn"), ("synthesis", 4, "igdn"),
+               ("hyper_analysis", 3, None), ("hyper_synthesis", 3, None))
+
+
+def make_scale_fn(scale_min, scale_max, num_scales):
+    """index -> scale, log-spaced from scale_min to scale_max; the constants
+    are Python floats computed as the JAX package computes them, the
+    function runs in the indexes' float32."""
+    offset = math.log(scale_min)
+    factor = (math.log(scale_max) - math.log(scale_min)) / (num_scales - 1.0)
+    return lambda i: torch.exp(offset + factor * i)
+
+
+class AnalysisTransform(nn.Module):
+    """x/255 -> three (conv5x5 s2, GDN) -> conv5x5 s2 (NHWC)."""
+
+    def __init__(self, num_filters=128, generator=None):
+        super().__init__()
+        nf = num_filters
+        for i in range(4):
+            setattr(self, f"layer_{i}", SignalConv2D(
+                3 if i == 0 else nf, nf, 5, corr=True, strides_down=2,
+                use_bias=True, generator=generator))
+            if i < 3:
+                setattr(self, f"gdn_{i}", GDN(nf))
+
+    def forward(self, x):
+        x = (x / 255.0).permute(0, 3, 1, 2)
+        for i in range(3):
+            x = getattr(self, f"gdn_{i}")(getattr(self, f"layer_{i}")(x))
+        return self.layer_3(x).permute(0, 2, 3, 1)
+
+
+class SynthesisTransform(nn.Module):
+    """Mirrored upsampling transform with IGDN; output scaled to [0,255]."""
+
+    def __init__(self, num_filters=128, generator=None):
+        super().__init__()
+        nf = num_filters
+        for i in range(4):
+            setattr(self, f"layer_{i}", SignalConv2D(
+                nf, 3 if i == 3 else nf, 5, corr=False, strides_up=2,
+                use_bias=True, generator=generator))
+            if i < 3:
+                setattr(self, f"igdn_{i}", GDN(nf, inverse=True))
+
+    def forward(self, y):
+        y = y.permute(0, 3, 1, 2)
+        for i in range(3):
+            y = getattr(self, f"igdn_{i}")(getattr(self, f"layer_{i}")(y))
+        return (self.layer_3(y) * 255.0).permute(0, 2, 3, 1)
+
+
+class HyperAnalysisTransform(nn.Module):
+    """conv3x3 s1, relu, conv5x5 s2, relu, conv5x5 s2 without bias (NHWC)."""
+
+    def __init__(self, num_filters=128, generator=None):
+        super().__init__()
+        nf = num_filters
+        self.layer_0 = SignalConv2D(nf, nf, 3, corr=True, strides_down=1,
+                                    use_bias=True, generator=generator)
+        self.layer_1 = SignalConv2D(nf, nf, 5, corr=True, strides_down=2,
+                                    use_bias=True, generator=generator)
+        self.layer_2 = SignalConv2D(nf, nf, 5, corr=True, strides_down=2,
+                                    use_bias=False, generator=generator)
+
+    def forward(self, y):
+        y = y.permute(0, 3, 1, 2)
+        y = F.relu(self.layer_0(y))
+        y = F.relu(self.layer_1(y))
+        return self.layer_2(y).permute(0, 2, 3, 1)
+
+
+class HyperSynthesisTransform(nn.Module):
+    """Mirror of the hyper analysis; plain (not RDFT) kernels."""
+
+    def __init__(self, num_filters=128, generator=None):
+        super().__init__()
+        nf = num_filters
+        self.layer_0 = SignalConv2D(
+            nf, nf, 5, corr=False, strides_up=2, use_bias=True,
+            kernel_parameter="variable", generator=generator)
+        self.layer_1 = SignalConv2D(
+            nf, nf, 5, corr=False, strides_up=2, use_bias=True,
+            kernel_parameter="variable", generator=generator)
+        self.layer_2 = SignalConv2D(
+            nf, nf, 3, corr=False, strides_up=1, use_bias=True,
+            kernel_parameter="variable", generator=generator)
+
+    def forward(self, z):
+        z = z.permute(0, 3, 1, 2)
+        z = F.relu(self.layer_0(z))
+        z = F.relu(self.layer_1(z))
+        return self.layer_2(z).permute(0, 2, 3, 1)
+
+
+class BMSHJ2018Model(nn.Module):
+    """Rate-distortion model (eval forward); weights from a seeded init
+    (``seed``) or carried over with ``params_from_jax`` /
+    ``params_from_tf``."""
+
+    def __init__(self, lmbda=0.01, num_filters=128, num_scales=64,
+                 scale_min=0.11, scale_max=256.0, seed=0):
+        super().__init__()
+        self.lmbda = float(lmbda)
+        self.num_filters = int(num_filters)
+        self.num_scales = int(num_scales)
+        self.scale_min = float(scale_min)
+        self.scale_max = float(scale_max)
+        gen = torch.Generator().manual_seed(int(seed))
+        self.analysis = AnalysisTransform(num_filters, generator=gen)
+        self.synthesis = SynthesisTransform(num_filters, generator=gen)
+        self.hyper_analysis = HyperAnalysisTransform(num_filters,
+                                                     generator=gen)
+        self.hyper_synthesis = HyperSynthesisTransform(num_filters,
+                                                       generator=gen)
+        prior = deep_factorized.DeepFactorized.init_params(
+            (num_filters,), generator=gen)
+        self.hyperprior_matrices = nn.ParameterList(prior["matrices"])
+        self.hyperprior_biases = nn.ParameterList(prior["biases"])
+        self.hyperprior_factors = nn.ParameterList(prior["factors"])
+
+    def scale_fn(self):
+        return make_scale_fn(self.scale_min, self.scale_max, self.num_scales)
+
+    def hyperprior(self, device=None):
+        """NoisyDeepFactorized hyperprior over z (parameters copied to
+        ``device`` when given)."""
+        def get(plist):
+            return [p if device is None else p.detach().to(device)
+                    for p in plist]
+        return deep_factorized.NoisyDeepFactorized(
+            params={"matrices": get(self.hyperprior_matrices),
+                    "biases": get(self.hyperprior_biases),
+                    "factors": get(self.hyperprior_factors)},
+            batch_shape=(self.num_filters,))
+
+    def forward(self, x, training=False):
+        """Returns (loss, bpp, mse) for a uint8/float NHWC batch."""
+        if training:
+            raise NotImplementedError(
+                "the train step is not ported yet; pass training=False")
+        x = torch.as_tensor(x).to(torch.float32)
+        em = LocationScaleIndexedEntropyModel(
+            uniform_noise.NoisyNormal, self.num_scales, self.scale_fn(),
+            coding_rank=3, compression=False, device=x.device)
+        side_em = ContinuousBatchedEntropyModel(
+            prior=self.hyperprior(), coding_rank=3, compression=False,
+            offset_heuristic=False, device=x.device)
+        y, z = self.encode(x)
+        z_hat, side_bits = side_em(z, training=False)
+        indexes = self.hyper_decode(z_hat)[:, : y.shape[1], : y.shape[2], :]
+        y_hat, bits = em(y, indexes, training=False)
+        x_hat = self.decode(y_hat)[:, : x.shape[1], : x.shape[2], :]
+        num_pixels = int(np.prod(x.shape[:-1]))
+        bpp = (torch.sum(bits) + torch.sum(side_bits)) / num_pixels
+        mse = torch.mean(torch.square(x - x_hat))
+        return bpp + self.lmbda * mse, bpp, mse
+
+    # Inference sub-graphs.
+    def encode(self, x):
+        y = self.analysis(x)
+        return y, self.hyper_analysis(torch.abs(y))
+
+    def hyper_decode(self, z_hat):
+        return self.hyper_synthesis(z_hat)
+
+    def decode(self, y_hat):
+        return self.synthesis(y_hat)
+
+
+def _layer_names(n_conv, gdn):
+    names = [f"layer_{i}" for i in range(n_conv)]
+    if gdn:
+        names += [f"{gdn}_{i}" for i in range(n_conv - 1)]
+    return names
+
+
+def params_from_jax(tree) -> dict:
+    """Converts JAX ``BMSHJ2018Model`` params (the flax dict, as numpy or
+    jax arrays, with or without the top-level "params" key) to this
+    model's state_dict."""
+    tree = tree.get("params", tree)
+    state = {}
+    for part, n_conv, gdn in _TRANSFORMS:
+        for name in _layer_names(n_conv, gdn):
+            for key, value in tree[part][name].items():
+                state[f"{part}.{name}.{key}"] = torch.tensor(
+                    np.asarray(value, np.float32))
+    for key in ("matrices", "biases", "factors"):
+        for i, value in enumerate(tree["hyperprior"][key]):
+            state[f"hyperprior_{key}.{i}"] = torch.tensor(
+                np.asarray(value, np.float32))
+    return state
+
+
+def params_from_tf(tf_vars) -> dict:
+    """Converts the reference's TF variables to this model's state_dict
+    (counterpart of tools/port_tf_weights.port_bmshj2018 followed by
+    params_from_jax).
+
+    Args:
+      tf_vars: mapping of TF names ("analysis/layer_0/rdft_real", ...,
+        "hyper_synthesis/layer_0/kernel", ..., "prior/factor_1") to
+        arrays, or of the same names as stored in
+        tests/golden/golden_bmshj.npz ("var__analysis__layer_0__rdft_real",
+        ...); other keys are ignored.  A SignalConv kernel is an RDFT
+        real/imag pair or, in the hyper synthesis, a plain HWIO ``kernel``;
+        GDN beta/gamma are their reparameterized variables: the forms this
+        model stores.
+    """
+    names = {}
+    for key, value in tf_vars.items():
+        if key.startswith("var__"):
+            key = key[len("var__"):].replace("__", "/")
+        names[key] = np.asarray(value, np.float32)
+    state = {}
+    for side, n_conv, gdn in _TRANSFORMS:
+        for i in range(n_conv):
+            key = f"{side}/layer_{i}"
+            if f"{key}/rdft_real" in names:
+                state[f"{side}.layer_{i}.kernel_rdft"] = torch.tensor(
+                    np.stack([names[f"{key}/rdft_real"],
+                              names[f"{key}/rdft_imag"]]))
+            else:
+                state[f"{side}.layer_{i}.kernel"] = torch.tensor(
+                    names[f"{key}/kernel"])
+            if f"{key}/bias" in names:
+                state[f"{side}.layer_{i}.bias"] = torch.tensor(
+                    names[f"{key}/bias"])
+        for i in range(n_conv - 1 if gdn else 0):
+            key = f"{side}/{gdn}_{i}"
+            state[f"{side}.{gdn}_{i}.reparam_beta"] = torch.tensor(
+                names[f"{key}/beta"])
+            state[f"{side}.{gdn}_{i}.reparam_gamma"] = torch.tensor(
+                names[f"{key}/gamma"])
+    num_layers = len([k for k in names if k.startswith("prior/matrix_")])
+    for i in range(num_layers):
+        state[f"hyperprior_matrices.{i}"] = torch.tensor(
+            names[f"prior/matrix_{i}"])
+        state[f"hyperprior_biases.{i}"] = torch.tensor(
+            names[f"prior/bias_{i}"])
+        if i < num_layers - 1:
+            state[f"hyperprior_factors.{i}"] = torch.tensor(
+                names[f"prior/factor_{i}"])
+    return state
+
+
+class BMSHJ2018Codec:
+    """Inference codec with frozen tables for both entropy models.
+
+    Args:
+      model: a BMSHJ2018Model (moved to ``device``).
+      device: where the codec runs; "cuda" unless the caller asks for the
+        CPU.  On CUDA the range coder runs the hand-written kernels.
+      tables: optional carried entropy-model weights, a pair
+        ``([cdf_y, cdf_offset_y], [cdf_z, cdf_offset_z] or [cdf_z,
+        cdf_offset_z, quantization_offset_z])`` (the JAX entropy models'
+        ``get_weights()``); by default both tables are built on the CPU,
+        the y table from the scale function and the z table from the
+        model's hyperprior.
+
+    The float path runs in full float32: TF32 is switched off for cuDNN and
+    matmuls, and cuDNN is made deterministic, so that compress,
+    compress_native, decompress and reconstruct share one transform path
+    and ``decompress(compress(x))`` and ``decompress(compress_native(x))``
+    equal ``reconstruct(x)`` exactly.
+    """
+
+    MODEL_ID = "bmshj2018"
+
+    def __init__(self, model: BMSHJ2018Model, device="cuda", tables=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+        self.model = model.to(self.device).eval()
+        nf = model.num_filters
+        y_tables, z_tables = tables if tables is not None else (None, None)
+        cdf_y, cdf_offset_y = y_tables if y_tables is not None \
+            else (None, None)
+        self.em = LocationScaleIndexedEntropyModel(
+            uniform_noise.NoisyNormal, model.num_scales, model.scale_fn(),
+            coding_rank=3, compression=True, cdf=cdf_y,
+            cdf_offset=cdf_offset_y, device=self.device)
+        if z_tables is None:
+            self.side_em = ContinuousBatchedEntropyModel(
+                prior=model.hyperprior(device="cpu"), coding_rank=3,
+                compression=True, device=self.device)
+        else:
+            cdf, cdf_offset, *offset = z_tables
+            self.side_em = ContinuousBatchedEntropyModel(
+                prior_shape=(nf,), cdf=cdf, cdf_offset=cdf_offset,
+                quantization_offset=offset[0] if offset else None,
+                coding_rank=3, compression=True, device=self.device)
+        # Depth of y, read off the analysis transform rather than assumed
+        # equal to num_filters.
+        self.latent_depth = int(model.analysis.layer_3.filters)
+
+    # -- shared transform path --------------------------------------------
+    def _upload(self, x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        if x.dtype != torch.uint8 or x.ndim != 3 or x.shape[-1] != 3:
+            raise ValueError("expected a uint8 [H, W, 3] image")
+        return x.to(self.device)
+
+    def _encode(self, x):
+        """Image -> (y, z, scale indexes cropped to y)."""
+        y, z = self.model.encode(x.to(torch.float32)[None])
+        return y, z, self._indexes(self.side_em.quantize(z), y.shape[1:3])
+
+    def _indexes(self, z_hat, y_hw):
+        indexes = self.model.hyper_decode(z_hat)
+        return indexes[:, : y_hw[0], : y_hw[1], :]
+
+    def _synthesis_u8(self, y_hat):
+        x_hat = self.model.decode(y_hat)
+        return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
+
+    # -- compress ----------------------------------------------------------
+    @torch.no_grad()
+    def compress(self, x) -> bytes:
+        """uint8 [H, W, 3] image -> classic .tfci container bytes: y and z
+        each in one reference-format stream, escapes in-stream (the
+        reference's format, byte-identical to the JAX package's)."""
+        x = self._upload(x)
+        y, z, indexes = self._encode(x)
+        side_strings = self.side_em.compress_to_strings(z)
+        strings = self.em.compress_to_strings(y, indexes)
+        packed = PackedTensors()
+        packed.model = self.MODEL_ID
+        packed.pack([strings, side_strings,
+                     np.asarray(tuple(x.shape[:2]), np.int32),
+                     np.asarray(tuple(y.shape[1:-1]), np.int32),
+                     np.asarray(tuple(z.shape[1:-1]), np.int32)])
+        return packed.string
+
+    def _encode_latents(self, x):
+        """Launches the transforms and both sidecar encodes of an uploaded
+        image; returns device results without waiting for them."""
+        y, z, indexes = self._encode(x)
+        y_out = self.em.compress_sidecar_device(
+            native_format.to_streams(y), native_format.to_streams(indexes))
+        z_out = self.side_em.compress_sidecar_device(
+            native_format.to_streams(z))
+        return (y_out, tuple(int(s) for s in y.shape[1:]),
+                z_out, tuple(int(s) for s in z.shape[1:]),
+                tuple(x.shape[:2]))
+
+    def _container(self, encoded) -> bytes:
+        """Copies an _encode_latents result to the host and packs it."""
+        y_out, y_hwc, z_out, z_hwc, x_hw = encoded
+
+        def fetch(out, hwc):
+            buf, lens, esc_idx, esc_val = (t.cpu().numpy() for t in out)
+            _, w, c = hwc
+            n = (w // native_format.split_factor(w, c)) * c
+            pairs, vals = native_format.esc_to_pairs(esc_idx, esc_val, n)
+            return torch_coder.to_bytes_list(buf, lens), pairs.ravel(), vals
+
+        y_strings, y_pairs, y_vals = fetch(y_out, y_hwc)
+        z_strings, z_pairs, z_vals = fetch(z_out, z_hwc)
+        packed = PackedTensors()
+        packed.model = self.MODEL_ID
+        packed.pack([y_strings, z_strings, np.asarray(x_hw, np.int32),
+                     np.asarray(y_hwc[:2], np.int32),
+                     np.asarray(z_hwc[:2], np.int32),
+                     y_pairs, y_vals, z_pairs, z_vals])
+        return packed.string
+
+    @torch.no_grad()
+    def compress_native(self, x) -> bytes:
+        """uint8 [H, W, 3] image -> native container bytes: for y and for z
+        one coder stream per latent row block plus the escape sidecar.  Not
+        byte-compatible with the reference .tfci format; byte-identical to
+        the JAX package's native container."""
+        return self._container(self._encode_latents(self._upload(x)))
+
+    @torch.no_grad()
+    def compress_native_many(self, images) -> list:
+        """Launches every image's transforms and encodes before the first
+        copy to the host; containers equal per-image compress_native."""
+        pending = [self._encode_latents(self._upload(x)) for x in images]
+        return [self._container(e) for e in pending]
+
+    # -- decompress --------------------------------------------------------
+    def _unpack(self, container) -> PackedTensors:
+        packed = PackedTensors(container)
+        if packed.model != self.MODEL_ID:
+            raise ValueError(f"container is for model {packed.model!r}")
+        if packed.num_tensors not in (5, 9):
+            raise ValueError("not a bmshj2018 classic or native container")
+        return packed
+
+    def _decode_latent(self, packed):
+        """Launches the range decodes and the hyper synthesis of a classic
+        or native container; returns (y_hat [1, h, w, c], sanity [Sz + Sy],
+        (H, W)) on the device without waiting."""
+        if packed.num_tensors == 5:
+            return self._decode_classic(packed)
+        (strings, side_strings, x_shape, y_shape, z_shape, y_ep, y_ev,
+         z_ep, z_ev) = packed.unpack(
+            ["bytes", "bytes", np.int32, np.int32, np.int32,
+             np.int32, np.int32, np.int32, np.int32])
+        hy, wy = int(y_shape[0]), int(y_shape[1])
+        hz, wz = int(z_shape[0]), int(z_shape[1])
+        cz = int(np.prod(self.side_em.prior_shape))
+        cy = self.latent_depth
+        dev = self.device
+
+        def streams(strs, h, w, c, esc_pos, esc_val):
+            k = native_format.split_factor_from_streams(len(strs), h)
+            n = (w // k) * c
+            esc_idx = torch_coder.sidecar_flatten(
+                esc_pos.reshape(-1, 2), len(strs), n)
+            if esc_idx.shape[0] != esc_val.shape[0]:
+                raise ValueError("escape positions and values disagree")
+            buf, lens = torch_coder.from_bytes_list(strs)
+            return (k, torch.as_tensor(buf, device=dev),
+                    torch.as_tensor(lens, device=dev),
+                    torch.as_tensor(esc_idx, device=dev),
+                    torch.as_tensor(esc_val, device=dev))
+
+        k_z, z_buf, z_len, z_ei, z_evd = streams(
+            side_strings, hz, wz, cz, z_ep, z_ev)
+        k_y, y_buf, y_len, y_ei, y_evd = streams(
+            strings, hy, wy, cy, y_ep, y_ev)
+        z_rows, z_san = self.side_em.decompress_sidecar_device(
+            z_buf, z_len, (1, wz // k_z), z_ei, z_evd)
+        indexes = self._indexes(
+            native_format.from_streams(z_rows, hz, wz, cz), (hy, wy))
+        if tuple(indexes.shape[1:3]) != (hy, wy):
+            raise ValueError("latent shapes of the container disagree")
+        y_rows, y_san = self.em.decompress_sidecar_device(
+            y_buf, y_len, indexes[0].reshape(hy * k_y, 1, wy // k_y, cy),
+            y_ei, y_evd)
+        return (native_format.from_streams(y_rows, hy, wy, cy),
+                torch.cat([z_san, y_san]),
+                (int(x_shape[0]), int(x_shape[1])))
+
+    def _decode_classic(self, packed):
+        strings, side_strings, x_shape, y_shape, z_shape = packed.unpack(
+            ["bytes", "bytes", np.int32, np.int32, np.int32])
+        for strs, shape in ((strings, y_shape), (side_strings, z_shape)):
+            if len(strs) != 1 or shape.shape != (2,) or (shape < 1).any():
+                raise ValueError("not a bmshj2018 classic container")
+        dev = self.device
+
+        def upload(strs):
+            buf, lens = torch_coder.from_bytes_list(strs)
+            return (torch.as_tensor(buf, device=dev),
+                    torch.as_tensor(lens, device=dev))
+
+        z_hat, z_san = self.side_em.decompress_device(
+            *upload(side_strings), tuple(int(s) for s in z_shape))
+        hy, wy = int(y_shape[0]), int(y_shape[1])
+        indexes = self._indexes(z_hat, (hy, wy))
+        if tuple(indexes.shape[1:3]) != (hy, wy):
+            raise ValueError("latent shapes of the container disagree")
+        y_hat, y_san = self.em.decompress_device(*upload(strings), indexes)
+        return (y_hat, torch.cat([z_san, y_san]),
+                (int(x_shape[0]), int(x_shape[1])))
+
+    def _finish(self, x_hat, sanity, x_hw) -> np.ndarray:
+        if self.em.decode_sanity_check and not bool(sanity.all()):
+            raise ValueError("Sanity check failed (corrupt bit streams).")
+        return x_hat[0, : x_hw[0], : x_hw[1], :].cpu().numpy()
+
+    @torch.no_grad()
+    def decompress(self, container: bytes) -> np.ndarray:
+        """Classic or native container -> uint8 [H, W, 3]; raises
+        ValueError on a corrupt container."""
+        y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
+        return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
+
+    @torch.no_grad()
+    def decompress_native_many(self, containers) -> list:
+        """Launches every container's decodes and transforms (classic or
+        native) before the first copy to the host; outputs equal
+        per-container decompress."""
+        pending = []
+        for c in containers:
+            y_hat, sanity, x_hw = self._decode_latent(self._unpack(c))
+            pending.append((self._synthesis_u8(y_hat), sanity, x_hw))
+        return [self._finish(*p) for p in pending]
+
+    @torch.no_grad()
+    def reconstruct(self, x) -> np.ndarray:
+        """Reconstruction without the range coder: quantize the latent and
+        synthesize (the location-scale model rounds y whatever its indexes,
+        so the hyper branch drops out); equals decompress(compress(x)) and
+        decompress(compress_native(x)) exactly."""
+        x = self._upload(x)
+        y, _ = self.model.encode(x.to(torch.float32)[None])
+        y_hat = self.em.quantize(y)
+        return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
+                                         :].cpu().numpy()

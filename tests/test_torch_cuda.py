@@ -120,3 +120,93 @@ def test_gamma_kernels_match_plain(device):
     assert torch.equal(out, ref_out) and torch.equal(ok, ref_ok)
     assert _launched("decode_gamma", before)
     assert bool(ok[2:].all())
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_pair_lookup_matches_plain(device, big):
+    """K7' against its plain version on a small and a large table,
+    clamped indices included."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    k = 70000 if big else 3000
+    flat = torch.randint(0, 2 ** 16, (k,), generator=gen, device=device,
+                         dtype=torch.int32)
+    idx = torch.randint(0, k - 1, (37, 1001), generator=gen, device=device,
+                        dtype=torch.int32)
+    idx[0, :4] = torch.tensor([-5, k - 1, k + 9, 0], dtype=torch.int32)
+    before = dict(cuda_coder.LAUNCHES)
+    lo, hi = cuda_coder.pair_lookup(flat, idx)
+    ref_lo, ref_hi = cuda_coder.pair_lookup_plain(flat, idx)
+    assert torch.equal(lo, ref_lo) and torch.equal(hi, ref_hi)
+    assert _launched("pair_lookup", before)
+
+
+def test_micro_op_route_matches_plain(device):
+    """The micro-op encode mode against its plain version and against K6'
+    (symbol mode) on the same data; the expansion through K7' equals the
+    one through the plain lookup; the static budget copies nothing to the
+    host."""
+    table = _table(5, True, device)
+    cdf, meta = table.indexed_arrays()
+    rng = np.random.RandomState(5)
+    idx = torch.as_tensor(rng.randint(0, 8, (200, 50)), dtype=torch.int32,
+                          device=device)
+    sym = np.round(rng.laplace(0, 30, (200, 50))).astype(np.int32)
+    sym[:4, 0] = [2 ** 15, -2 ** 15, 2 ** 16 - 100, -1]
+    sym = torch.as_tensor(sym, device=device)
+    slots, num_steps = 35, 50 + 50 * 35
+    out_size = 2 * num_steps + 4
+    before = dict(cuda_coder.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops = torch_coder.micro_ops_from_symbols(sym, idx, table, slots,
+                                                 num_steps)
+        buf, lens = torch_coder.encode_core(*ops, out_size)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _launched("pair_lookup", before)
+    assert _launched("encode_scan", before)
+    assert torch_coder.DISPATCH_LOG["encode"] == "cuda-micro"
+    plain_ops = cuda_coder.gamma_micro_ops(sym, idx, cdf, meta, num_steps,
+                                           slots)
+    for a, b in zip(ops, plain_ops):
+        assert torch.equal(a, b)
+    ref_buf, ref_lens = torch.empty_like(buf), torch.empty_like(lens)
+    cuda_coder.encode_scan_plain(*ops, ref_buf, ref_lens)
+    assert torch.equal(buf, ref_buf) and torch.equal(lens, ref_lens)
+    gbuf, glens = cuda_coder.encode_gamma(sym, idx, cdf, meta, out_size)
+    assert torch.equal(buf, gbuf) and torch.equal(lens, glens)
+    out, ok = cuda_coder.decode_gamma(buf, lens, idx, cdf, meta)
+    assert torch.equal(out, sym) and bool(ok.all())
+
+
+@pytest.mark.parametrize("precision", [12, 16])
+def test_bucketed_decode_matches_plain(device, precision):
+    """K8' against its plain version and against K5', a truncated and a
+    bit-flipped stream included."""
+    rng = np.random.RandomState(precision)
+    pmf = 1.0 / (1 + np.arange(256)) ** 1.2
+    pmf /= pmf.sum()
+    table = torch_coder.DeviceCdfTable(tables.parse_ragged_cdf(
+        tables.build_ragged_cdf(
+            [tables.pmf_to_quantized_cdf(pmf, precision)], [precision],
+            [False])), device)
+    cdf, meta = table.indexed_arrays()
+    sym = torch.as_tensor(
+        rng.choice(256, size=(300, 64), p=pmf).astype(np.int32),
+        device=device)
+    buf, lens = cuda_coder.encode_single_row(
+        sym, cdf, meta, torch_coder.stream_out_size(64))
+    lens[1] //= 2
+    buf[2, 5] ^= 0x10
+    before = dict(cuda_coder.LAUNCHES)
+    bucketed = table.bucketed_arrays()
+    out, ok = cuda_coder.decode_single_row_bucketed(buf, lens, 64, *bucketed)
+    assert _launched("decode_single_row_bucketed", before)
+    ref_out, ref_ok = torch.empty_like(out), torch.empty_like(ok)
+    cuda_coder.decode_single_row_bucketed_plain(buf, lens, *bucketed,
+                                                ref_out, ref_ok)
+    assert torch.equal(out, ref_out) and torch.equal(ok, ref_ok)
+    k5_out, k5_ok = cuda_coder.decode_single_row(buf, lens, 64, cdf, meta)
+    assert torch.equal(out, k5_out) and torch.equal(ok, k5_ok)
+    assert torch.equal(out[3:], sym[3:]) and bool(ok[3:].all())
