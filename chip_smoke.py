@@ -22,15 +22,21 @@ Phases, one JSON line each (any failure exits non-zero):
      bmshj2018: y, 1 x 196608 on its 64-row table with the escapes the
      seeded model gives it, and z, 1 x 12288), on 8192 x 512 of a 64-row
      Gaussian overflow table with escapes at rate 2^-8, on one 8192-symbol
-     stream, on escapes of every size up to the INT32 extremes and on
-     corrupted streams;
+     stream, on escapes of every size up to the INT32 extremes, on
+     corrupted streams, on streams of 0, 1, 2, 3 and 1031 bytes in a buffer
+     of odd width (also from a view one byte into its storage), on a table
+     at precision 16 and on a stream count on either side of the wrapper's
+     dispatch constant.  K3' has two kernels, one thread and one warp per
+     stream: in every one of these cases the plain version runs once and
+     the wrapper's choice and both kernels are held against that result;
      K7' (pair lookup) and K6 in its micro-op mode on what compress_device
      gives them for those y and z latents (1 x 196608 indices and
      198848 x 1 micro-ops for y), K7' also at 512 x 32768 indices into
-     both of bmshj2018's tables, with the one PyTorch call that computes
-     the same, flat[idx] and flat[idx + 1], timed beside it, and the
-     micro-op mode also against K6''s bytes at 8192 x 512 with escapes at
-     2^-8;
+     both of bmshj2018's tables and at 1, 3, 5, 196608 and 196609 indices,
+     aligned and 4 bytes into their storage, with the one PyTorch call
+     that computes the same, flat[idx] and flat[idx + 1], timed beside it,
+     and the micro-op mode also against K6''s bytes at 8192 x 512 with
+     escapes at 2^-8;
      K8' (bucketed single-row decode) against its plain version and against
      K5' at 32768 x 512, on every golden case and on corrupted streams;
   4. main paths, each with the launch counts reset just before it and read
@@ -60,7 +66,11 @@ Phases, one JSON line each (any failure exits non-zero):
      tables built here equal theirs;
   6. times: kernels and plain versions at the main paths' shapes (CUDA
      events), their bounds, and end-to-end ms per image of both containers
-     of both models.
+     of both models; both kernels of K3' at the classic containers' three
+     stream shapes beside the byte bound and the serial chain's floor, and
+     from 1 to 65536 streams of 512 symbols (what the dispatch constant
+     rests on); K7' and its library call by events around a loop and
+     replayed from a CUDA graph.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.  Nothing of
@@ -149,6 +159,43 @@ def cuda_ms(fn, iters, warm=True):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches=20, replays=10):
+    """Mean ms per call of fn with ``launches`` calls captured into a CUDA
+    graph and the graph replayed: the device's time for the call, without
+    the host's time to enqueue it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def sm_clock_mhz():
+    """The card's highest SM clock, as nvidia-smi gives it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def mixed_table(rng, num_rows, prec_lo, prec_hi, overflow):
     """Random ragged table: rows of 2..60 symbols at precisions in
     [prec_lo, prec_hi], with the given overflow flags."""
@@ -228,18 +275,34 @@ def check_encode(name, kernel, plain, args, out_size):
     return out_k, len_k, same, ms
 
 
-def check_decode(name, kernel, plain, args):
-    """Runs a decode kernel and its plain version on the same inputs;
-    returns (symbols, sanity, identical, plain ms)."""
+def check_decode(name, kernel, plain, args, variants=()):
+    """Runs a decode kernel and its plain version on the same inputs, the
+    plain version once; ``variants`` are further kernels of the same
+    function held against that one result.  Returns (symbols, sanity,
+    all identical, plain ms)."""
     import torch
     sym_k, san_k = kernel(*args)
     torch.cuda.synchronize()
     sym_p, san_p = torch.empty_like(sym_k), torch.empty_like(san_k)
     ms = _plain_ms(lambda: plain(*args, sym_p, san_p))
-    same = bool(torch.equal(sym_k, sym_p) and torch.equal(san_k, san_p))
-    MAX_ABS_ERR[name] = max(MAX_ABS_ERR[name],
-                            _err((sym_k, sym_p), (san_k, san_p)))
+    same = True
+    for run in (lambda *a: (sym_k, san_k),) + tuple(variants):
+        sym_v, san_v = run(*args)
+        torch.cuda.synchronize()
+        same &= bool(torch.equal(sym_v, sym_p) and torch.equal(san_v, san_p))
+        MAX_ABS_ERR[name] = max(MAX_ABS_ERR[name],
+                                _err((sym_v, sym_p), (san_v, san_p)))
     return sym_k, san_k, same, ms
+
+
+def gamma_variants(table):
+    """K3' by the wrapper's own choice, and both of its kernels whatever
+    the shape; arguments (buf, lens, indexes, cdf, meta)."""
+    from compression_tpu_torch.codec import cuda_coder as cc
+    layout = table.warp_arrays()
+    return (lambda *a: cc.decode_gamma(*a, layout),
+            (lambda *a: cc.decode_gamma_warp(*a, layout),
+             cc.decode_gamma_thread))
 
 
 def compare_kernels(name, table, symbols, indexes, out_size, fails):
@@ -307,14 +370,15 @@ def compare_gamma(name, table, symbols, indexes, fails, round_trip=True):
     out_k, len_k, enc_ok, enc_ms = check_encode(
         "encode_gamma", cc.encode_gamma, cc.encode_gamma_plain,
         (symbols, indexes, cdf, meta), out_size)
+    chosen, both = gamma_variants(table)
     sym_k, san_k, dec_ok, dec_ms = check_decode(
-        "decode_gamma", cc.decode_gamma, cc.decode_gamma_plain,
-        (out_k, len_k, indexes, cdf, meta))
+        "decode_gamma", chosen, cc.decode_gamma_plain,
+        (out_k, len_k, indexes, cdf, meta), both)
     exact = bool(torch.equal(sym_k, symbols)) if round_trip else None
     log("kernels", case=name, streams=int(symbols.shape[0]),
         symbols=int(symbols.shape[1]), rows=int(cdf.shape[0]),
         escapes=int(escape.sum()), coded_intervals=intervals,
-        encode_identical=enc_ok, decode_identical=dec_ok,
+        encode_identical=enc_ok, decode_identical_both_variants=dec_ok,
         sanity_all=bool(san_k.all()), round_trip=exact)
     if not (enc_ok and dec_ok and exact is not False
             and (bool(san_k.all()) or not round_trip)):
@@ -427,14 +491,15 @@ def corruptions(buf, lens, seed):
     return out
 
 
-def corrupt_cases(label, kernel, plain, buf, lens, extra, seed, fails):
-    """Sanity flags and symbols of a decode kernel equal its plain
-    version's on corrupted streams; ``extra`` are the arguments after
-    (buf, lens)."""
+def corrupt_cases(label, kernel, plain, buf, lens, extra, seed, fails,
+                  variants=()):
+    """Sanity flags and symbols of a decode kernel (and of its
+    ``variants``) equal its plain version's on corrupted streams;
+    ``extra`` are the arguments after (buf, lens)."""
     detected = {}
     for name, (b, ln) in corruptions(buf, lens, seed).items():
         _, san_k, same, _ = check_decode(label, kernel, plain,
-                                         (b, ln) + extra)
+                                         (b, ln) + extra, variants)
         if not same:
             fails.append(f"corrupt/{label}/{name}")
         detected[name] = int((~san_k).sum())
@@ -482,17 +547,39 @@ def _bound(nbytes, ops):
 
 def reset_counts():
     from compression_tpu_torch.codec import cuda_coder, torch_coder
-    for k in cuda_coder.LAUNCHES:
-        cuda_coder.LAUNCHES[k] = 0
+    for counts in (cuda_coder.LAUNCHES, cuda_coder.LAUNCHES_WARP):
+        for k in counts:
+            counts[k] = 0
     torch_coder.DISPATCH_LOG.clear()
 
 
 def read_counts(keys):
+    """(launches per kernel, with K3''s launches of the warp-per-stream
+    kernel under "decode_gamma/warp"; dispatch routes of ``keys``)."""
     import torch
     from compression_tpu_torch.codec import cuda_coder, torch_coder
     torch.cuda.synchronize()
-    return (dict(cuda_coder.LAUNCHES),
-            {k: torch_coder.DISPATCH_LOG.get(k) for k in keys})
+    launches = dict(cuda_coder.LAUNCHES)
+    launches["decode_gamma/warp"] = cuda_coder.LAUNCHES_WARP["decode_gamma"]
+    return launches, {k: torch_coder.DISPATCH_LOG.get(k) for k in keys}
+
+
+def warp_floor_ms(intervals, max_len, clock_mhz):
+    """The serial chain's own floor for the warp-per-stream K3' (ms): one
+    coded interval cannot start before the one before it has narrowed the
+    range, so a stream takes at least intervals x (the dependent
+    operations of one step x their latency), whatever else the card
+    does.  Reckoned from the compiled kernel (cuobjdump -sass): the chain of
+    a step runs through 15 register-to-register operations (multiply-add
+    wide, funnel shift, compare, vote, population count, two adds, min,
+    address, then multiply-add wide, funnel shift, two adds, mask, select)
+    and one shared-memory load, a row of more than 129 entries through 7
+    more and a second load (the bucket's probes).  Taken at 4 clocks a
+    register operation and 23 a shared-memory load, the architecture's
+    nominal latencies (not measured here), at the card's highest SM
+    clock."""
+    clocks = 15 * 4 + 23 + (7 * 4 + 23 if max_len > 129 else 0)
+    return intervals * clocks / (clock_mhz * 1e3)
 
 
 def e2e_times(compress, decompress, img, runs=10):
@@ -772,9 +859,63 @@ def main():
     safe_idx = gidx_t[:64, :64][[i for i in range(64)
                                  if i not in (0, 8)]].contiguous()
     compare_gamma("gamma/large_magnitudes", gtable, safe, safe_idx, fails)
-    corrupt_cases("decode_gamma", cc.decode_gamma, cc.decode_gamma_plain,
+    g_chosen, g_both = gamma_variants(gtable)
+    corrupt_cases("decode_gamma", g_chosen, cc.decode_gamma_plain,
                   gbuf[:2048].contiguous(), glens[:2048].contiguous(),
-                  (gidx_t[:2048].contiguous(), gcdf, gmeta), 7, fails)
+                  (gidx_t[:2048].contiguous(), gcdf, gmeta), 7, fails, g_both)
+    # Both kernels of K3' where the stream's bytes end early or lie oddly:
+    # lengths 0, 1, 2, 3 and the whole of an odd width (most rows start
+    # unaligned, 1031 bytes span three windows of the warp kernel's ring)
+    # in a buffer of noise, decoded far past each end; then the same from
+    # a view that starts one byte into its storage.
+    ogen = torch.Generator(device=device).manual_seed(11)
+    onoise = torch.randint(0, 256, (40 * 1031 + 1,), generator=ogen,
+                           device=device, dtype=torch.uint8)
+    olens = torch.tensor([0, 1, 2, 3, 1031] * 8, dtype=torch.int32,
+                         device=device)
+    oidx = gidx_t[:40, :].repeat(1, 2)[:, :700].contiguous()
+    odd_ok = True
+    for view in (onoise[:-1], onoise[1:]):
+        _, _, same, _ = check_decode(
+            "decode_gamma", g_chosen, cc.decode_gamma_plain,
+            (view.view(40, 1031), olens, oidx, gcdf, gmeta), g_both)
+        odd_ok &= same
+    log("kernels", case="gamma/short_and_odd", streams=40, width=1031,
+        byte_lens=[0, 1, 2, 3, 1031], symbols=700,
+        decode_identical_both_variants=odd_ok)
+    if not odd_ok:
+        fails.append("gamma/short_and_odd")
+    # Overflow rows at precision 16 (terminal 65536), escapes included.
+    p16 = torch_coder.DeviceCdfTable(mixed_table(
+        np.random.RandomState(12), 48, 16, 16, [True] * 48), device)
+    pidx = torch.as_tensor(grng.randint(0, 48, (512, 256)), dtype=torch.int32,
+                           device=device)
+    psym = torch.as_tensor(
+        np.round(grng.laplace(0, 12, (512, 256))).astype(np.int32),
+        device=device)
+    compare_gamma("gamma/precision16", p16, psym, pidx, fails)
+    # A stream count on either side of the wrapper's dispatch constant:
+    # the larger launch takes the thread-per-stream kernel.
+    edge = cc.WARP_DECODE_MAX_STREAMS
+    reps = -(-(edge + 1) // gsym_t.shape[0])
+    esym = gsym_t[:, :64].repeat(reps, 1)[: edge + 1].contiguous()
+    eidx = gidx_t[:, :64].repeat(reps, 1)[: edge + 1].contiguous()
+    took = {}
+    for streams in (edge, edge + 1):
+        reset_counts()
+        compare_gamma(f"gamma/dispatch_{streams}", gtable,
+                      esym[:streams].contiguous(),
+                      eidx[:streams].contiguous(), fails)
+        counts, _ = read_counts(())
+        # The wrapper's own choice, then each kernel once.
+        took[streams] = "warp" if counts["decode_gamma/warp"] == 2 else \
+            "thread"
+        if counts["decode_gamma"] != 3:
+            fails.append(f"gamma/dispatch_{streams}/launches")
+    log("kernels", case="gamma/dispatch", warp_decode_max_streams=edge,
+        took=took)
+    if took != {edge: "warp", edge + 1: "thread"}:
+        fails.append("gamma/dispatch")
     with torch.no_grad():
         y = codec._analysis(codec._upload(images[first]))
         csym, _, crow = codec.em._symbols_from_bottleneck(y)
@@ -857,6 +998,27 @@ def main():
         if not same:
             fails.append(f"pair_lookup/{label}")
         pair_inputs[label] = (flat, pidx2)
+
+    # K7' where the count is no multiple of four (a scalar tail) and on
+    # indices that start 4 bytes into their storage (no 16-byte loads).
+    yflat_t = ytable.indexed_arrays()[0].reshape(-1)
+    odd_counts = {}
+    for count in (1, 3, 5, 196608, 196609):
+        store = torch.as_tensor(
+            prng.randint(0, yflat_t.numel() - 1, count + 1).astype(np.int32),
+            device=device)
+        same = True
+        for view in (store[:count], store[1:]):
+            lo_k, hi_k = cc.pair_lookup(yflat_t, view.view(1, count))
+            lo_p, hi_p = cc.pair_lookup_plain(yflat_t, view.view(1, count))
+            same &= bool(torch.equal(lo_k, lo_p) and torch.equal(hi_k, hi_p))
+            MAX_ABS_ERR["pair_lookup"] = max(
+                MAX_ABS_ERR["pair_lookup"], _err((lo_k, lo_p), (hi_k, hi_p)))
+        odd_counts[count] = same
+    log("kernels", case="pair_lookup/element_counts", identical=odd_counts,
+        views=["aligned", "4 bytes into the storage"])
+    if not all(odd_counts.values()):
+        fails.append("pair_lookup/element_counts")
 
     # K6 in its micro-op mode: the expansion of the Gaussian regime's data,
     # scanned by the kernel, against the plain recurrence and K6''s bytes.
@@ -970,6 +1132,7 @@ def main():
             and classic_launches["encode_gamma"]
             + classic_launches["encode_indexed"] == n_compress
             and classic_launches["decode_gamma"] == n_decompress
+            and classic_launches["decode_gamma/warp"] == n_decompress
             and classic_launches["decode_indexed"] == 0
             and all(p.startswith("cuda-") for p in classic_paths.values())):
         fails.append("classic_path")
@@ -1046,6 +1209,9 @@ def main():
         + hyper_launches["encode_gamma"],
         "decode_indexed": hyper_launches["decode_indexed"],
         "decode_gamma": hyper_launches["decode_gamma"]}
+    # Every classic stream is one stream a launch: the warp kernel's.
+    hyper_ok &= hyper_launches["decode_gamma/warp"] == \
+        hyper_launches["decode_gamma"]
     log("bmshj2018_many", images=len(batch), containers_equal=hmany_ok,
         calls=calls, launches=hyper_launches, expected=expect,
         dispatch=hyper_paths)
@@ -1181,6 +1347,7 @@ def main():
             and device_launches["pair_lookup"] == 4
             and device_launches["encode_scan"] == 4
             and device_launches["decode_gamma"] == 3
+            and device_launches["decode_gamma/warp"] == 3
             and device_launches["encode_gamma"] == 0):
         fails.append("compress_device")
 
@@ -1278,7 +1445,7 @@ def main():
         "encode_gamma": cuda_ms(lambda: cc.encode_gamma(
             csym, cidx, cdf, meta, cbuf.shape[1]), 5),
         "decode_gamma": cuda_ms(lambda: cc.decode_gamma(
-            cbuf, clens, cidx, cdf, meta), 5),
+            cbuf, clens, cidx, cdf, meta, table.warp_arrays()), 5),
         "encode_scan": cuda_ms(lambda: cc.encode_scan(
             *yops, ysbuf.shape[1]), 5),
         "pair_lookup": cuda_ms(lambda: cc.pair_lookup(*ypair), 50),
@@ -1286,12 +1453,85 @@ def main():
             lambda: cc.decode_single_row_bucketed(
                 zbuf, zlens, n_z, *ztable.bucketed_arrays()), 20),
     }
+    def at(name, t):
+        return f"{name}@{t.shape[0]}x{t.shape[1]}"
     yflat, yidx2 = pair_inputs["y_table"]
     yidx_long, ypair_long = yidx2.long(), ypair[1].long()
     # The one PyTorch call that computes K7''s function: two gathers.
     library_ms = {name: None for name, _, _ in KERNELS}
     library_ms["pair_lookup"] = cuda_ms(
         lambda: (ypair[0][ypair_long], ypair[0][ypair_long + 1]), 50)
+    # K7' and that call by both timings, in turns: events around a loop of
+    # calls (the host's time to enqueue a call counts where it is the
+    # longer), and the same calls replayed from a CUDA graph (the device's
+    # time alone).
+    pair_cases = {
+        at("pair_lookup", ypair[1]): (
+            lambda: cc.pair_lookup(*ypair),
+            lambda: (ypair[0][ypair_long], ypair[0][ypair_long + 1])),
+        at("pair_lookup", yidx2): (
+            lambda: cc.pair_lookup(yflat, yidx2),
+            lambda: (yflat[yidx_long], yflat[yidx_long + 1]))}
+    pair_ms = {}
+    for label, (kernel_call, library_call) in pair_cases.items():
+        rounds = [(cuda_ms(kernel_call, 50), cuda_ms(library_call, 50),
+                   graph_ms(kernel_call), graph_ms(library_call))
+                  for _ in range(2)]
+        pair_ms[label] = {
+            "kernel_ms_events": [r[0] for r in rounds],
+            "library_ms_events": [r[1] for r in rounds],
+            "kernel_ms_graph": [r[2] for r in rounds],
+            "library_ms_graph": [r[3] for r in rounds]}
+    # K3': both kernels at the classic containers' three shapes, beside the
+    # byte bound and the serial chain's floor; and as streams grow, which
+    # is what the wrapper's dispatch constant rests on.
+    clock = sm_clock_mhz()
+    zcdf_h, zmeta_h = htable.indexed_arrays()
+    zbuf1, zlens1 = cc.encode_gamma(
+        zsym1.contiguous(), zidx1, zcdf_h, zmeta_h,
+        torch_coder.stream_out_size(int(cc.interval_counts(
+            zsym1, zidx1, zmeta_h)[0].sum(1).max())))
+    gamma_shapes = {
+        "bls2017_y": (table, cbuf, clens, cidx, c_intervals),
+        "bmshj2018_y": (ytable, ybuf1, ylens1, yidx1.contiguous(),
+                        int(y_counts.sum())),
+        "bmshj2018_z": (htable, zbuf1, zlens1, zidx1, int(
+            cc.interval_counts(zsym1, zidx1, zmeta_h)[0].sum()))}
+    gamma_ms = {}
+    for label, (tab, b, ln, ix, intervals) in gamma_shapes.items():
+        t_cdf, t_meta = tab.indexed_arrays()
+        layout = tab.warp_arrays()
+        n = int(ix.shape[1])
+        warp_call = lambda: cc.decode_gamma_warp(b, ln, ix, t_cdf, t_meta,
+                                                 layout)
+        thread_call = lambda: cc.decode_gamma_thread(b, ln, ix, t_cdf, t_meta)
+        gamma_ms[f"{label}@1x{n}"] = {
+            "thread_ms": [cuda_ms(thread_call, 3)],
+            "warp_ms": [cuda_ms(warp_call, 5), cuda_ms(warp_call, 5)],
+            "coded_intervals": intervals,
+            "layout_bytes": int(2 * layout.numel()),
+            "bound_ms": decode_bound(ln, n, t_cdf, t_meta,
+                                     gamma_bits=intervals - n)[0],
+            "chain_floor_ms": warp_floor_ms(intervals, tab.max_len, clock)}
+        gamma_ms[f"{label}@1x{n}"]["thread_ms"].append(
+            cuda_ms(thread_call, 3))
+    gamma_sweep = {}
+    g_layout = gtable.warp_arrays()
+    for streams in (1, 2, 32, 256, 1024, 4096, 8192, 16384, 24576, 32768,
+                    65536):
+        reps = -(-streams // gbuf.shape[0])
+        sb = gbuf.repeat(reps, 1)[:streams].contiguous()
+        sl = glens.repeat(reps)[:streams].contiguous()
+        si = gidx_t.repeat(reps, 1)[:streams].contiguous()
+        warp_call = lambda: cc.decode_gamma_warp(sb, sl, si, gcdf, gmeta,
+                                                 g_layout)
+        thread_call = lambda: cc.decode_gamma_thread(sb, sl, si, gcdf, gmeta)
+        rounds = [(cuda_ms(warp_call, 10), cuda_ms(thread_call, 10))
+                  for _ in range(2)]
+        gamma_sweep[f"{streams}x{si.shape[1]}"] = {
+            "warp_ms": [r[0] for r in rounds],
+            "thread_ms": [r[1] for r in rounds]}
+        del sb, sl, si
     plain_ms = {
         "encode_indexed": cuda_ms(lambda: cc.encode_indexed_plain(
             symbols, idx, cdf, meta, out_p, len_p), 3),
@@ -1343,8 +1583,6 @@ def main():
     st_cdf, st_meta = st_table.indexed_arrays()
     st_buf, st_lens = cc.encode_indexed(st_sym, st_idx, st_cdf, st_meta,
                                         st_out_size)
-    def at(name, t):
-        return f"{name}@{t.shape[0]}x{t.shape[1]}"
     z256, zb256, zl256 = zsym[:256], zbuf[:256], zlens[:256]
     # K6' and K3' on the input the classic main path gave K6': the latent
     # scaled past the table, one stream with many escapes.
@@ -1362,7 +1600,8 @@ def main():
             lambda: cc.encode_gamma(ysym_c, yidx_c, ycdf, ymeta,
                                     ybuf1.shape[1]), 5),
         at("decode_gamma", ysym) + "/bmshj2018_y": cuda_ms(
-            lambda: cc.decode_gamma(ybuf1, ylens1, yidx_c, ycdf, ymeta), 5),
+            lambda: cc.decode_gamma(ybuf1, ylens1, yidx_c, ycdf, ymeta,
+                                    ytable.warp_arrays()), 5),
         at("encode_scan", gops[0]): cuda_ms(lambda: cc.encode_scan(
             *gops, gbuf.shape[1]), 10),
         at("pair_lookup", yidx2) + "/y_table": cuda_ms(
@@ -1383,15 +1622,16 @@ def main():
         at("encode_gamma", gsym_t): cuda_ms(lambda: cc.encode_gamma(
             gsym_t, gidx_t, gcdf, gmeta, gbuf.shape[1]), 10),
         at("decode_gamma", gsym_t): cuda_ms(lambda: cc.decode_gamma(
-            gbuf, glens, gidx_t, gcdf, gmeta), 10),
+            gbuf, glens, gidx_t, gcdf, gmeta, gtable.warp_arrays()), 10),
         at("encode_gamma", lsym): cuda_ms(lambda: cc.encode_gamma(
             lsym, lidx, gcdf, gmeta, lbuf.shape[1]), 10),
         at("decode_gamma", lsym): cuda_ms(lambda: cc.decode_gamma(
-            lbuf, llens, lidx, gcdf, gmeta), 10),
+            lbuf, llens, lidx, gcdf, gmeta, gtable.warp_arrays()), 10),
         at("encode_gamma", wsym) + "+escapes": cuda_ms(
             lambda: cc.encode_gamma(wsym, widx, cdf, meta, wbuf.shape[1]), 5),
         at("decode_gamma", wsym) + "+escapes": cuda_ms(
-            lambda: cc.decode_gamma(wbuf, wlens, widx, cdf, meta), 5),
+            lambda: cc.decode_gamma(wbuf, wlens, widx, cdf, meta,
+                                    table.warp_arrays()), 5),
         at("encode_single_row", z256): cuda_ms(lambda: cc.encode_single_row(
             z256, zcdf, zmeta, zbuf.shape[1]), 20),
         at("decode_single_row", z256): cuda_ms(lambda: cc.decode_single_row(
@@ -1440,7 +1680,10 @@ def main():
         other_kernel_ms=other_ms,
         scaled_latent={"escapes": int(wesc.sum()),
                        "coded_intervals": int(wcounts.sum())},
-        end_to_end=e2e_ms, card=smi)
+        pair_lookup_ms=pair_ms, decode_gamma_variants_ms=gamma_ms,
+        decode_gamma_streams_ms=gamma_sweep,
+        warp_decode_max_streams=cc.WARP_DECODE_MAX_STREAMS,
+        sm_clock_mhz=clock, end_to_end=e2e_ms, card=smi)
 
     launches = {k: native_launches[k] + classic_launches[k]
                 + front_launches[k] + hyper_launches[k] + device_launches[k]

@@ -1,6 +1,7 @@
-// Range decode, one thread per coder stream: four kernels over one copy of
-// the RangeDecoder recurrence (three from one template, one with the
-// bucketed symbol search).
+// Range decode: five kernels over the RangeDecoder recurrence.  Four run one
+// thread per coder stream (three from one template, one with the bucketed
+// symbol search); the fifth runs one warp per stream and serves the
+// in-stream-gamma decode when a launch holds few streams.
 //
 //   ctpu_decode_indexed     (K2)  replaces compression_tpu/codec/pallas_coder.py:
 //       decode_indexed_pallas(in_stream_gamma=False) -> _decode_indexed_call
@@ -11,13 +12,16 @@
 //   ctpu_decode_single_row  (K5') replaces pallas_coder.py:
 //       decode_scan_pallas_v2 -> _decode_v2_call.  One shared CDF row, no
 //       indexes, no overflow.
-//   ctpu_decode_gamma       (K3') replaces pallas_coder.py:
+//   ctpu_decode_gamma       (K3', thread per stream) and
+//   ctpu_decode_gamma_warp  (K3', warp per stream) replace pallas_coder.py:
 //       decode_indexed_pallas(in_stream_gamma=True): the reference .tfci
 //       format.  As K2, but the marker on an overflow row is followed by the
 //       Elias-gamma magnitude and the sign (OverflowDecode), each bit decoded
 //       with the binary uniform CDF at precision 1: zeros are counted while
 //       n < 31 (what keeps a corrupt stream from looping), then n bits, then
-//       the sign; the value is sign ? -g : g + (len-2) - 1 in int32.
+//       the sign; the value is sign ? -g : g + (len-2) - 1 in int32.  Both
+//       kernels compute the same function; the wrapper picks one from the
+//       number of streams in the launch.
 //
 //   ctpu_decode_single_row_bucketed (K8') replaces pallas_coder.py:
 //       decode_scan_pallas (v1, kernel body _make_decode_kernel): one shared
@@ -35,11 +39,11 @@
 //       (the same check as the other kernels').  It is the second,
 //       independent single-row decoder that K5' is held against.
 //
-// The template's three compute the same function as the XLA scan the TPU kernels are
-// held to, jax_coder.decode_core (jax_coder.py:779-914), also on corrupt
-// input.  Bytes past the stream end read as zero (Read16BitValue); the
-// sanity flag is RangeDecoder::Finalize's check and 2 * chunks_read >=
-// byte_len (jax_coder.py:901-913).
+// The template's three and the warp kernel compute the same function as the
+// XLA scan the TPU kernels are held to, jax_coder.decode_core
+// (jax_coder.py:779-914), also on corrupt input.  Bytes past the stream end
+// read as zero (Read16BitValue); the sanity flag is RangeDecoder::Finalize's
+// check and 2 * chunks_read >= byte_len (jax_coder.py:901-913).
 //
 // Symbol search, in the padded dense table (rows padded with their terminal
 // value 2^precision), exactly as decode_core resolves it: count = #{k in
@@ -54,18 +58,60 @@
 // _decode_binary: bit = size < lower_bound at precision 1, interval [bit,
 // bit + 1) -- not the general search, which differs on corrupt streams.
 //
-// What bounds them on this card: like the encoder, a serial chain per
-// stream (a binary search of ~log2(max_len) dependent 64-bit
-// multiply-compares per symbol, then the interval update), so the time is N
-// steps of latency and the card fills only with many thousands of streams;
-// the classic .tfci container decodes a whole image on one thread.  Bytes
-// moved (~2 B in, 8 B in/out per symbol) are far below the memory rate.
+// What bounds them on this card: a serial chain per stream.  Every symbol's
+// interval depends on the state the symbol before left, so a stream takes N
+// steps of latency whatever else the card does, and bytes moved (~2 B in,
+// 8 B in/out per symbol) are far below the memory rate.
 //
-// What the design does about it: decoder state (base, size-1, value, read
-// position) lives in registers, each thread reads its own stream's bytes,
-// and the table and row metadata sit in shared memory (read through L1 from
-// global when they do not fit), so the search probes never leave the SM.
-// Small launches use 32-thread blocks to spread streams over more SMs.
+// Thread per stream (many streams): the chain of one step is a binary search
+// of ~log2(max_len) dependent 64-bit multiply-compares, each behind a table
+// load, then the interval update; the card fills only with many thousands of
+// streams.  Decoder state (base, size-1, value, read position) lives in
+// registers, each thread reads its own stream's bytes, and the table and row
+// metadata sit in shared memory (read through L1 from global when they do
+// not fit), so the search probes never leave the SM.  Small launches use
+// 32-thread blocks to spread streams over more SMs.
+//
+// Warp per stream (down to the one stream of a classic .tfci container):
+// with one thread per stream a single lane of the card would run, so the 32
+// lanes of a warp shorten the chain of one step instead.  One warp alone on
+// its scheduler has nothing to hide a stall behind, and it runs its code in
+// program order: what decides its time is the chain's length, every
+// operation that waits for a load in front of the chain, every jump, and the
+// plain number of operations (each takes the 16-lane pipe two cycles).
+//   - All lanes carry the decoder state redundantly in registers; nothing is
+//     broadcast, and every branch is uniform across the warp.  The state is
+//     the offset value - base, size - 1 and base: the search and the update
+//     need only the offset; value is put together for the final check.
+//   - The search is one round of independent probes: the contract is a
+//     count, so lane l tests entries 1 + l + 32 r and the count is the sum
+//     of __popc(__ballot_sync(...)) over r.  Rows of up to 129 entries take
+//     four multiply-shift-compares a lane and no dependent load; longer rows
+//     take two levels, every 32nd entry first and then the 32 entries of the
+//     bucket found: three ballots instead of eleven dependent loads.
+//   - The table comes in a 16-bit layout (cuda_coder.warp_table) that fits
+//     shared memory where the int32 one does not (bmshj2018's 64 x 1481
+//     table: 379 KB as int32, 196 KB here): a record per row of 16 bytes of
+//     metadata fetched by one load, the every-32nd entries (dense, so that
+//     the lanes' loads do not collide on two banks) and the row padded to
+//     the probes' reach.  65536, the terminal value of a precision-16 row,
+//     does not fit 16 bits, and no entry needs it: see RowLoads.  A layout
+//     too large for shared memory is read from global memory.
+//   - A symbol's record offset is fetched from its lane two symbols ahead
+//     and its loads are started one symbol ahead, into registers that are
+//     not touched before its turn (two sets that swap roles, the loop
+//     unrolled by two).  The next 16-bit chunk of the stream is always in a
+//     register.  The stream's bytes come through a 1 KB ring per warp that
+//     is filled with 16-byte loads a lane one 512-byte window ahead (bytes
+//     at or past min(byte_len, width) are stored as zero; an edge window,
+//     and every window of a stream that starts at an odd address, is read
+//     byte by byte); a window of 32 symbols reserves its bytes once, so a
+//     symbol's path has no refill branch.  Lane j % 32 keeps symbol j until
+//     the warp stores 32 of them as 128 bytes.  Escapes are decoded by a
+//     function of its own, outside the other symbols' path.
+//   - Measured on an H100 (PERF.md): 3.6-6x the thread kernel on one long
+//     stream, and ahead of it up to tens of thousands of streams, where
+//     the thread kernel's ~20x less work a symbol begins to count.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC decode_indexed.cu -o decode_indexed.so
@@ -79,6 +125,21 @@ constexpr uint32_t kU16 = 0xFFFFu;
 constexpr int kMetaCols = 3;  // per row: escape marker len-2, precision, overflow
 
 enum Mode { kIndexed = 0, kSingleRow = 1, kGamma = 2 };
+
+// RangeDecoder::Finalize check plus "stream fully consumed".
+__device__ inline bool stream_sane(uint32_t base, uint32_t sm1, uint32_t value,
+                                   int64_t chunks_read, int64_t src_len) {
+  const uint32_t upper = base + sm1;
+  bool ok;
+  if (base == 0 || upper < base) {
+    ok = value == 0;
+  } else {
+    const int shift = ((base - 1) >> 24) < (upper >> 24) ? 24 : 16;
+    const uint32_t mid = ((base - 1) >> shift) + 1;
+    ok = (mid << shift) == value;
+  }
+  return ok && 2 * chunks_read >= src_len;
+}
 
 struct Decoder {
   const uint8_t* src;
@@ -146,18 +207,8 @@ struct Decoder {
     return b;
   }
 
-  // RangeDecoder::Finalize check plus "stream fully consumed".
   __device__ bool sane(int64_t src_len) const {
-    const uint32_t upper = base + sm1;
-    bool ok;
-    if (base == 0 || upper < base) {
-      ok = value == 0;
-    } else {
-      const int shift = ((base - 1) >> 24) < (upper >> 24) ? 24 : 16;
-      const uint32_t mid = ((base - 1) >> shift) + 1;
-      ok = (mid << shift) == value;
-    }
-    return ok && 2 * chunks_read >= src_len;
+    return stream_sane(base, sm1, value, chunks_read, src_len);
   }
 };
 
@@ -276,6 +327,405 @@ __global__ void decode_bucketed_kernel(
   sanity[s] = dec.sane(src_len) ? 1 : 0;
 }
 
+// ---------------------------------------------------------------------------
+// K3', one warp per stream.
+// ---------------------------------------------------------------------------
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kWarpsPerBlock = 8;  // one stream each
+constexpr int kWindowBytes = 512;  // 32 lanes x 16 bytes
+constexpr int kRingBytes = 2 * kWindowBytes;
+constexpr int kDirectBuckets = 4;  // rows of <= 129 entries: one level
+constexpr int kCoarseHeld = 2;     // coarse rounds loaded ahead into registers
+constexpr int kMetaBytes = 16;
+
+// Geometry of the 16-bit layout (cuda_coder.warp_table): one record per
+// row, ``stride`` 16-bit units long (a multiple of 8, so that records start
+// 16-byte aligned): 8 units of metadata (four int32, see RowLoads), then
+// ``buckets`` every-32nd entries, then ``row_len`` entries.
+struct WarpLayout {
+  int num_rows;
+  int buckets;  // max(4, ceil((max_len - 1) / 32))
+  int row_len;  // 2 + 32 * buckets: the probes' reach and one entry more
+  int stride;
+  int64_t units;
+};
+
+inline WarpLayout warp_layout(int num_rows, int max_len) {
+  WarpLayout g;
+  g.num_rows = num_rows;
+  g.buckets = (max_len - 1 + 31) / 32;
+  if (g.buckets < kDirectBuckets) g.buckets = kDirectBuckets;
+  g.row_len = 2 + 32 * g.buckets;
+  g.stride = (8 + g.buckets + g.row_len + 7) / 8 * 8;
+  g.units = static_cast<int64_t>(num_rows) * g.stride;
+  return g;
+}
+
+// What the search of one symbol needs that does not depend on the decoder's
+// state.  Its loads are started one symbol ahead and their results are not
+// touched before that symbol's turn: a warp runs in program order, so an
+// operation that waits for a load holds back every one behind it, the
+// chain of the symbol at hand included.
+//
+// Entries are stored as min(value, 2^precision - 1), which changes only a
+// row's terminal entries, and no terminal entry is ever below the threshold
+// (the decoder keeps value - base < size): the count is capped at
+// ``limit``, the index before the row's first terminal entry, which is
+// exact, because a stored terminal tests below only where every entry
+// before it does.  The entry at the count is then never a terminal one, and
+// the one after it is read from the table or, at the cap, taken from
+// ``top``.  With the terminal out of the way, (size * entry) >> precision
+// fits 32 bits, and "size * entry < (offset + 1) << precision" becomes
+// "(size * entry) >> precision <= offset".
+struct RowLoads {
+  const char* record;
+  int4 meta;  // x: escape marker len-2, -1 on a row without overflow;
+              // y: precision; z: top, the interval's end at the cap
+              // (2^precision); w: limit
+  uint32_t raw[kDirectBuckets];  // this lane's entries (one level) or its
+                                 // coarse ones (two levels), as stored
+};
+
+// The decoder state, the same in every lane of the warp, and the stream's
+// bytes behind a ring in shared memory.  The state is the range's base and
+// size - 1 and the offset value - base of the reference decoder: the search
+// and the update need only the offset, so value itself is put together at
+// the end, for the sanity check.
+struct WarpDecoder {
+  const uint8_t* src;
+  int64_t avail;  // readable bytes: min(byte_len, buffer width)
+  int shift;      // ring positions count from src - shift: 16-byte aligned,
+                  // or src itself (read byte by byte) where src is odd, so
+                  // that a chunk never straddles two 16-bit units of the ring
+  bool aligned;
+  int lane;
+  uint8_t* ring;       // kRingBytes of this warp
+  int64_t filled = 0;  // the ring holds positions [filled - kRingBytes, filled)
+  int room = 0;        // filled less the position of the next chunk (even)
+  uint4 ahead;         // this lane's 16 bytes of the window at ``filled``
+  uint32_t base = 0;
+  uint32_t sm1 = 0xFFFFFFFFu;
+  uint32_t offset = 0;  // value - base
+  uint32_t next = 0;    // the next chunk as it lies in memory (its high byte
+                        // first), loaded ahead of its use and untouched
+                        // until then
+
+  // This lane's 16 bytes of the window at position ``start``; bytes outside
+  // [0, avail) of the stream are zero.
+  __device__ uint4 window(int64_t start) const {
+    const int64_t p = start + 16 * lane - shift;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (aligned && p >= 0 && p + 16 <= avail) {
+      v = *reinterpret_cast<const uint4*>(src + p);
+    } else if (p + 16 > 0 && p < avail) {
+      // Rare (a stream's first and last window, or all of them where src
+      // is odd): kept small, not fast.
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll 1
+      for (int i = 0; i < 16; ++i) {
+        const int64_t q = p + i;
+        if (q >= 0 && q < avail)
+          w[i >> 2] |= static_cast<uint32_t>(src[q]) << (8 * (i & 3));
+      }
+      v = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    return v;
+  }
+
+  // Publishes the window held in registers and starts the load of the next.
+  __device__ void advance() {
+    __syncwarp();
+    reinterpret_cast<uint4*>(ring + (filled & (kRingBytes - 1)))[lane] = ahead;
+    filled += kWindowBytes;
+    room += kWindowBytes;
+    ahead = window(filled);
+    __syncwarp();
+  }
+
+  // Loads the next chunk.
+  __device__ void load_next() {
+    next = *reinterpret_cast<const uint16_t*>(
+        ring + ((static_cast<uint32_t>(filled) - room) & (kRingBytes - 1)));
+  }
+
+  // x << 16 | chunk, the chunk's two bytes swapped into place.
+  __device__ uint32_t shifted_in(uint32_t x) const {
+    return __byte_perm(x, next, 0x1045);
+  }
+
+  __device__ void start() {
+    const int at = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+    aligned = (at & 1) == 0;
+    shift = aligned ? at : 0;
+    ahead = window(0);
+    room = -shift;
+    advance();
+    for (int k = 0; k < 2; ++k) {
+      load_next();
+      offset = shifted_in(offset);
+      room -= 2;
+    }
+    load_next();
+  }
+
+  // Makes sure that the ring holds the next ``bytes`` bytes (at most
+  // kWindowBytes, so that a refill never overwrites bytes not yet read).
+  __device__ void reserve(int bytes) {
+    while (room < bytes) advance();
+  }
+
+  // Narrows to [a, b] (already scaled) and renormalizes, without a branch.
+  // The caller has reserved the chunk after the one this may consume.
+  __device__ void refine(uint32_t a, uint32_t b) {
+    const uint32_t ns = b - a;
+    const bool renorm = (ns >> 16) == 0;
+    const uint32_t left = offset - a;
+    offset = renorm ? shifted_in(left) : left;
+    sm1 = renorm ? (ns << 16) | kU16 : ns;
+    base = renorm ? (base + a) << 16 : base + a;
+    room -= renorm ? 2 : 0;
+    if (renorm) load_next();
+  }
+
+  __device__ int64_t chunks_read() const {
+    return (filled - room - shift) >> 1;
+  }
+
+  // size * c as one 32 x 32 -> 64-bit multiply-add (size may be 2^32).
+  __device__ uint64_t scaled(uint32_t c) const {
+    return static_cast<uint64_t>(sm1) * c + c;
+  }
+
+  // size * c < (offset + 1) << prec, for c < 2^prec.
+  __device__ bool below(uint32_t c, int prec) const {
+    return static_cast<uint32_t>(scaled(c) >> prec) <= offset;
+  }
+
+  // decode_core's _decode_binary: one bit at precision 1.
+  __device__ uint32_t bit() {
+    reserve(4);
+    const uint32_t b =
+        scaled(1u) < ((static_cast<uint64_t>(offset) + 1) << 1) ? 1u : 0u;
+    refine(static_cast<uint32_t>(scaled(b) >> 1),
+           static_cast<uint32_t>(scaled(b + 1u) >> 1) - 1u);
+    return b;
+  }
+};
+
+// A symbol consumes at most one chunk, so a window of 32 symbols needs 64
+// bytes and the chunk loaded ahead two more: reserved once a window, which
+// keeps the refill's branch out of the chain of a symbol.
+constexpr int kWindowReserve = 2 * 32 + 2;
+
+struct Escaped {
+  WarpDecoder dec;
+  int32_t value;
+};
+
+// OverflowDecode after the marker ``marker``, every lane the same: zeros
+// counted while n < 31 (phase 0), the n bits below the magnitude's top one
+// (phase 1), the sign (phase 2).  Escapes are rare, and this is a function
+// of its own, the decoder passed by value, to keep its code out of the path
+// of the other symbols: a single warp has nothing to hide a jump over it
+// behind.
+__device__ __noinline__ Escaped decode_escape(WarpDecoder dec, int32_t marker) {
+  uint32_t n = 0, gm = 1u, sign = 0u;
+  int left = 0;
+  for (int phase = 0; phase < 3;) {
+    const uint32_t b = dec.bit();
+    if (phase == 0) {
+      if (b != 0u || ++n >= 31u) {
+        gm = 1u << n;
+        left = static_cast<int>(n);
+        phase = left > 0 ? 1 : 2;
+      }
+    } else if (phase == 1) {
+      gm |= b << (left - 1);
+      if (--left == 0) phase = 2;
+    } else {
+      sign = b;
+      phase = 3;
+    }
+  }
+  dec.reserve(kWindowReserve);
+  Escaped out;
+  out.dec = dec;
+  out.value = static_cast<int32_t>(
+      sign ? 0u - gm : gm + static_cast<uint32_t>(marker) - 1u);
+  return out;
+}
+
+// layout: the 16-bit table layout of geometry g, 16-byte aligned.  Dynamic
+// shared memory: kWarpsPerBlock rings, then (kSharedTable) the layout.
+// kDirect: rows of at most 129 entries (g.buckets == kDirectBuckets), found
+// in one level.
+template <bool kSharedTable, bool kDirect>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock, 1)
+decode_gamma_warp_kernel(
+    const uint8_t* __restrict__ buf, int64_t buf_width,
+    const int32_t* __restrict__ byte_lens,
+    const int32_t* __restrict__ indexes, int64_t num_streams,
+    int64_t num_elements, const uint4* __restrict__ layout, WarpLayout g,
+    int32_t* __restrict__ symbols, uint8_t* __restrict__ sanity) {
+  extern __shared__ uint4 warp_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const char* table = reinterpret_cast<const char*>(layout);
+  if (kSharedTable) {
+    uint4* dst = warp_smem + kWarpsPerBlock * (kRingBytes / 16);
+    for (int64_t i = threadIdx.x; i < g.units / 8; i += blockDim.x)
+      dst[i] = layout[i];
+    __syncthreads();
+    table = reinterpret_cast<const char*>(dst);
+  }
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
+  if (s >= num_streams) return;
+
+  const int buckets = kDirect ? kDirectBuckets : g.buckets;
+  const int last_row = g.num_rows - 1;
+  const int record_bytes = 2 * g.stride;
+  // Byte offsets in a record: this lane's first entry probe (entry 1 +
+  // lane), its coarse probes, and entry 0.
+  const int entries_at = kMetaBytes + 2 * buckets;
+  const int probe_at = entries_at + 2 * (1 + lane);
+  int coarse_at[kCoarseHeld];
+#pragma unroll
+  for (int r = 0; r < kCoarseHeld; ++r)
+    coarse_at[r] = kMetaBytes + 2 * min(lane + 32 * r, buckets - 1);
+
+  const int64_t src_len = byte_lens[s];
+  WarpDecoder dec;
+  dec.src = buf + s * buf_width;
+  dec.avail = src_len < buf_width ? src_len : buf_width;
+  dec.lane = lane;
+  dec.ring = reinterpret_cast<uint8_t*>(warp_smem) + warp * kRingBytes;
+  dec.start();
+
+  const int32_t* irow = indexes + s * num_elements;
+  int32_t* orow = symbols + s * num_elements;
+  // The byte offset of the record of element j's row, 0 past the stream.
+  auto record_of = [&](int64_t j) {
+    const int row = j < num_elements ? irow[j] : 0;
+    return min(max(row, 0), last_row) * record_bytes;
+  };
+
+  // Starts the loads of a symbol's row.
+  auto start_loads = [&](int record, RowLoads& p) {
+    p.record = table + record;
+    p.meta = *reinterpret_cast<const int4*>(p.record);
+    if (kDirect) {
+#pragma unroll
+      for (int r = 0; r < kDirectBuckets; ++r)
+        p.raw[r] =
+            *reinterpret_cast<const uint16_t*>(p.record + probe_at + 64 * r);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kCoarseHeld; ++r)
+        p.raw[r] =
+            *reinterpret_cast<const uint16_t*>(p.record + coarse_at[r]);
+    }
+  };
+  auto entry_at = [&](const RowLoads& p, int k) -> uint32_t {
+    return *reinterpret_cast<const uint16_t*>(p.record + entries_at + 2 * k);
+  };
+
+  // Symbol t of a window: fetches the record offset of symbol t + 2 from
+  // lane t of ``ahead2`` into record_out, starts the loads of symbol t + 1
+  // (record offset record_in, fetched a step ago) into nxt, and decodes
+  // symbol t from cur.  The two RowLoads and the two offsets swap roles from
+  // one step to the next, so that no register is copied (a copy would wait
+  // for its load).  Returns what lane t keeps.
+  auto step = [&](int t, int ahead2, const RowLoads& cur, RowLoads& nxt,
+                  int record_in, int& record_out, int32_t keep) {
+    record_out = __shfl_sync(kFullMask, ahead2, t);
+    start_loads(record_in, nxt);
+    const int prec = cur.meta.y;
+    int count = 0;
+    if (kDirect) {
+#pragma unroll
+      for (int r = 0; r < kDirectBuckets; ++r)
+        count +=
+            __popc(__ballot_sync(kFullMask, dec.below(cur.raw[r], prec)));
+    } else {
+      // Full buckets first: every 32nd entry.
+      int full = 0;
+#pragma unroll
+      for (int r = 0; r < kCoarseHeld; ++r) {
+        const bool in_row = lane + 32 * r < buckets;
+        full += __popc(
+            __ballot_sync(kFullMask, in_row & dec.below(cur.raw[r], prec)));
+      }
+      for (int r = kCoarseHeld; 32 * r < buckets; ++r) {
+        const int j = lane + 32 * r;
+        const bool in_row = j < buckets;
+        const uint32_t c = *reinterpret_cast<const uint16_t*>(
+            cur.record + kMetaBytes + 2 * min(j, buckets - 1));
+        full += __popc(__ballot_sync(kFullMask, in_row & dec.below(c, prec)));
+      }
+      const int b = min(full, buckets - 1);
+      count = 32 * b +
+              __popc(__ballot_sync(
+                  kFullMask,
+                  dec.below(*reinterpret_cast<const uint16_t*>(
+                                cur.record + probe_at + 64 * b),
+                            prec)));
+    }
+    count = min(count, cur.meta.w);
+    const uint32_t c_lo = entry_at(cur, count);
+    const uint32_t c_up = entry_at(cur, count + 1);
+    const uint32_t c_hi =
+        count == cur.meta.w ? static_cast<uint32_t>(cur.meta.z) : c_up;
+    dec.refine(static_cast<uint32_t>(dec.scaled(c_lo) >> prec),
+               static_cast<uint32_t>(dec.scaled(c_hi) >> prec) - 1u);
+    int32_t sym = count;
+    if (__builtin_expect(sym == cur.meta.x, 0)) {
+      const Escaped e = decode_escape(dec, cur.meta.x);
+      dec = e.dec;
+      sym = e.value;
+    }
+    return lane == t ? sym : keep;
+  };
+
+  // Record offsets come 32 at a time, one a lane, one window ahead: lane l
+  // of ``ahead2`` holds that of symbol j0 + 2 + l, two symbols ahead of the
+  // window it serves, so that a step's fetch never spans two registers.
+  RowLoads even = {}, odd = {};
+  start_loads(record_of(0), even);
+  int record_odd = record_of(1);
+  int record_even = 0;
+  int ahead2_next = record_of(2 + lane);
+  for (int64_t j0 = 0; j0 < num_elements; j0 += 32) {
+    const int ahead2 = ahead2_next;
+    ahead2_next = record_of(j0 + 34 + lane);
+    dec.reserve(kWindowReserve);
+    int32_t keep = 0;
+    if (num_elements - j0 >= 32) {
+#pragma unroll 1
+      for (int t = 0; t < 32; t += 2) {
+        keep = step(t, ahead2, even, odd, record_odd, record_even, keep);
+        keep = step(t + 1, ahead2, odd, even, record_even, record_odd, keep);
+      }
+      // Lane t holds symbol j0 + t: 128 consecutive bytes a warp.
+      orow[j0 + lane] = keep;
+    } else {
+      // The last, short window; an odd count ends the stream.
+      const int in_window = static_cast<int>(num_elements - j0);
+#pragma unroll 1
+      for (int t = 0; t < in_window; t += 2) {
+        keep = step(t, ahead2, even, odd, record_odd, record_even, keep);
+        if (t + 1 < in_window)
+          keep = step(t + 1, ahead2, odd, even, record_even, record_odd, keep);
+      }
+      if (lane < in_window) orow[j0 + lane] = keep;
+    }
+  }
+  if (lane == 0)
+    sanity[s] = stream_sane(dec.base, dec.sm1, dec.base + dec.offset,
+                            dec.chunks_read(), src_len)
+                    ? 1
+                    : 0;
+}
+
 template <int kMode>
 int launch(const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
            const int32_t* indexes, int64_t num_streams, int64_t num_elements,
@@ -334,6 +784,44 @@ extern "C" int ctpu_decode_gamma(
   return launch<kGamma>(buf, buf_width, byte_lens, indexes, num_streams,
                         num_elements, cdf, meta, num_rows, max_len, symbols,
                         sanity, stream);
+}
+
+// layout: the table in the 16-bit layout of cuda_coder.warp_table (int16
+// [layout_units], 16-byte aligned) for a table of num_rows x max_len.
+extern "C" int ctpu_decode_gamma_warp(
+    const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
+    const int32_t* indexes, int64_t num_streams, int64_t num_elements,
+    const void* layout, int64_t layout_units, int num_rows, int max_len,
+    int32_t* symbols, uint8_t* sanity, void* stream) {
+  const WarpLayout g = warp_layout(num_rows, max_len);
+  if (g.units != layout_units || (reinterpret_cast<uintptr_t>(layout) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t rings = static_cast<size_t>(kWarpsPerBlock) * kRingBytes;
+  const size_t table_bytes = 2 * static_cast<size_t>(g.units);
+  const bool use_shared = rings + table_bytes <= 227 * 1024;
+  const size_t smem = rings + (use_shared ? table_bytes : 0);
+  const int64_t blocks = (num_streams + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const uint4* lay = static_cast<const uint4*>(layout);
+  const bool direct = g.buckets == kDirectBuckets;
+  auto run = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<static_cast<unsigned>(blocks), 32 * kWarpsPerBlock, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        buf, buf_width, byte_lens, indexes, num_streams, num_elements, lay, g,
+        symbols, sanity);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (use_shared)
+    return direct ? run(decode_gamma_warp_kernel<true, true>)
+                  : run(decode_gamma_warp_kernel<true, false>);
+  return direct ? run(decode_gamma_warp_kernel<false, true>)
+                : run(decode_gamma_warp_kernel<false, false>);
 }
 
 extern "C" int ctpu_decode_single_row_bucketed(

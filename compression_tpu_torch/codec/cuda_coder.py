@@ -3,7 +3,8 @@ PyTorch versions (counterpart of compression_tpu/codec/pallas_coder.py).
 
 Nine kernels from three sources in ``csrc/``; the coders run one thread per
 coder stream over one copy of the encoder recurrence and one of the
-decoder's, the pair lookup one thread per element:
+decoder's (the in-stream-gamma decode also one warp per stream, see
+below), the pair lookup four elements per thread:
 
 * ``encode_indexed`` (K1) replaces ``pallas_coder.encode_indexed_device``
   with its fused chunk post-pass: a CDF row per element, escapes coded as
@@ -18,7 +19,16 @@ decoder's, the pair lookup one thread per element:
   in the stream by their Elias-gamma magnitude and sign (the reference
   .tfci format).
 * ``decode_gamma`` (K3') replaces
-  ``pallas_coder.decode_indexed_pallas(in_stream_gamma=True)``.
+  ``pallas_coder.decode_indexed_pallas(in_stream_gamma=True)``.  It has two
+  kernels for the one function.  A coder stream is a serial chain, so a
+  launch of few streams (a classic .tfci container is one stream per
+  latent) leaves a thread-per-stream kernel on a single lane of the card:
+  launches of at most ``WARP_DECODE_MAX_STREAMS`` streams take the
+  warp-per-stream kernel, in which the 32 lanes find a symbol with one
+  round of independent probes over the table in the 16-bit layout of
+  ``warp_table``; larger launches keep the thread-per-stream kernel.
+  ``decode_gamma_warp`` / ``decode_gamma_thread`` run one variant whatever
+  the shape (for tests and measurements).
 
 * ``encode_scan`` (K6, micro-op mode) is ``pallas_coder.encode_scan_pallas``
   as the JAX package calls it: it reads precomputed micro-ops ``(lower,
@@ -39,6 +49,8 @@ and then runs the plain version when the tensors lie on the CPU, or
 launches the kernel on the current CUDA stream (and adds one to
 ``LAUNCHES[name]``) when they lie on a CUDA device.  There is no fallback
 between the two: a CUDA tensor reaches the kernel or an exception.
+``LAUNCHES_WARP["decode_gamma"]`` counts those of K3''s launches that took
+the warp-per-stream kernel.
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use (or by
 ``build()``), one process per source started together, into the package's
@@ -79,6 +91,8 @@ __all__ = [
     "decode_single_row",
     "encode_gamma",
     "decode_gamma",
+    "decode_gamma_warp",
+    "decode_gamma_thread",
     "encode_scan",
     "pair_lookup",
     "decode_single_row_bucketed",
@@ -88,6 +102,9 @@ __all__ = [
     "decode_single_row_plain",
     "encode_gamma_plain",
     "decode_gamma_plain",
+    "decode_gamma_warp_plain",
+    "warp_table",
+    "warp_search_plain",
     "encode_scan_plain",
     "pair_lookup_plain",
     "decode_single_row_bucketed_plain",
@@ -103,6 +120,20 @@ LAUNCHES = {"encode_indexed": 0, "decode_indexed": 0,
             "encode_scan": 0, "pair_lookup": 0,
             "decode_single_row_bucketed": 0}
 
+#: Of ``LAUNCHES["decode_gamma"]``, the launches of the warp-per-stream kernel.
+LAUNCHES_WARP = {"decode_gamma": 0}
+
+#: K3' launches of at most this many streams take the warp-per-stream
+#: kernel, larger ones the thread-per-stream kernel.  Measured on an NVIDIA
+#: H100 80GB HBM3 (700 W) by chip_smoke.py, streams x 512 symbols on 64
+#: Gaussian overflow rows, warp / thread ms: 1 x 512 0.114 / 0.520, 1024
+#: 0.130 / 0.682, 4096 0.302 / 0.684, 8192 0.546 / 0.974, 16384 1.05 / 1.94,
+#: 24576 1.56 / 0.852, 32768 2.05 / 0.856, 65536 3.99 / 1.68; one stream of
+#: 131072 symbols 18.9 / 83.4.  The warp kernel leads up to 16384 streams;
+#: from 16896 on the thread kernel runs 128-thread blocks, fills the card
+#: and leads.
+WARP_DECODE_MAX_STREAMS = 16384
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -110,6 +141,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _M32 = 0xFFFFFFFF
 _LOCK = threading.Lock()
 _LIBS: dict = {}
+#: The device's SM count, read once by ``build()`` (the pair lookup's grid
+#: is capped at a few blocks per SM).
+_DEVICE = {"sm_count": 0}
 
 _vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ENCODE_ARGS = [_vp, _vp, _i64, _i64, _vp, _vp, _int, _int, _vp, _i64, _vp,
@@ -127,7 +161,9 @@ _ARGTYPES = {
                                _vp, _vp, _vp],
     "ctpu_encode_scan": [_vp, _vp, _vp, _vp, _i64, _i64, _vp, _i64, _vp,
                          _vp],
-    "ctpu_pair_lookup": [_vp, _i64, _vp, _i64, _vp, _vp, _vp],
+    "ctpu_decode_gamma_warp": [_vp, _i64, _vp, _vp, _i64, _i64, _vp, _i64,
+                               _int, _int, _vp, _vp, _vp],
+    "ctpu_pair_lookup": [_vp, _i64, _vp, _i64, _vp, _vp, _int, _vp],
     "ctpu_decode_single_row_bucketed": [_vp, _i64, _vp, _i64, _i64, _vp, _vp,
                                         _int, _int, _int, _vp, _vp, _vp],
 }
@@ -167,6 +203,9 @@ def build() -> dict:
                         getattr(lib, fn).argtypes = argtypes
                         getattr(lib, fn).restype = ctypes.c_int
                 _LIBS[name] = lib
+        if not _DEVICE["sm_count"]:
+            _DEVICE["sm_count"] = torch.cuda.get_device_properties(
+                torch.cuda.current_device()).multi_processor_count
         return dict(_LIBS)
 
 
@@ -210,10 +249,13 @@ def _launch(name, fn, *args):
     """Calls the C entry point ``fn`` of kernel ``name`` on the current
     stream of the device of the first tensor argument."""
     device = args[0].device
-    with torch.cuda.device(device):
-        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-                  for a in args]
-        rc = fn(*c_args, torch.cuda.current_stream(device).cuda_stream)
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    if device.index == torch.cuda.current_device():
+        rc = fn(*c_args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*c_args, torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed: CUDA error {rc}")
@@ -470,10 +512,13 @@ def pair_lookup(flat, idx):
                             or int(idx.max()) > flat.shape[0] - 2):
             raise ValueError("table index outside [0, K - 2]")
         return pair_lookup_plain(flat, idx)
-    c_lo = torch.empty_like(idx)
-    c_hi = torch.empty_like(idx)
+    # Two allocations: one of [2, R, C] and its two views was measured
+    # slower on the host, and leaves the second output unaligned where the
+    # count is no multiple of four.
+    c_lo, c_hi = torch.empty_like(idx), torch.empty_like(idx)
     _launch("pair_lookup", _lib("pair_lookup").ctpu_pair_lookup, flat,
-            flat.shape[0], idx, idx.numel(), c_lo, c_hi)
+            flat.shape[0], idx, idx.numel(), c_lo, c_hi,
+            8 * _DEVICE["sm_count"])
     return c_lo, c_hi
 
 
@@ -668,7 +713,10 @@ def _encode_plain(lower, upper, prec, mask, out, lengths):
 # -----------------------------------------------------------------------------
 # Decoders: K2, K5', K3'
 # -----------------------------------------------------------------------------
-def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain):
+def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain,
+            layout=None):
+    """Checks, allocates and runs a decoder; with ``layout`` (the table as
+    ``warp_table`` gives it) the warp-per-stream kernel of K3'."""
     device = buf.device
     _check("buf", buf, torch.uint8, 2, device)
     _check("byte_lens", byte_lens, torch.int32, 1, device)
@@ -679,6 +727,8 @@ def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain):
         if indexes.shape[0] != buf.shape[0]:
             raise ValueError("buf and indexes disagree on streams")
     _check_table(cdf, meta, device, single_row=single)
+    if layout is not None:
+        _check("layout", layout, torch.int16, 1, device)
     num_streams, n = buf.shape[0], int(num_elements)
     if byte_lens.shape[0] != num_streams:
         raise ValueError("buf and byte_lens disagree on streams")
@@ -687,8 +737,16 @@ def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain):
     if _device_kind(device) == "cpu":
         if single:
             plain(buf, byte_lens, cdf, meta, symbols, sanity)
-        else:
+        elif layout is None:
             plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity)
+        else:
+            plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity, layout)
+        return symbols, sanity
+    if layout is not None:
+        _launch(name, _lib("decode_indexed").ctpu_decode_gamma_warp, buf,
+                buf.shape[1], byte_lens, indexes, num_streams, n, layout,
+                layout.numel(), cdf.shape[0], cdf.shape[1], symbols, sanity)
+        LAUNCHES_WARP[name] += 1
         return symbols, sanity
     fn = getattr(_lib("decode_indexed"), "ctpu_" + name)
     if single:
@@ -726,12 +784,170 @@ def decode_single_row(buf, byte_lens, num_elements, cdf, meta):
                    cdf, meta, decode_single_row_plain)
 
 
-def decode_gamma(buf, byte_lens, indexes, cdf, meta):
+def decode_gamma(buf, byte_lens, indexes, cdf, meta, layout=None):
     """K3': the reference format's decode.  As ``decode_indexed``, but the
     marker on an overflow row is followed by the escape's Elias-gamma
-    magnitude and sign, and the symbol comes back as the escaped value."""
+    magnitude and sign, and the symbol comes back as the escaped value.
+
+    The number of streams alone picks the kernel: at most
+    ``WARP_DECODE_MAX_STREAMS`` take ``decode_gamma_warp``, more take
+    ``decode_gamma_thread``.  ``layout`` is ``warp_table(cdf, meta)`` where
+    the caller keeps it (``DeviceCdfTable.warp_arrays``); without it the
+    warp variant lays the table out on every call."""
+    if buf.ndim == 2 and buf.shape[0] <= WARP_DECODE_MAX_STREAMS:
+        return decode_gamma_warp(buf, byte_lens, indexes, cdf, meta, layout)
+    return decode_gamma_thread(buf, byte_lens, indexes, cdf, meta)
+
+
+def decode_gamma_thread(buf, byte_lens, indexes, cdf, meta):
+    """K3' by its thread-per-stream kernel (arguments and result as
+    ``decode_gamma``); on the CPU ``decode_gamma_plain``."""
     return _decode("decode_gamma", buf, byte_lens, indexes, None, cdf, meta,
                    decode_gamma_plain)
+
+
+def decode_gamma_warp(buf, byte_lens, indexes, cdf, meta, layout=None):
+    """K3' by its warp-per-stream kernel (arguments and result as
+    ``decode_gamma``); on the CPU ``decode_gamma_warp_plain``, the plain
+    decoder over the kernel's table layout and search."""
+    if layout is None:
+        _check_table(cdf, meta, cdf.device)
+        layout = warp_table(cdf, meta)
+    return _decode("decode_gamma", buf, byte_lens, indexes, None, cdf, meta,
+                   decode_gamma_warp_plain, layout)
+
+
+#: Entries that one round of the warp's probes covers, and the most rounds
+#: of the one-level search (rows of up to 1 + 4 * 32 entries).
+_LANES = 32
+_DIRECT_BUCKETS = 4
+
+
+def _warp_geometry(max_len):
+    """(buckets, row_len, stride) of ``warp_table``'s records, in 16-bit
+    units, as decode_indexed.cu's warp_layout."""
+    buckets = max(-(-(max_len - 1) // _LANES), _DIRECT_BUCKETS)
+    row_len = 2 + _LANES * buckets
+    return buckets, row_len, -(-(8 + buckets + row_len) // 8) * 8
+
+
+def warp_table(cdf, meta):
+    """The table in the 16-bit layout of the warp-per-stream decode: int16
+    [num_rows * stride], one record per row, each starting 16-byte aligned:
+
+    * four int32 (as eight units): the escape marker ``length - 2`` (-1 on
+      a row without overflow), the precision, ``top`` and ``limit``
+      (below);
+    * ``buckets = max(4, ceil((L - 1) / 32))`` coarse entries, those at
+      indices 32, 64, ..., which end the buckets of 32 that the two-level
+      search counts first;
+    * ``2 + 32 * buckets`` entries: the row padded with its last (terminal)
+      value; then zeros up to a multiple of 8 units.
+
+    Entries are stored as ``min(value, 2^precision - 1)``, which changes
+    only a row's terminal entries, so that 65536, the terminal value at
+    precision 16, needs no 17th bit.  ``limit`` is the index before the
+    row's first terminal entry (``max_len - 1`` for a row that holds none)
+    and caps the count of entries below the threshold: no terminal entry is
+    below it in any state the decoder can reach, and a stored terminal
+    tests below only where all entries before it do.  The interval's upper
+    end at the cap is ``top``: the terminal value, or 65536 where the count
+    ran off a row without one.  Rows are taken as non-decreasing.  Nothing
+    is copied to the host.
+    """
+    num_rows, max_len = cdf.shape
+    buckets, row_len, stride = _warp_geometry(max_len)
+    rows = cdf.long()
+    rows = torch.cat(
+        [rows, rows[:, -1:].expand(num_rows, row_len - max_len)], 1)
+    marker, prec, overflow = meta.long().unbind(1)
+    terminal = 1 << prec
+    terminal_at = ((rows == terminal[:, None]).cumsum(1) == 0).sum(1)
+    limit = terminal_at.clamp(max=max_len) - 1
+    top = torch.where(limit + 1 == terminal_at, terminal, 65536)
+    meta4 = torch.stack(
+        [torch.where(overflow != 0, marker, -1), prec, top, limit], 1).to(
+            torch.int32).contiguous()
+    stored = torch.minimum(rows, terminal[:, None] - 1)
+    stored = torch.where(stored >= 32768, stored - 65536, stored).to(
+        torch.int16)
+    records = torch.cat([meta4.view(torch.int16),
+                         stored[:, _LANES::_LANES][:, :buckets], stored], 1)
+    return F.pad(records, (0, stride - records.shape[1])).reshape(-1)
+
+
+class _WarpSearch:
+    """The warp kernel's symbol search over ``warp_table``'s layout,
+    vectorized over streams: the probes of the 32 lanes are a trailing axis
+    of 32, a ballot and population count its sum."""
+
+    def __init__(self, layout, num_rows, max_len):
+        buckets, row_len, stride = _warp_geometry(max_len)
+        if layout.shape != (num_rows * stride,):
+            raise ValueError(f"layout of {tuple(layout.shape)} units for a "
+                             f"{num_rows} x {max_len} table, not "
+                             f"{num_rows * stride}")
+        records = layout.reshape(num_rows, stride)
+        self.buckets = buckets
+        self.meta = records[:, :8].contiguous().view(torch.int32).long()
+        self.coarse = records[:, 8: 8 + buckets].long() & 0xFFFF
+        self.tab = records[:, 8 + buckets: 8 + buckets + row_len].long() \
+            & 0xFFFF
+        self.lanes = torch.arange(_LANES, device=layout.device)
+
+    def __call__(self, row, size, lower_bound):
+        """(count, c_lo, c_hi) int64 [S] for rows ``row`` [S]."""
+        prec, top, limit = self.meta[row, 1:].unbind(1)
+        # lower_bound is (offset + 1) << precision; the kernel tests
+        # (size * entry) >> precision <= offset.
+        offset = (lower_bound >> prec) - 1
+        rows2 = row[:, None]
+
+        def below(table, pos):
+            """bool [S, 32]: the stored entries ``table[row, pos]`` against
+            the threshold."""
+            return (size[:, None] * table[rows2, pos]) >> prec[:, None] \
+                <= offset[:, None]
+
+        buckets, lanes = self.buckets, self.lanes
+        if buckets == _DIRECT_BUCKETS:
+            count = torch.zeros_like(row)
+            for r in range(buckets):
+                count = count + below(
+                    self.tab, (1 + lanes + _LANES * r)[None, :]).sum(1)
+        else:
+            full = torch.zeros_like(row)
+            for r in range(-(-buckets // _LANES)):
+                j = (lanes + _LANES * r)[None, :]
+                full = full + (below(self.coarse, j.clamp(max=buckets - 1))
+                               & (j < buckets)).sum(1)
+            b = full.clamp(max=buckets - 1)
+            count = _LANES * b + below(
+                self.tab, _LANES * b[:, None] + 1 + lanes[None, :]).sum(1)
+        count = torch.minimum(count, limit)
+        c_hi = torch.where(count == limit, top, self.tab[row, count + 1])
+        return count, self.tab[row, count], c_hi
+
+
+def warp_search_plain(layout, num_rows, max_len, row, size, lower_bound):
+    """Plain version of the warp kernel's symbol search.
+
+    Args:
+      layout: ``warp_table(cdf, meta)`` of a ``num_rows`` x ``max_len``
+        table.
+      row: int64 [S] table row per stream (in range).
+      size, lower_bound: int64 [S], the decoder's range size and
+        ``(value - base + 1) << precision``.
+
+    Returns:
+      (count, c_lo, c_hi) int64 [S]: the entries k in [1, max_len) with
+      ``size * cdf[k] < lower_bound``, counted by lane-strided probes (one
+      level for rows of up to 129 entries, else every 32nd entry first and
+      then the bucket found) and capped at the row's ``limit``, and the
+      interval ``cdf[count]``, ``cdf[count + 1]`` from the 16-bit form
+      (``top`` at the cap).
+    """
+    return _WarpSearch(layout, num_rows, max_len)(row, size, lower_bound)
 
 
 def bucketize_row(row):
@@ -833,6 +1049,17 @@ def decode_gamma_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity):
     _decode_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity, True)
 
 
+def decode_gamma_warp_plain(buf, byte_lens, indexes, cdf, meta, symbols,
+                            sanity, layout=None):
+    """Plain PyTorch version of K3''s warp-per-stream kernel (writes
+    symbols, sanity): ``decode_gamma_plain`` with the symbol found by
+    ``warp_search_plain`` over ``layout`` (default ``warp_table(cdf,
+    meta)``)."""
+    layout = warp_table(cdf, meta) if layout is None else layout
+    _decode_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity, True,
+                  _WarpSearch(layout, *cdf.shape))
+
+
 class _PlainDecoder:
     """RangeDecoder state of every stream, vectorized over streams in int64
     with explicit 32-bit masks, updated in place and without a wait for the
@@ -876,20 +1103,15 @@ class _PlainDecoder:
             & _M32, self.value))
         self.chunks_read.add_(renorm.long())
 
-    def symbol(self, rows, prec, mask=None):
-        """Symbol search in rows [S, L] (padded dense rows) on the streams
-        in ``mask`` (default all); returns the count of entries below the
-        threshold, clipped to L - 2, as jax_coder.decode_core resolves
-        it."""
-        max_len = rows.shape[1]
+    def symbol(self, search, max_len, prec, mask=None):
+        """Symbol search on the streams in ``mask`` (default all);
+        ``search(size, lower_bound)`` gives (count, c_lo, c_hi) in rows of
+        ``max_len`` entries.  Returns the count of entries below the
+        threshold, clipped to max_len - 2, as jax_coder.decode_core
+        resolves it."""
         size = self.sm1 + 1
         lower_bound = (((self.value - self.base) & _M32) + 1) << prec
-        count = (size[:, None] * rows[:, 1:] < lower_bound[:, None]).sum(1)
-        c_lo = rows.gather(1, count[:, None])[:, 0]
-        c_hi = torch.where(
-            count + 1 < max_len,
-            rows.gather(1, (count + 1).clamp(max=max_len - 1)[:, None])[:, 0],
-            65536)
+        count, c_lo, c_hi = search(size, lower_bound)
         self.refine(((size * c_lo) >> prec) & _M32,
                     (((size * c_hi) >> prec) - 1) & _M32, mask)
         return count.clamp(max=max_len - 2)
@@ -915,13 +1137,28 @@ class _PlainDecoder:
         return ok & (2 * self.chunks_read >= byte_lens.long())
 
 
+def _dense_search(rows, size, lower_bound):
+    """(count, c_lo, c_hi) in padded dense rows [S, L]: the count of
+    entries k >= 1 with size * rows[k] < lower_bound, and the interval at
+    it (65536 past the row)."""
+    max_len = rows.shape[1]
+    count = (size[:, None] * rows[:, 1:] < lower_bound[:, None]).sum(1)
+    c_lo = rows.gather(1, count[:, None])[:, 0]
+    c_hi = torch.where(
+        count + 1 < max_len,
+        rows.gather(1, (count + 1).clamp(max=max_len - 1)[:, None])[:, 0],
+        65536)
+    return count, c_lo, c_hi
+
+
 def _decode_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity,
-                  gamma):
+                  gamma, warp_search=None):
     """Decodes symbols [S, N]; ``indexes=None`` reads row 0 throughout;
     ``gamma`` selects in-stream Elias-gamma escapes (else escapes come back
-    as the marker)."""
+    as the marker); ``warp_search`` (a ``_WarpSearch``) replaces the search
+    in the dense rows."""
     num_streams, n = symbols.shape
-    num_rows = cdf.shape[0]
+    num_rows, max_len = cdf.shape
     dev = buf.device
     cdf64 = cdf.long()
     maxs, prec_r, ovf_r = meta.long().unbind(1)
@@ -934,10 +1171,15 @@ def _decode_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity,
         return indexes.gather(1, elem[:, None])[:, 0].long().clamp(
             0, num_rows - 1)
 
+    def search_in(row):
+        if warp_search is not None:
+            return lambda size, lb: warp_search(row, size, lb)
+        return lambda size, lb: _dense_search(cdf64[row], size, lb)
+
     if not gamma:
         def step(t):
             row = row_at(t.expand(num_streams))
-            sym = dec.symbol(cdf64[row], prec_r[row])
+            sym = dec.symbol(search_in(row), max_len, prec_r[row])
             symbols.index_copy_(1, t, sym.to(torch.int32)[:, None])
 
         _run_steps(step, n, dev)
@@ -960,7 +1202,7 @@ def _decode_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity,
         row = row_at(at)
         mv = maxs[row]
         in_sym = active & (phase == 0)
-        sym = dec.symbol(cdf64[row], prec_r[row], in_sym)
+        sym = dec.symbol(search_in(row), max_len, prec_r[row], in_sym)
         esc = in_sym & (ovf_r[row] != 0) & (sym == mv)
         b = dec.bit(active & (phase != 0))
         unary = active & (phase == 1)

@@ -123,6 +123,16 @@ class DeviceCdfTable:
             self.kernel_tables["bucketed"] = cached
         return cached
 
+    def warp_arrays(self):
+        """The table in the 16-bit layout of the warp-per-stream
+        in-stream-gamma decode (``cuda_coder.warp_table``): int16 [units],
+        laid out once and kept."""
+        cached = self.kernel_tables.get("warp")
+        if cached is None:
+            cached = cuda_coder.warp_table(*self.indexed_arrays())
+            self.kernel_tables["warp"] = cached
+        return cached
+
 
 class _DispatchLog:
     """Thread-local dispatch-path log with a dict-like surface: each entry
@@ -228,10 +238,11 @@ def decode_dispatch(buf, byte_lens, num_elements, table: DeviceCdfTable,
     DISPATCH_LOG["decode" if in_stream_gamma else "decode_sidecar"] = \
         _route_name(buf.device, route)
     cdf, meta = table.indexed_arrays()
-    decode = cuda_coder.decode_gamma if in_stream_gamma else \
-        cuda_coder.decode_indexed
-    return decode(buf.contiguous(), byte_lens.to(torch.int32).contiguous(),
-                  indexes.to(torch.int32).contiguous(), cdf, meta)
+    args = (buf.contiguous(), byte_lens.to(torch.int32).contiguous(),
+            indexes.to(torch.int32).contiguous(), cdf, meta)
+    if in_stream_gamma:
+        return cuda_coder.decode_gamma(*args, table.warp_arrays())
+    return cuda_coder.decode_indexed(*args)
 
 
 # -----------------------------------------------------------------------------
@@ -331,9 +342,10 @@ def decode_streams(buf, byte_lens, num_elements, table: DeviceCdfTable,
     indexes = indexes.to(torch.int32).contiguous()
     if indexes.shape != (num_streams, n):
         raise ValueError("indexes do not match the streams and num_elements")
-    decode = cuda_coder.decode_gamma if route == "gamma" else \
-        cuda_coder.decode_indexed
-    return decode(buf, byte_lens, indexes, cdf, meta)
+    if route == "gamma":
+        return cuda_coder.decode_gamma(buf, byte_lens, indexes, cdf, meta,
+                                       table.warp_arrays())
+    return cuda_coder.decode_indexed(buf, byte_lens, indexes, cdf, meta)
 
 
 # -----------------------------------------------------------------------------

@@ -210,3 +210,133 @@ def test_bucketed_decode_matches_plain(device, precision):
     k5_out, k5_ok = cuda_coder.decode_single_row(buf, lens, 64, cdf, meta)
     assert torch.equal(out, k5_out) and torch.equal(ok, k5_ok)
     assert torch.equal(out[3:], sym[3:]) and bool(ok[3:].all())
+
+
+def _long_row_table(device, num_rows, entries, seed):
+    """Rows of up to ``entries`` entries at precision 16 (the two-level
+    search), every other one shorter; all overflow rows."""
+    rng = np.random.RandomState(seed)
+    cdfs = [tables.pmf_to_quantized_cdf(
+        rng.dirichlet(np.full(entries - 1 - 7 * (r % 2), 0.5)), 16)
+        for r in range(num_rows)]
+    ragged = tables.build_ragged_cdf(cdfs, [16] * num_rows, [True] * num_rows)
+    return torch_coder.DeviceCdfTable(tables.parse_ragged_cdf(ragged),
+                                      device)
+
+
+def _gamma_streams(table, device, streams, n, seed, scale):
+    cdf, meta = table.indexed_arrays()
+    rng = np.random.RandomState(seed)
+    idx = torch.as_tensor(rng.randint(0, table.num_rows, (streams, n)),
+                          dtype=torch.int32, device=device)
+    sym = torch.as_tensor(
+        np.round(rng.laplace(0, scale, (streams, n))).astype(np.int32),
+        device=device)
+    counts, _, _, _ = cuda_coder.interval_counts(sym, idx, meta)
+    buf, lens = cuda_coder.encode_gamma(
+        sym, idx, cdf, meta,
+        torch_coder.stream_out_size(int(counts.sum(1).max())))
+    return sym, idx, buf, lens
+
+
+def _both_variants_match_plain(buf, lens, idx, table):
+    """Both kernels of K3' against decode_gamma_plain, run once."""
+    cdf, meta = table.indexed_arrays()
+    before = (cuda_coder.LAUNCHES["decode_gamma"],
+              cuda_coder.LAUNCHES_WARP["decode_gamma"])
+    warp = cuda_coder.decode_gamma_warp(buf, lens, idx, cdf, meta,
+                                        table.warp_arrays())
+    thread = cuda_coder.decode_gamma_thread(buf, lens, idx, cdf, meta)
+    torch.cuda.synchronize()
+    assert (cuda_coder.LAUNCHES["decode_gamma"],
+            cuda_coder.LAUNCHES_WARP["decode_gamma"]) == (
+                before[0] + 2, before[1] + 1)
+    ref = (torch.empty_like(warp[0]), torch.empty_like(warp[1]))
+    cuda_coder.decode_gamma_plain(buf, lens, idx, cdf, meta, *ref)
+    for got in (warp, thread):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    return ref
+
+
+# (rows, entries of the longest row): one-level search; two levels in shared
+# memory; three coarse rounds; a layout too large for shared memory.
+WARP_TABLES = {"short": None, "two_level": (6, 1481), "wide": (3, 2101),
+               "global": (120, 1100)}
+
+
+@pytest.mark.parametrize("name", sorted(WARP_TABLES))
+def test_gamma_decode_variants_match_plain(device, name):
+    """Both kernels of K3' on intact streams with escapes of every size
+    (round trip included), truncated, bit-flipped, random and empty ones,
+    on tables that take each path of the warp kernel's search."""
+    table = _table(7, True, device) if WARP_TABLES[name] is None else \
+        _long_row_table(device, *WARP_TABLES[name], seed=8)
+    sym, idx, buf, lens = _gamma_streams(table, device, 70, 150, 9, 60.0)
+    out, ok = _both_variants_match_plain(buf, lens, idx, table)
+    assert torch.equal(out, sym) and bool(ok.all())
+    gen = torch.Generator(device=device).manual_seed(10)
+    cols = torch.arange(buf.shape[1], device=device)
+    flipped = buf ^ ((torch.rand(buf.shape, generator=gen, device=device)
+                      < 0.01).to(torch.uint8) * 4)
+    noise = torch.randint(0, 256, buf.shape, generator=gen, device=device,
+                          dtype=torch.uint8)
+    for b, ln in ((buf, lens // 2), (flipped, lens), (noise, lens),
+                  (buf, torch.zeros_like(lens))):
+        b = torch.where(cols[None, :] < ln[:, None], b, 0).to(torch.uint8)
+        _both_variants_match_plain(b.contiguous(), ln.contiguous(), idx,
+                                   table)
+
+
+@pytest.mark.parametrize("width", [41, 64, 1031])
+def test_gamma_decode_variants_short_streams_and_odd_widths(device, width):
+    """Streams of 0, 1, 2, 3 and ``width`` bytes in a buffer full of
+    noise: bytes at or past each length read as zero; an odd width leaves
+    most rows' starts unaligned, and 1031 bytes span three ring windows."""
+    table = _table(11, True, device)
+    gen = torch.Generator(device=device).manual_seed(width)
+    buf = torch.randint(0, 256, (40, width), generator=gen, device=device,
+                        dtype=torch.uint8)
+    lens = torch.tensor([0, 1, 2, 3, width] * 8, dtype=torch.int32,
+                        device=device)
+    idx = torch.randint(0, 8, (40, 600), generator=gen, device=device,
+                        dtype=torch.int32)
+    _both_variants_match_plain(buf, lens, idx, table)
+    # A view that starts one byte into its storage.
+    flat = torch.randint(0, 256, (40 * width + 1,), generator=gen,
+                         device=device, dtype=torch.uint8)
+    _both_variants_match_plain(flat[1:].view(40, width), lens, idx, table)
+
+
+def test_gamma_decode_variant_follows_the_stream_count(device):
+    """decode_gamma takes the warp kernel up to WARP_DECODE_MAX_STREAMS
+    streams and the thread kernel above."""
+    table = _table(12, True, device)
+    cdf, meta = table.indexed_arrays()
+    edge = cuda_coder.WARP_DECODE_MAX_STREAMS
+    sym, idx, buf, lens = _gamma_streams(table, device, edge + 1, 40, 13, 30.0)
+    for streams, warp in ((edge, 1), (edge + 1, 0), (1, 1)):
+        before = (cuda_coder.LAUNCHES["decode_gamma"],
+                  cuda_coder.LAUNCHES_WARP["decode_gamma"])
+        out, ok = torch_coder.decode_streams(
+            buf[:streams].contiguous(), lens[:streams].contiguous(), 40,
+            table, idx[:streams].contiguous())
+        assert torch_coder.DISPATCH_LOG["decode"] == "cuda-gamma"
+        assert (cuda_coder.LAUNCHES["decode_gamma"],
+                cuda_coder.LAUNCHES_WARP["decode_gamma"]) == (
+                    before[0] + 1, before[1] + warp)
+        assert torch.equal(out, sym[:streams]) and bool(ok.all())
+
+
+@pytest.mark.parametrize("count", [1, 3, 5, 4096, 196608, 196609])
+def test_pair_lookup_any_element_count(device, count):
+    """K7' where the count is no multiple of four (a scalar tail), and on
+    indices that start 4 bytes into their storage (no 16-byte loads)."""
+    gen = torch.Generator(device=device).manual_seed(count)
+    flat = torch.randint(0, 2 ** 16, (94784,), generator=gen, device=device,
+                         dtype=torch.int32)
+    store = torch.randint(0, 94783, (count + 1,), generator=gen,
+                          device=device, dtype=torch.int32)
+    for idx in (store[:count].view(1, count), store[1:].view(1, count)):
+        lo, hi = cuda_coder.pair_lookup(flat, idx)
+        ref_lo, ref_hi = cuda_coder.pair_lookup_plain(flat, idx)
+        assert torch.equal(lo, ref_lo) and torch.equal(hi, ref_hi)
