@@ -30,13 +30,21 @@ Phases, one JSON line each (any failure exits non-zero):
      stream: in every one of these cases the plain version runs once and
      the wrapper's choice and both kernels are held against that result;
      K7' (pair lookup) and K6 in its micro-op mode on what compress_device
-     gives them for those y and z latents (1 x 196608 indices and
-     198848 x 1 micro-ops for y), K7' also at 512 x 32768 indices into
+     gives them for those y and z latents and for the y latent with 40
+     planted escapes (1 x 196608 indices and 198848 x 1 micro-ops for y),
+     K7' also at 512 x 32768 indices into
      both of bmshj2018's tables and at 1, 3, 5, 196608 and 196609 indices,
      aligned and 4 bytes into their storage, with the one PyTorch call
      that computes the same, flat[idx] and flat[idx + 1], timed beside it,
      and the micro-op mode also against K6''s bytes at 8192 x 512 with
-     escapes at 2^-8;
+     escapes at 2^-8.  The micro-op mode has two kernels, one thread and
+     one warp per stream: in every one of its cases (those above, every
+     golden case as micro-ops in rows of even and odd width, random valid
+     micro-ops with masked steps anywhere and rows at odd addresses,
+     delayed-carry groups whose fill run outlasts the warp kernel's
+     32-chunk window in both directions, and a stream count on either side
+     of the wrapper's dispatch constant) the plain recurrence runs once
+     and the wrapper's choice and both kernels are held against it;
      K8' (bucketed single-row decode) against its plain version and against
      K5' at 32768 x 512, on every golden case and on corrupted streams;
   4. main paths, each with the launch counts reset just before it and read
@@ -69,8 +77,10 @@ Phases, one JSON line each (any failure exits non-zero):
      of both models; both kernels of K3' at the classic containers' three
      stream shapes beside the byte bound and the serial chain's floor, and
      from 1 to 65536 streams of 512 symbols (what the dispatch constant
-     rests on); K7' and its library call by events around a loop and
-     replayed from a CUDA graph.
+     rests on); both kernels of the micro-op mode on compress_device's y
+     and z scans beside the byte bound and the chain's floor, and from 1
+     to 65536 streams of 590 steps; K7' and its library call by events
+     around a loop and replayed from a CUDA graph.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.  Nothing of
@@ -117,6 +127,10 @@ MICRO_SLOTS = 2 * 16 + 3
 # lies this close to a rounding boundary (the float error of the transforms
 # between two implementations reaches 1e-4).
 PIXEL_BOUNDARY = 2e-4
+# Dependent register operations a step of the warp-per-stream micro-op
+# scan takes from one size - 1 to the next in the compiled kernel
+# (scan_floor_ms).
+SCAN_CHAIN_OPS = 6
 # (kernel name, source, TPU kernel it replaces)
 KERNELS = [
     ("encode_indexed", "encode_indexed.cu", "pallas_coder.py:1819"),
@@ -295,6 +309,50 @@ def check_decode(name, kernel, plain, args, variants=()):
     return sym_k, san_k, same, ms
 
 
+def check_scan(label, ops, out_size, fails, expect_warp=None):
+    """K6's micro-op mode on one input: the plain recurrence once, and the
+    wrapper's choice and both of its kernels (warp and thread per stream)
+    held against that result.  ``expect_warp`` (True or False) checks the
+    wrapper's choice.  Returns (bytes, lengths, identical, plain ms)."""
+    import torch
+    from compression_tpu_torch.codec import cuda_coder as cc
+    warp_before = cc.LAUNCHES_WARP["encode_scan"]
+    out_k, len_k = cc.encode_scan(*ops, out_size)
+    took_warp = cc.LAUNCHES_WARP["encode_scan"] == warp_before + 1
+    torch.cuda.synchronize()
+    out_p, len_p = torch.empty_like(out_k), torch.empty_like(len_k)
+    ms = _plain_ms(lambda: cc.encode_scan_plain(*ops, out_p, len_p))
+    same = True
+    for run in (lambda: (out_k, len_k),
+                lambda: cc.encode_scan_warp(*ops, out_size),
+                lambda: cc.encode_scan_thread(*ops, out_size)):
+        out_v, len_v = run()
+        torch.cuda.synchronize()
+        same &= bool(torch.equal(out_v, out_p) and torch.equal(len_v, len_p))
+        MAX_ABS_ERR["encode_scan"] = max(
+            MAX_ABS_ERR["encode_scan"], _err((out_v, out_p), (len_v, len_p)))
+    if expect_warp is not None and took_warp != expect_warp:
+        same = False
+    log("kernels", case=label, steps=int(ops[0].shape[0]),
+        streams=int(ops[0].shape[1]), out_size=out_size,
+        coded=int(ops[3].sum()), wrapper_took="warp" if took_warp
+        else "thread", identical_wrapper_and_both_kernels=same)
+    if not same:
+        fails.append(label)
+    return out_k, len_k, same, ms
+
+
+def scan_cases():
+    """tests/scan_cases.py (numpy and the port only), loaded by path: the
+    random and the constructed micro-op inputs the tests use too."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "scan_cases", os.path.join(REPO, "tests", "scan_cases.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def gamma_variants(table):
     """K3' by the wrapper's own choice, and both of its kernels whatever
     the shape; arguments (buf, lens, indexes, cdf, meta)."""
@@ -413,8 +471,8 @@ def compare_micro(name, table, symbols, indexes, escape_budget, fails):
     pair_ok = bool(torch.equal(lo_k, lo_p) and torch.equal(hi_k, hi_p))
     MAX_ABS_ERR["pair_lookup"] = max(
         MAX_ABS_ERR["pair_lookup"], _err((lo_k, lo_p), (hi_k, hi_p)))
-    buf, lens, scan_ok, scan_ms = check_encode(
-        "encode_scan", cc.encode_scan, cc.encode_scan_plain, ops, out_size)
+    buf, lens, scan_ok, scan_ms = check_scan(f"{name}/scan", ops, out_size,
+                                             fails, expect_warp=True)
     gbuf, glens = cc.encode_gamma(symbols, indexes, cdf, meta, out_size)
     fits = bool((cc.interval_counts(symbols, indexes, meta)[0].sum(1)
                  <= num_steps).all())
@@ -433,7 +491,7 @@ def golden_cases(table_cls, device, fails):
     """Every golden.npz case through K1/K2 (on an indexed table) and K4'/K5'
     (on its single row): kernel bytes == reference bytes == plain."""
     import torch
-    from compression_tpu_torch.codec import tables, torch_coder
+    from compression_tpu_torch.codec import cuda_coder, tables, torch_coder
     gold = np.load(os.path.join(REPO, "tests", "golden", "golden.npz"))
     names = sorted({k.rsplit("__", 1)[0] for k in gold.files
                     if k.endswith("__cdf")})
@@ -456,14 +514,25 @@ def golden_cases(table_cls, device, fails):
         out1, lens1, _, _, _ = compare_single_row(
             f"golden/{name}/single_row", table, sym, fails_here)
         got1 = out1[0, : int(lens1[0])].cpu().numpy().tobytes()
-        if fails_here or got != ref or got1 != ref \
+        # The same symbols as micro-ops through K6's micro-op mode, in a
+        # row of even and of odd width.
+        cdf_g, meta_g = table.indexed_arrays()
+        micro = tuple(t.contiguous() for t in cuda_coder.gamma_micro_ops(
+            sym, idx, cdf_g, meta_g, sym.shape[1], 1))
+        got2 = []
+        for width in (out_size, out_size + 1):
+            sbuf, slens, _, _ = check_scan(
+                f"golden/{name}/micro_ops/{width}", micro, width, fails_here)
+            got2.append(sbuf[0, : int(slens[0])].cpu().numpy().tobytes())
+        if fails_here or got != ref or got1 != ref or got2 != [ref, ref] \
                 or not torch.equal(dec, sym) or not bool(san.all()):
             bad.append(name)
     log("golden", cases=len(names), kernels=["encode_indexed",
                                              "decode_indexed",
                                              "encode_single_row",
                                              "decode_single_row",
-                                             "decode_single_row_bucketed"],
+                                             "decode_single_row_bucketed",
+                                             "encode_scan"],
         mismatched=bad)
     fails.extend(f"golden/{b}" for b in bad)
 
@@ -538,6 +607,15 @@ def decode_bound(lens, n, cdf, meta, gamma_bits=0, with_indexes=True):
     return _bound(nbytes, ops)
 
 
+def scan_bound(ops, out_size):
+    """Least time (ms) for K6's micro-op mode over ``ops`` [T, S]: three
+    int32 arrays and a byte mask read once, each stream's bytes and length
+    written once; ~12 operations per coded step."""
+    steps, streams = ops[0].shape
+    return _bound(steps * streams * 13 + streams * (out_size + 4),
+                  12 * int(ops[3].sum()))
+
+
 def _bound(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
@@ -554,13 +632,15 @@ def reset_counts():
 
 
 def read_counts(keys):
-    """(launches per kernel, with K3''s launches of the warp-per-stream
-    kernel under "decode_gamma/warp"; dispatch routes of ``keys``)."""
+    """(launches per kernel, with those of K3' and of K6's micro-op mode
+    that took the warp-per-stream kernel under "decode_gamma/warp" and
+    "encode_scan/warp"; dispatch routes of ``keys``)."""
     import torch
     from compression_tpu_torch.codec import cuda_coder, torch_coder
     torch.cuda.synchronize()
     launches = dict(cuda_coder.LAUNCHES)
     launches["decode_gamma/warp"] = cuda_coder.LAUNCHES_WARP["decode_gamma"]
+    launches["encode_scan/warp"] = cuda_coder.LAUNCHES_WARP["encode_scan"]
     return launches, {k: torch_coder.DISPATCH_LOG.get(k) for k in keys}
 
 
@@ -580,6 +660,17 @@ def warp_floor_ms(intervals, max_len, clock_mhz):
     clock."""
     clocks = 15 * 4 + 23 + (7 * 4 + 23 if max_len > 129 else 0)
     return intervals * clocks / (clock_mhz * 1e3)
+
+
+def scan_floor_ms(coded_steps, clock_mhz):
+    """The serial chain's own floor for the warp-per-stream micro-op scan
+    (ms): coded steps x the dependent operations of one step in the
+    compiled kernel (cuobjdump -sass) x their latency, at the card's
+    highest SM clock.  The chain from one step's size - 1 to the next runs
+    through SCAN_CHAIN_OPS register operations (wide multiply-add, funnel
+    shift, complement, add, compare, select), taken at 4 clocks each, the
+    architecture's nominal latency (not measured here)."""
+    return coded_steps * SCAN_CHAIN_OPS * 4 / (clock_mhz * 1e3)
 
 
 def e2e_times(compress, decompress, img, runs=10):
@@ -974,8 +1065,9 @@ def main():
     ypair, yops, ysbuf, yslens, scan_plain_y = compare_micro(
         "micro/bmshj2018/y", ytable, ysym.contiguous(), yidx1.contiguous(),
         ESCAPE_BUDGET, fails)
-    compare_micro("micro/bmshj2018/z", htable, zsym1.contiguous(), zidx1,
-                  ESCAPE_BUDGET, fails)
+    _, zops, zsbuf, _, _ = compare_micro(
+        "micro/bmshj2018/z", htable, zsym1.contiguous(), zidx1,
+        ESCAPE_BUDGET, fails)
 
     # K7' at 512 x 32768 indices into the y table and the z table.
     pair_inputs = {}
@@ -1024,15 +1116,49 @@ def main():
     # scanned by the kernel, against the plain recurrence and K6''s bytes.
     gops = cc.gamma_micro_ops(gsym_t, gidx_t, gcdf, gmeta)
     gops = tuple(t.contiguous() for t in gops)
-    sbuf, slens, scan_ok, scan_plain = check_encode(
-        "encode_scan", cc.encode_scan, cc.encode_scan_plain, gops,
-        gbuf.shape[1])
+    sbuf, slens, scan_ok, scan_plain = check_scan(
+        "encode_scan/gaussian/variants", gops, gbuf.shape[1], fails)
     scan_same = bool(torch.equal(sbuf, gbuf) and torch.equal(slens, glens))
     log("kernels", case="encode_scan/gaussian", steps=int(gops[0].shape[0]),
         streams=int(gops[0].shape[1]), coded=int(gops[3].sum()),
         identical=scan_ok, equals_encode_gamma=scan_same)
     if not (scan_ok and scan_same):
         fails.append("encode_scan/gaussian")
+    # Both kernels of the micro-op mode on masked steps anywhere, rows of
+    # odd width (most start at an odd address), delayed-carry groups whose
+    # fill run outlasts the warp kernel's window in both directions, and a
+    # stream count on either side of the dispatch constant.
+    mrng = np.random.RandomState(13)
+    cases = scan_cases()
+    for label, (steps, streams, share, pad) in {
+            "holes": (4096, 3, 0.6, 0), "holes_odd_rows": (4096, 5, 0.9, 1),
+            "sparse": (2000, 2, 0.05, 3), "windows": (97, 7, 0.5, 1),
+            "empty": (0, 3, 1.0, 1)}.items():
+        rops = cases.as_tensors(cases.valid_micro_ops(
+            mrng, steps, streams, share), device)
+        check_scan(f"encode_scan/{label}", rops, 2 * steps + 2 + pad, fails)
+    # Every coded step at a limit of the valid range (encode_scan's
+    # contract ends there).
+    check_scan("encode_scan/interval_limits", cases.as_tensors(
+        cases.limit_micro_ops(mrng, 4096, 3), device), 2 * 4096 + 3, fails)
+    for direction in ("up", "down"):
+        for fill_chunks in (33, 100):
+            lops = cases.as_tensors(cases.long_carry_ops(
+                direction, fill_chunks, fill_chunks, tail=300)[0], device)
+            lbuf_s, llen_s, _, _ = check_scan(
+                f"encode_scan/carry_{direction}_{fill_chunks}", lops,
+                2 * lops[0].shape[0] + 3, fails)
+            run = (b"\x00\x00" if direction == "up" else b"\xff\xff") * \
+                fill_chunks
+            if run not in lbuf_s[0, : int(llen_s[0])].cpu().numpy().tobytes():
+                fails.append(f"encode_scan/carry_{direction}_{fill_chunks}")
+    edge = cc.WARP_ENCODE_MAX_STREAMS
+    reps = -(-(edge + 1) // gops[0].shape[1])
+    eops = tuple(t[:64].repeat(1, reps)[:, : edge + 1] for t in gops)
+    for streams in (edge, edge + 1):
+        check_scan(f"encode_scan/dispatch_{streams}",
+                   tuple(t[:, :streams].contiguous() for t in eops),
+                   2 * 64 + 2, fails, expect_warp=streams == edge)
 
     # Phase 4a: the native container (PR 1's main path).
     reset_counts()
@@ -1254,7 +1380,8 @@ def main():
     # rows; and the seeded one with 200 such values on top, whose intervals
     # outnumber the scan's steps, so that ``ok`` must come back False.
     # Predicted launches per compress_device: 1 x K7' + 1 x K6 micro-op
-    # mode; per decompress_device 1 x K3'.
+    # mode, by its warp-per-stream kernel (one stream); per
+    # decompress_device 1 x K3'.
     with torch.no_grad():
         shrink = 1.0
         while int(cc.interval_counts(*hcodec.em._symbols(
@@ -1272,6 +1399,10 @@ def main():
             return flat.reshape(hy.shape)
 
         hy_esc, hy_over = planted(hy * shrink, 40), planted(hy, 200)
+        psym, pidx, _ = hcodec.em._symbols(hy_esc, hidx)
+    compare_micro("micro/bmshj2018/y_planted", ytable, psym.contiguous(),
+                  pidx.contiguous(), ESCAPE_BUDGET, fails)
+    with torch.no_grad():
         over_intervals = int(cc.interval_counts(*hcodec.em._symbols(
             hy_over, hidx)[:2], ymeta)[0].sum())
         scan_steps = -(-(ysym.shape[1] + ESCAPE_BUDGET * MICRO_SLOTS)
@@ -1346,6 +1477,7 @@ def main():
             and y_natural > 0
             and device_launches["pair_lookup"] == 4
             and device_launches["encode_scan"] == 4
+            and device_launches["encode_scan/warp"] == 4
             and device_launches["decode_gamma"] == 3
             and device_launches["decode_gamma/warp"] == 3
             and device_launches["encode_gamma"] == 0):
@@ -1532,6 +1664,39 @@ def main():
             "warp_ms": [r[0] for r in rounds],
             "thread_ms": [r[1] for r in rounds]}
         del sb, sl, si
+    # K6's micro-op mode: both kernels on compress_device's y and z scans
+    # beside the byte bound and the serial chain's floor; and as streams
+    # grow (590 steps of the Gaussian regime a stream), which is what the
+    # dispatch constant rests on.
+    scan_ms = {}
+    for label, (s_ops, width) in {
+            "bmshj2018_y": (yops, ysbuf.shape[1]),
+            "bmshj2018_z": (zops, zsbuf.shape[1])}.items():
+        coded_l = int(s_ops[3].sum())
+        warp_call = lambda: cc.encode_scan_warp(*s_ops, width)
+        thread_call = lambda: cc.encode_scan_thread(*s_ops, width)
+        rounds = [(cuda_ms(warp_call, 5), cuda_ms(thread_call, 3))
+                  for _ in range(2)]
+        scan_ms[at(label, s_ops[0])] = {
+            "warp_ms": [r[0] for r in rounds],
+            "thread_ms": [r[1] for r in rounds],
+            "coded_steps": coded_l,
+            "bound_ms": scan_bound(s_ops, width)[0],
+            "chain_floor_ms": scan_floor_ms(coded_l, clock)}
+    scan_sweep = {}
+    gout = gbuf.shape[1]
+    for streams in (1, 2, 32, 256, 1024, 4096, 8192, 16384, 24576, 32768,
+                    65536):
+        reps = -(-streams // gops[0].shape[1])
+        sw_ops = tuple(t.repeat(1, reps)[:, :streams].contiguous()
+                       for t in gops)
+        rounds = [(cuda_ms(lambda: cc.encode_scan_warp(*sw_ops, gout), 10),
+                   cuda_ms(lambda: cc.encode_scan_thread(*sw_ops, gout), 10))
+                  for _ in range(2)]
+        scan_sweep[f"{streams}x{gops[0].shape[0]}"] = {
+            "warp_ms": [r[0] for r in rounds],
+            "thread_ms": [r[1] for r in rounds]}
+        del sw_ops
     plain_ms = {
         "encode_indexed": cuda_ms(lambda: cc.encode_indexed_plain(
             symbols, idx, cdf, meta, out_p, len_p), 3),
@@ -1554,11 +1719,7 @@ def main():
                                      intervals=c_intervals),
         "decode_gamma": decode_bound(clens, csym.shape[1], cdf, meta,
                                      gamma_bits=c_intervals - csym.numel()),
-        # Micro-op mode: three uint32 arrays and a byte mask read once,
-        # bytes and lengths written once; ~12 operations per coded step.
-        "encode_scan": _bound(
-            yops[0].numel() * 13 + ysbuf.numel() + yslens.numel() * 4,
-            12 * int(yops[3].sum())),
+        "encode_scan": scan_bound(yops, ysbuf.shape[1]),
         # Pair lookup: index read, pair written, table read once; an index
         # clamp, two address computations and two loads per element.
         "pair_lookup": _bound(ypair[1].numel() * 12 + ypair[0].numel() * 4,
@@ -1683,6 +1844,8 @@ def main():
         pair_lookup_ms=pair_ms, decode_gamma_variants_ms=gamma_ms,
         decode_gamma_streams_ms=gamma_sweep,
         warp_decode_max_streams=cc.WARP_DECODE_MAX_STREAMS,
+        encode_scan_variants_ms=scan_ms, encode_scan_streams_ms=scan_sweep,
+        warp_encode_max_streams=cc.WARP_ENCODE_MAX_STREAMS,
         sm_clock_mhz=clock, end_to_end=e2e_ms, card=smi)
 
     launches = {k: native_launches[k] + classic_launches[k]

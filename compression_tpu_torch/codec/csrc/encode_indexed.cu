@@ -33,6 +33,8 @@
 //       returns per-step records and the final state for a post-pass
 //       (jax_coder._encode_postpass), this one writes the stream's bytes and
 //       length itself, like the other three.
+//   ctpu_encode_scan_warp   (K6, micro-op mode, one warp per stream) the same
+//       function as ctpu_encode_scan for launches of few streams; see below.
 //
 // Output is the byte stream of the reference RangeEncoder
 // (compression_tpu/native/range_coder.cc, copied below, not included) with
@@ -54,6 +56,43 @@
 // output row, the delayed-carry runs are written in place, and the TPU
 // kernels' record buffer and reserve/resolve/compact post-pass disappear.
 // Small launches use 32-thread blocks to spread streams over more SMs.
+//
+// Warp per stream (the micro-op scan at few streams: compress_device codes
+// each latent as one stream of ~200k steps, which a thread per stream leaves
+// on a single lane of the card, at ~360 clocks a step).  The 32 lanes cannot
+// split the serial chain, so they carry it together and take everything
+// else off it.  One warp alone on its scheduler issues in program order:
+// what decides its time is the chain's dependent latencies, every
+// instruction that waits on a load or shuffle in front of the chain, every
+// taken branch, and the plain instruction count.
+//   - Every lane carries the state (base, size - 1, the deferred chunk and
+//     its fill count) in registers; every branch is uniform.
+//   - The chain of a step is 32-bit: size * c is one wide multiply-add,
+//     (size - 1) * c + c < 2^48, and the interval's ends are its bits 16-47
+//     (one funnel shift), because the micro-op is pre-scaled to precision 16:
+//     c << (16 - precision) over 2^16 is c over 2^precision exactly.  The
+//     carry out of 2^32 is that of a 32-bit add.  Exact on every coded step
+//     whose interval is valid (0 <= lower < upper <= 2^precision, as every
+//     CDF and Elias-gamma micro-op is); ctpu_encode_scan takes any input.
+//   - Operands come a window of 32 steps at a time: lane l loads step
+//     32 w + l of the four arrays two windows ahead and packs it one window
+//     ahead (lower' | (upper' - 1) << 16 after the scaling); a ballot of the
+//     mask and a search over its population counts hand lane i the i-th
+//     coded step, so masked steps cost the chain nothing.  A step's packed
+//     operands reach every lane by one shuffle, issued a step ahead.
+//   - A step is predicated throughout: the delayed-carry state (the
+//     interval straddled 2^32 before the step) goes on or resolves by
+//     selects, and only a resolved group with a fill run leaves the step's
+//     code, for a function of its own.  Half a window of steps is one
+//     straight run of code.  (Moving the whole delayed-carry state out of
+//     the step was slower: the compiler then brackets every step's call
+//     site with a convergence barrier, BSSY/BSYNC.)
+//   - Output goes through the lanes: before Finalize every emission is one
+//     16-bit chunk (a renormalization's top, a resolved deferred chunk, or a
+//     fill pair), held chunk j sits in lane j % 32, and 32 chunks are
+//     stored as 64 bytes at once (byte by byte where the row starts at an
+//     odd address).  The window store and Finalize are functions of their
+//     own too; the warp zeroes the row's tail with 16-byte stores.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC encode_indexed.cu -o encode_indexed.so
@@ -234,6 +273,264 @@ __global__ void encode_scan_kernel(
   lengths[s] = static_cast<int32_t>(enc.len);
 }
 
+// ---------------------------------------------------------------------------
+// K6 micro-op mode, one warp per stream.
+// ---------------------------------------------------------------------------
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kScanWarps = 4;  // streams (one warp each) per block
+
+// The warp's output row.
+struct ScanOut {
+  uint8_t* row;
+  int lane;
+  bool even;  // the row starts at an even address: chunks as 16-bit stores
+};
+
+// The encoder state, the same in every lane, and the chunks held in lanes.
+// Chunk j of those held sits in lane j % 32 of keep0 (j < 32) or keep1: a
+// step holds at most two chunks besides a fill run, which drains the window
+// as it goes, so the window drained every 16 steps never fills its 64 slots.
+struct ScanState {
+  uint32_t base;
+  uint32_t sm1;   // size - 1
+  uint32_t pend;  // 0, or the deferred chunk + 1 (the reference's delay & 0xFFFF)
+  uint32_t fill;  // deferred fill chunks (the reference's delay >> 17); the
+                  // length is an int32, so a stream has fewer than 2^30
+  int k;          // chunks held
+  uint32_t keep0, keep1;  // this lane's held chunks
+  int64_t pos;    // bytes of the row stored so far (a multiple of 64)
+};
+
+// Lanes 0 .. n-1 store their chunks, high byte first, at dst + 2 * lane.
+__device__ void store_chunks(uint8_t* dst, uint32_t chunk, int n,
+                             const ScanOut& o) {
+  if (o.lane >= n) return;
+  if (o.even) {
+    reinterpret_cast<uint16_t*>(dst)[o.lane] =
+        static_cast<uint16_t>(__byte_perm(chunk, 0u, 0x0001));
+  } else {
+    dst[2 * o.lane] = static_cast<uint8_t>(chunk >> 8);
+    dst[2 * o.lane + 1] = static_cast<uint8_t>(chunk);
+  }
+}
+
+// A full window, 32 chunks, stored as 64 bytes: once per 32 emissions, so
+// kept out of the steps' code.
+__device__ __noinline__ ScanState store_window(ScanState e, ScanOut o) {
+  store_chunks(o.row + e.pos, e.keep0, 32, o);
+  e.pos += 64;
+  e.k -= 32;
+  e.keep0 = e.keep1;
+  return e;
+}
+
+// Stores the first 32 held chunks where there are as many.
+__device__ __forceinline__ void drain(ScanState& e, const ScanOut& o) {
+  if (__builtin_expect(e.k >= 32, 0)) e = store_window(e, o);
+}
+
+// Holds ``chunk`` as the next chunk where ``on`` holds.
+__device__ __forceinline__ void hold(ScanState& e, uint32_t chunk, bool on,
+                                     int lane) {
+  const int d = e.k - lane;
+  e.keep0 = (on && d == 0) ? chunk : e.keep0;
+  e.keep1 = (on && d == 32) ? chunk : e.keep1;
+  e.k += on ? 1 : 0;
+}
+
+// The deferred fill run, e.fill chunks of ``v``, through the same window.
+__device__ __noinline__ ScanState fill_run(ScanState e, uint32_t v,
+                                           ScanOut o) {
+  if (e.k >= 32) e = store_window(e, o);
+  while (e.fill != 0) {
+    const int n = min(static_cast<int>(min(e.fill, 32u)), 32 - e.k);
+    e.keep0 = (o.lane >= e.k && o.lane < e.k + n) ? v : e.keep0;
+    e.k += n;
+    e.fill -= n;
+    if (e.k == 32) e = store_window(e, o);
+  }
+  return e;
+}
+
+// RangeEncoder::Encode on one coded step, ``op`` its packed operands:
+// lower' | (upper' - 1) << 16, both scaled to precision 16.  Predicated
+// throughout: the delayed-carry state (the interval straddled 2^32 before
+// the step) is taken by selects, and only a resolved group with a fill run
+// leaves the step's code.
+__device__ __forceinline__ void scan_step(ScanState& e, uint32_t op,
+                                          const ScanOut& o) {
+  const uint32_t lo = op & 0xFFFFu;
+  const uint32_t hi = (op >> 16) + 1u;
+  const uint32_t a =
+      static_cast<uint32_t>((static_cast<uint64_t>(e.sm1) * lo + lo) >> 16);
+  const uint32_t b =
+      static_cast<uint32_t>((static_cast<uint64_t>(e.sm1) * hi + hi) >> 16);
+  const uint32_t nb = e.base + a;
+  const uint32_t ns = b - 1u - a;
+  const bool renorm = ns < 0x10000u;
+  const uint32_t sb = renorm ? nb << 16 : nb;
+  const uint32_t ss = renorm ? (ns << 16) | 0xFFFFu : ns;
+  // In the delayed-carry state: still straddling, or resolved, which
+  // flushes the deferred chunk (+1 where base carried out of 2^32) and its
+  // fill run (0x00 up, 0xFF down).
+  const bool in_delay = e.pend != 0;
+  const bool straddle = in_delay && (nb + ns < nb);
+  const bool resolved = in_delay && !straddle;
+  const bool up = nb < a;
+  hold(e, up ? e.pend : e.pend - 1u, resolved, o.lane);
+  if (__builtin_expect(resolved && e.fill != 0, 0))
+    e = fill_run(e, up ? 0u : 0xFFFFu, o);
+  // A renormalization outside a straddle emits its top chunk, or defers it
+  // where the shifted interval straddles 2^32; one inside a straddle
+  // defers two more fill bytes.
+  const uint32_t top = nb >> 16;
+  const bool amb = renorm && !straddle && (sb + ss < sb);
+  hold(e, top, renorm && !straddle && !amb, o.lane);
+  e.fill += (straddle && renorm) ? 1u : 0u;
+  e.pend = straddle ? e.pend : (amb ? top + 1u : 0u);
+  e.base = sb;
+  e.sm1 = ss;
+}
+
+// RangeEncoder::Finalize, the held chunks, the tail's zeros and the length.
+__device__ __noinline__ void scan_finish(ScanState e, ScanOut o,
+                                         int64_t out_size, int32_t* length) {
+  if (e.k >= 32) e = store_window(e, o);
+  store_chunks(o.row + e.pos, e.keep0, e.k, o);
+  int64_t len = e.pos + 2 * e.k;
+  uint32_t b0 = 0, b1 = 0;
+  int nbytes = 0;
+  if (e.pend != 0) {
+    b0 = (e.pend >> 8) & 0xFFu;
+    b1 = e.pend & 0xFFu;
+    nbytes = b1 ? 2 : 1;
+  } else if (e.base != 0) {
+    const uint32_t upper = e.base + e.sm1;
+    const uint32_t mid24 = ((e.base - 1u) >> 24) + 1u;
+    if (mid24 <= (upper >> 24)) {
+      b0 = mid24 & 0xFFu;
+      nbytes = 1;
+    } else {
+      const uint32_t mid16 = ((e.base - 1u) >> 16) + 1u;
+      b0 = (mid16 >> 8) & 0xFFu;
+      b1 = mid16 & 0xFFu;
+      nbytes = b1 ? 2 : 1;
+    }
+  }
+  if (o.lane == 0) {
+    if (nbytes > 0) o.row[len] = static_cast<uint8_t>(b0);
+    if (nbytes > 1) o.row[len + 1] = static_cast<uint8_t>(b1);
+    *length = static_cast<int32_t>(len + nbytes);
+  }
+  len += nbytes;
+  // Zeros from len to out_size: bytes up to a 16-byte boundary, 16-byte
+  // stores, bytes after the last boundary.
+  uint8_t* p = o.row + len;
+  uint8_t* end = o.row + out_size;
+  if (p >= end) return;
+  uint8_t* mid = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 15) & ~static_cast<uintptr_t>(15));
+  if (mid > end) mid = end;
+  if (o.lane < mid - p) p[o.lane] = 0;
+  const int64_t vecs = (end - mid) / 16;
+  uint4* v = reinterpret_cast<uint4*>(mid);
+  for (int64_t i = o.lane; i < vecs; i += 32) v[i] = make_uint4(0, 0, 0, 0);
+  uint8_t* rest = mid + 16 * vecs;
+  if (o.lane < end - rest) rest[o.lane] = 0;
+}
+
+// One window's worth of a stream's micro-ops, one step a lane, as loaded.
+struct ScanLoads {
+  uint32_t lower, upper, prec;
+  uint8_t mask;
+};
+
+__global__ void __launch_bounds__(32 * kScanWarps)
+encode_scan_warp_kernel(
+    const uint32_t* __restrict__ lower, const uint32_t* __restrict__ upper,
+    const uint32_t* __restrict__ prec, const uint8_t* __restrict__ mask,
+    int64_t num_steps, int64_t num_streams, uint8_t* __restrict__ out,
+    int64_t out_size, int32_t* __restrict__ lengths) {
+  const int lane = threadIdx.x & 31;
+  const int64_t s =
+      static_cast<int64_t>(blockIdx.x) * kScanWarps + (threadIdx.x >> 5);
+  if (s >= num_streams) return;
+  ScanOut o;
+  o.row = out + s * out_size;
+  o.lane = lane;
+  o.even = (reinterpret_cast<uintptr_t>(o.row) & 1) == 0;
+  ScanState e = {0u, 0xFFFFFFFFu, 0u, 0u, 0, 0u, 0u, 0};
+
+  // Lane l's step of window w.
+  auto load = [&](int64_t w, ScanLoads& r) {
+    const int64_t t = 32 * w + lane;
+    r = ScanLoads{0u, 1u, 16u, 0};
+    if (t < num_steps) {
+      const int64_t p = t * num_streams + s;
+      r.lower = lower[p];
+      r.upper = upper[p];
+      r.prec = prec[p];
+      r.mask = mask[p];
+    }
+  };
+  // Packs a window's loads: ``bits`` the coded steps, lane i's ``ops`` the
+  // operands of the window's i-th coded step.
+  auto pack = [&](const ScanLoads& r, uint32_t& ops, uint32_t& bits) {
+    bits = __ballot_sync(kFullMask, r.mask != 0);
+    const uint32_t sh = 16u - r.prec;
+    const uint32_t mine =
+        ((r.lower << sh) & 0xFFFFu) | (((r.upper << sh) - 1u) << 16);
+    // The position of the (lane + 1)-th set bit: the largest src with
+    // exactly ``lane`` set bits below it.
+    int src = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__popc(bits & ((1u << (src + step)) - 1u)) <= lane) src += step;
+    ops = __shfl_sync(kFullMask, mine, src);
+  };
+
+  ScanLoads raw;
+  uint32_t ops, bits;
+  load(0, raw);
+  pack(raw, ops, bits);
+  load(1, raw);
+  for (int64_t w = 0; 32 * w < num_steps; ++w) {
+    uint32_t ops_next, bits_next;
+    pack(raw, ops_next, bits_next);  // window w + 1, loaded a window ago
+    load(w + 2, raw);
+    const int n = __popc(bits);
+    // Two operand registers that swap roles: the shuffle of the next step
+    // goes out before the chain of this one.
+    uint32_t op_a = __shfl_sync(kFullMask, ops, 0);
+    if (n == 32) {
+      for (int h = 0; h < 32; h += 16) {
+#pragma unroll
+        for (int i = h; i < h + 16; i += 2) {
+          const uint32_t op_b = __shfl_sync(kFullMask, ops, i + 1);
+          scan_step(e, op_a, o);
+          op_a = __shfl_sync(kFullMask, ops, i + 2);
+          scan_step(e, op_b, o);
+        }
+        drain(e, o);
+      }
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < n; i += 2) {
+        const uint32_t op_b = __shfl_sync(kFullMask, ops, i + 1);
+        scan_step(e, op_a, o);
+        if (i + 1 < n) {
+          op_a = __shfl_sync(kFullMask, ops, i + 2);
+          scan_step(e, op_b, o);
+        }
+        drain(e, o);
+      }
+    }
+    ops = ops_next;
+    bits = bits_next;
+  }
+  scan_finish(e, o, out_size, lengths + s);
+}
+
 template <int kMode>
 int launch(const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
            int64_t num_elements, const int32_t* cdf, const int32_t* meta,
@@ -303,6 +600,22 @@ extern "C" int ctpu_encode_scan(
   if (blocks > 0) {
     encode_scan_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
+        lower, upper, prec, mask, num_steps, num_streams, out, out_size,
+        lengths);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As ctpu_encode_scan, one warp per stream; every coded step's interval
+// must be valid (0 <= lower < upper <= 2^prec, 1 <= prec <= 16).
+extern "C" int ctpu_encode_scan_warp(
+    const uint32_t* lower, const uint32_t* upper, const uint32_t* prec,
+    const uint8_t* mask, int64_t num_steps, int64_t num_streams, uint8_t* out,
+    int64_t out_size, int32_t* lengths, void* stream) {
+  const int64_t blocks = (num_streams + kScanWarps - 1) / kScanWarps;
+  if (blocks > 0) {
+    encode_scan_warp_kernel<<<static_cast<unsigned>(blocks), 32 * kScanWarps,
+                              0, static_cast<cudaStream_t>(stream)>>>(
         lower, upper, prec, mask, num_steps, num_streams, out, out_size,
         lengths);
   }

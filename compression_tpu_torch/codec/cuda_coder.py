@@ -32,7 +32,14 @@ below), the pair lookup four elements per thread:
 
 * ``encode_scan`` (K6, micro-op mode) is ``pallas_coder.encode_scan_pallas``
   as the JAX package calls it: it reads precomputed micro-ops ``(lower,
-  upper, prec, mask)`` [T, S] and writes the streams' bytes.
+  upper, prec, mask)`` [T, S] and writes the streams' bytes.  Like K3' it
+  has two kernels, picked by the stream count alone: launches of at most
+  ``WARP_ENCODE_MAX_STREAMS`` streams take the warp-per-stream kernel (the
+  32 lanes carry one stream's chain together, in 32-bit arithmetic, and
+  store its bytes 64 at a time), larger ones the thread-per-stream kernel.
+  ``encode_scan_warp`` / ``encode_scan_thread`` run one variant whatever
+  the shape; ``encode_scan_warp_plain`` mirrors the warp kernel's
+  arithmetic and emission on the CPU, for the tests.
 * ``pair_lookup`` (K7') replaces ``pallas_coder.pair_lookup_pallas``:
   ``(flat[i], flat[i + 1])`` for flat table indices, the encoder prep of
   ``gamma_micro_ops``.
@@ -49,8 +56,9 @@ and then runs the plain version when the tensors lie on the CPU, or
 launches the kernel on the current CUDA stream (and adds one to
 ``LAUNCHES[name]``) when they lie on a CUDA device.  There is no fallback
 between the two: a CUDA tensor reaches the kernel or an exception.
-``LAUNCHES_WARP["decode_gamma"]`` counts those of K3''s launches that took
-the warp-per-stream kernel.
+``LAUNCHES_WARP["decode_gamma"]`` and ``LAUNCHES_WARP["encode_scan"]`` count
+those of K3''s and K6''s micro-op launches that took the warp-per-stream
+kernel.
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use (or by
 ``build()``), one process per source started together, into the package's
@@ -94,6 +102,8 @@ __all__ = [
     "decode_gamma_warp",
     "decode_gamma_thread",
     "encode_scan",
+    "encode_scan_warp",
+    "encode_scan_thread",
     "pair_lookup",
     "decode_single_row_bucketed",
     "encode_indexed_plain",
@@ -106,6 +116,7 @@ __all__ = [
     "warp_table",
     "warp_search_plain",
     "encode_scan_plain",
+    "encode_scan_warp_plain",
     "pair_lookup_plain",
     "decode_single_row_bucketed_plain",
     "bucketize_row",
@@ -120,8 +131,9 @@ LAUNCHES = {"encode_indexed": 0, "decode_indexed": 0,
             "encode_scan": 0, "pair_lookup": 0,
             "decode_single_row_bucketed": 0}
 
-#: Of ``LAUNCHES["decode_gamma"]``, the launches of the warp-per-stream kernel.
-LAUNCHES_WARP = {"decode_gamma": 0}
+#: Of ``LAUNCHES["decode_gamma"]`` and ``LAUNCHES["encode_scan"]``, the
+#: launches of the warp-per-stream kernels.
+LAUNCHES_WARP = {"decode_gamma": 0, "encode_scan": 0}
 
 #: K3' launches of at most this many streams take the warp-per-stream
 #: kernel, larger ones the thread-per-stream kernel.  Measured on an NVIDIA
@@ -133,6 +145,18 @@ LAUNCHES_WARP = {"decode_gamma": 0}
 #: from 16896 on the thread kernel runs 128-thread blocks, fills the card
 #: and leads.
 WARP_DECODE_MAX_STREAMS = 16384
+
+#: K6 micro-op launches of at most this many streams take the
+#: warp-per-stream kernel, larger ones the thread-per-stream kernel.
+#: Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py, streams
+#: x 590 steps of the Gaussian regime, warp / thread ms: 1 0.079 / 0.120,
+#: 1024 0.070 / 0.344, 4096 0.171 / 0.481, 8192 0.320 / 0.655, 16384 0.611
+#: / 0.751, 24576 0.888 / 0.884, 32768 1.18 / 0.960, 65536 2.31 / 1.48;
+#: bmshj2018's y scan, 198848 steps x 1, 10.28 / 36.1.  The warp kernel
+#: leads up to 16384 streams; the
+#: thread kernel steps 32 streams with the instructions the warp kernel
+#: spends on one, and leads once its threads fill the card.
+WARP_ENCODE_MAX_STREAMS = 16384
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -161,6 +185,8 @@ _ARGTYPES = {
                                _vp, _vp, _vp],
     "ctpu_encode_scan": [_vp, _vp, _vp, _vp, _i64, _i64, _vp, _i64, _vp,
                          _vp],
+    "ctpu_encode_scan_warp": [_vp, _vp, _vp, _vp, _i64, _i64, _vp, _i64,
+                              _vp, _vp],
     "ctpu_decode_gamma_warp": [_vp, _i64, _vp, _vp, _i64, _i64, _vp, _i64,
                                _int, _int, _vp, _vp, _vp],
     "ctpu_pair_lookup": [_vp, _i64, _vp, _i64, _vp, _vp, _int, _vp],
@@ -540,7 +566,37 @@ def encode_scan(lower, upper, prec, mask, out_size: int):
 
     Returns:
       (bytes uint8 [S, out_size] zero past each length, lengths int32 [S]).
+
+    The number of streams alone picks the kernel: at most
+    ``WARP_ENCODE_MAX_STREAMS`` take ``encode_scan_warp``, more take
+    ``encode_scan_thread``.
+
+    Every coded step must hold a valid interval, ``0 <= lower < upper <=
+    2^prec`` with ``1 <= prec <= 16``, as the reference ``RangeEncoder``
+    requires (it checks this only in debug builds); every micro-op of a CDF
+    table and of an Elias-gamma bit does.  The bytes of a stream with any
+    other coded step are undefined, and the two kernels may differ on them
+    (the warp kernel's 32-bit arithmetic is exact on valid intervals only).
+    Nothing checks this, so that the scan never waits for the card.
     """
+    if lower.ndim == 2 and lower.shape[1] <= WARP_ENCODE_MAX_STREAMS:
+        return encode_scan_warp(lower, upper, prec, mask, out_size)
+    return encode_scan_thread(lower, upper, prec, mask, out_size)
+
+
+def encode_scan_thread(lower, upper, prec, mask, out_size: int):
+    """K6's micro-op mode by its thread-per-stream kernel (arguments and
+    result as ``encode_scan``); on the CPU ``encode_scan_plain``."""
+    return _encode_scan(lower, upper, prec, mask, out_size, False)
+
+
+def encode_scan_warp(lower, upper, prec, mask, out_size: int):
+    """K6's micro-op mode by its warp-per-stream kernel (arguments and
+    result as ``encode_scan``); on the CPU ``encode_scan_plain``."""
+    return _encode_scan(lower, upper, prec, mask, out_size, True)
+
+
+def _encode_scan(lower, upper, prec, mask, out_size, warp):
     device = lower.device
     for name, t in (("lower", lower), ("upper", upper), ("prec", prec)):
         _check(name, t, torch.int32, 2, device)
@@ -556,14 +612,178 @@ def encode_scan(lower, upper, prec, mask, out_size: int):
     if _device_kind(device) == "cpu":
         encode_scan_plain(lower, upper, prec, mask, out, lengths)
         return out, lengths
-    _launch("encode_scan", _lib("encode_indexed").ctpu_encode_scan, lower,
-            upper, prec, mask, num_steps, num_streams, out, out_size, lengths)
+    lib = _lib("encode_indexed")
+    fn = lib.ctpu_encode_scan_warp if warp else lib.ctpu_encode_scan
+    _launch("encode_scan", fn, lower, upper, prec, mask, num_steps,
+            num_streams, out, out_size, lengths)
+    if warp:
+        LAUNCHES_WARP["encode_scan"] += 1
     return out, lengths
 
 
 def encode_scan_plain(lower, upper, prec, mask, out, lengths):
     """Plain PyTorch version of the micro-op mode (writes out, lengths)."""
     _encode_plain(lower.long(), upper.long(), prec.long(), mask, out, lengths)
+
+
+def encode_scan_warp_plain(lower, upper, prec, mask, out, lengths):
+    """Plain mirror of K6's warp-per-stream micro-op kernel (writes out,
+    lengths): the same bytes as ``encode_scan_plain``, by the kernel's own
+    steps, for the tests.  Per stream and window of 32 steps: the mask's
+    ballot and the search that hands lane i the i-th coded step, the
+    operands packed at precision 16, the 32-bit chain, the predicated
+    step, the chunks held one a lane and stored 32 at a time (fill runs
+    through the same window); then Finalize.  Python
+    integers with explicit 32-bit masks; slow, and meant for small inputs.
+    The coded steps' intervals must be valid (``0 <= lower < upper <=
+    2^prec``, ``1 <= prec <= 16``)."""
+    lo_all, hi_all, pr_all = (t.cpu().numpy().astype("int64")
+                              for t in (lower, upper, prec))
+    m_all = mask.cpu().numpy()
+    num_steps, num_streams = lo_all.shape
+    width = out.shape[1]
+    rows = torch.zeros((num_streams, width), dtype=torch.uint8)
+    lens = torch.zeros((num_streams,), dtype=torch.int32)
+    for s in range(num_streams):
+        row = bytearray(width)
+        enc = _WarpScanMirror(row)
+        for w in range(-(-num_steps // _LANES)):
+            steps = range(_LANES * w, min(_LANES * w + _LANES, num_steps))
+            bits = sum(1 << (t - _LANES * w) for t in steps if m_all[t, s])
+            n = bin(bits).count("1")
+            for i in range(n):
+                t = _LANES * w + _nth_set_bit(bits, i)
+                enc.step(scan_op(int(lo_all[t, s]), int(hi_all[t, s]),
+                                 int(pr_all[t, s])))
+                # A full window drains after each half, a partial one after
+                # each pair of steps.
+                if n == _LANES:
+                    if i % 16 == 15:
+                        enc.drain()
+                elif i % 2 == 1 or i == n - 1:
+                    enc.drain()
+        lens[s] = enc.finish()
+        if width:
+            rows[s] = torch.frombuffer(row, dtype=torch.uint8)
+    out.copy_(rows.to(out.device))
+    lengths.copy_(lens.to(lengths.device))
+
+
+def scan_op(lower, upper, prec):
+    """The warp scan's packed operands of one coded step: lower and upper
+    scaled to precision 16, ``lower' | (upper' - 1) << 16``."""
+    sh = 16 - prec
+    return ((lower << sh) & 0xFFFF) | ((((upper << sh) - 1) & 0xFFFF) << 16)
+
+
+def scan_chain32(base, sm1, op):
+    """One step of the warp scan's 32-bit chain (encode_indexed.cu
+    scan_step) on Python integers: returns (new base before the
+    renormalization, new size - 1 before it, carry out of 2^32,
+    straddles 2^32, renormalizes, base after it, size - 1 after it)."""
+    lo, hi = op & 0xFFFF, (op >> 16) + 1
+    a = ((sm1 * lo + lo) >> 16) & _M32
+    b = ((sm1 * hi + hi) >> 16) & _M32
+    nb = (base + a) & _M32
+    ns = (b - 1 - a) & _M32
+    renorm = ns < 0x10000
+    sb = (nb << 16) & _M32 if renorm else nb
+    ss = ((ns << 16) | 0xFFFF) & _M32 if renorm else ns
+    return nb, ns, nb < a, nb + ns > _M32, renorm, sb, ss
+
+
+def _nth_set_bit(bits, i):
+    """The kernel's search: the largest position with exactly ``i`` set
+    bits of ``bits`` below it, by halving steps over population counts."""
+    src = 0
+    for step in (16, 8, 4, 2, 1):
+        if bin(bits & ((1 << (src + step)) - 1)).count("1") <= i:
+            src += step
+    return src
+
+
+class _WarpScanMirror:
+    """One stream's state in encode_indexed.cu's warp scan (ScanState) and
+    the kernel's functions that change it: scan_step, the window of held
+    chunks (hold, store_window, drain), fill_run and scan_finish."""
+
+    def __init__(self, row):
+        self.row = row
+        self.base, self.sm1, self.pend, self.fill = 0, _M32, 0, 0
+        self.held = []  # the chunks held in the lanes, in order
+        self.pos = 0
+
+    def _store(self, count):
+        """The first ``count`` held chunks, high byte first, after pos."""
+        for i, chunk in enumerate(self.held[:count]):
+            self.row[self.pos + 2 * i] = chunk >> 8
+            self.row[self.pos + 2 * i + 1] = chunk & 0xFF
+        self.pos += 2 * count
+        del self.held[:count]
+
+    def store_window(self):
+        """The first 32 held chunks, stored as 64 bytes."""
+        self._store(_LANES)
+
+    def drain(self):
+        if len(self.held) >= _LANES:
+            self.store_window()
+
+    def _fill_run(self, chunk):
+        """fill_run: the deferred fill run through the window."""
+        self.drain()
+        while self.fill:
+            n = min(self.fill, _LANES - len(self.held))
+            self.held += [chunk] * n
+            self.fill -= n
+            self.drain()
+
+    def step(self, op):
+        """scan_step, predicated as the kernel's: in the delayed-carry
+        state the interval still straddles 2^32 (a renormalization defers
+        one more fill chunk) or resolves (the deferred chunk, +1 where base
+        carried out of 2^32, and its fill run); then a renormalization
+        outside a straddle holds its top chunk, or defers it where the
+        shifted interval straddles 2^32."""
+        nb, _, up, straddle, renorm, sb, ss = scan_chain32(self.base,
+                                                           self.sm1, op)
+        in_delay = self.pend != 0
+        assert in_delay or not straddle  # a valid interval narrows inside
+        resolved = in_delay and not straddle
+        if resolved:
+            self.held.append(self.pend if up else self.pend - 1)
+            if self.fill:
+                self._fill_run(0 if up else 0xFFFF)
+        top = nb >> 16
+        amb = renorm and not straddle and sb + ss > _M32
+        if renorm and not straddle and not amb:
+            self.held.append(top)
+        self.fill += int(straddle and renorm)
+        self.pend = self.pend if straddle else (top + 1 if amb else 0)
+        self.base, self.sm1 = sb, ss
+
+    def finish(self):
+        """scan_finish: the held chunks, Finalize; returns the length (the
+        row is zero past it already)."""
+        self.drain()
+        self._store(len(self.held))
+        n = self.pos
+        tail = []
+        if self.pend:
+            tail = [(self.pend >> 8) & 0xFF] + (
+                [self.pend & 0xFF] if self.pend & 0xFF else [])
+        elif self.base:
+            upper = (self.base + self.sm1) & _M32
+            mid24 = ((self.base - 1) >> 24) + 1
+            if mid24 <= upper >> 24:
+                tail = [mid24 & 0xFF]
+            else:
+                mid16 = ((self.base - 1) >> 16) + 1
+                tail = [(mid16 >> 8) & 0xFF] + (
+                    [mid16 & 0xFF] if mid16 & 0xFF else [])
+        for i, byte in enumerate(tail):
+            self.row[n + i] = byte
+        return n + len(tail)
 
 
 #: Steps that ``_run_steps`` captures into one CUDA graph.

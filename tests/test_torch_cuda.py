@@ -5,11 +5,15 @@ mode); on a machine with one, run
 ``python -m pytest tests/test_torch_cuda.py`` (chip_smoke.py drives the
 same comparisons at full size)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from compression_tpu_torch.codec import cuda_coder, tables, torch_coder
+from scan_cases import (as_tensors, limit_micro_ops, long_carry_ops,
+                        valid_micro_ops)
 
 pytestmark = pytest.mark.cuda
 
@@ -156,6 +160,7 @@ def test_micro_op_route_matches_plain(device):
     slots, num_steps = 35, 50 + 50 * 35
     out_size = 2 * num_steps + 4
     before = dict(cuda_coder.LAUNCHES)
+    before_warp = cuda_coder.LAUNCHES_WARP["encode_scan"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -166,6 +171,8 @@ def test_micro_op_route_matches_plain(device):
         torch.cuda.set_sync_debug_mode("default")
     assert _launched("pair_lookup", before)
     assert _launched("encode_scan", before)
+    # 200 streams: the warp-per-stream kernel.
+    assert cuda_coder.LAUNCHES_WARP["encode_scan"] == before_warp + 1
     assert torch_coder.DISPATCH_LOG["encode"] == "cuda-micro"
     plain_ops = cuda_coder.gamma_micro_ops(sym, idx, cdf, meta, num_steps,
                                            slots)
@@ -340,3 +347,93 @@ def test_pair_lookup_any_element_count(device, count):
         lo, hi = cuda_coder.pair_lookup(flat, idx)
         ref_lo, ref_hi = cuda_coder.pair_lookup_plain(flat, idx)
         assert torch.equal(lo, ref_lo) and torch.equal(hi, ref_hi)
+
+
+def _scan_both_match_plain(ops, out_size, device):
+    """Both kernels of K6's micro-op mode and the wrapper against
+    encode_scan_plain, run once; returns the plain result."""
+    ops = as_tensors(ops, device)
+    before = (cuda_coder.LAUNCHES["encode_scan"],
+              cuda_coder.LAUNCHES_WARP["encode_scan"])
+    got = [cuda_coder.encode_scan_warp(*ops, out_size),
+           cuda_coder.encode_scan_thread(*ops, out_size),
+           cuda_coder.encode_scan(*ops, out_size)]
+    torch.cuda.synchronize()
+    warp = int(ops[0].shape[1] <= cuda_coder.WARP_ENCODE_MAX_STREAMS)
+    assert (cuda_coder.LAUNCHES["encode_scan"],
+            cuda_coder.LAUNCHES_WARP["encode_scan"]) == (
+                before[0] + 3, before[1] + 1 + warp)
+    ref = (torch.empty_like(got[0][0]), torch.empty_like(got[0][1]))
+    cuda_coder.encode_scan_plain(*ops, *ref)
+    for out, lens in got:
+        assert torch.equal(out, ref[0]) and torch.equal(lens, ref[1])
+    return ref
+
+
+# (steps, streams, share of coded steps, extra bytes a row: odd widths put
+# most rows at odd addresses)
+SCAN_CASES = {"dense": (700, 3, 1.0, 0), "holes_odd_rows": (700, 5, 0.6, 1),
+              "sparse": (300, 4, 0.05, 3), "windows": (97, 33, 0.5, 0),
+              "empty": (0, 2, 1.0, 1)}
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_CASES))
+def test_scan_variants_match_plain(device, name):
+    """Both kernels of the micro-op mode on random valid micro-ops with
+    masked steps anywhere, in rows of even and odd width."""
+    steps, streams, share, pad = SCAN_CASES[name]
+    rng = np.random.RandomState(sorted(SCAN_CASES).index(name))
+    _scan_both_match_plain(valid_micro_ops(rng, steps, streams, share),
+                           2 * steps + 2 + pad, device)
+
+
+def test_scan_variants_at_the_interval_limits(device):
+    """Both kernels where encode_scan's contract ends: every coded step at
+    a limit of the valid range (the whole range, its first or its last
+    entry, at precision 1, 2, 15 and 16) writes encode_scan_plain's
+    bytes."""
+    rng = np.random.RandomState(15)
+    _scan_both_match_plain(limit_micro_ops(rng, 600, 3), 1202, device)
+
+
+@pytest.mark.parametrize("direction", ["up", "down"])
+def test_scan_variants_long_delayed_carry(device, direction):
+    """A delayed-carry group whose fill run (70 chunks) outlasts the warp
+    kernel's window of 32, flushed up (0x00) and down (0xFF)."""
+    ops, run = long_carry_ops(direction, 70, 5)
+    out, lens = _scan_both_match_plain(ops, 2 * ops[0].shape[0] + 3, device)
+    fill = b"\x00\x00" if direction == "up" else b"\xff\xff"
+    assert fill * run in out[0, : int(lens[0])].cpu().numpy().tobytes()
+
+
+def test_scan_golden_carry_case(device):
+    """golden.npz's carry_p16 as micro-ops: both kernels write the
+    reference coder's bytes."""
+    gold = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                                "golden.npz"))
+    cdf = gold["carry_p16__cdf"].astype(np.int64)
+    data = gold["carry_p16__data"].astype(np.int64)
+    ops = (cdf[data][:, None], cdf[data + 1][:, None],
+           np.full((len(data), 1), 16), np.ones((len(data), 1), bool))
+    out, lens = _scan_both_match_plain(ops, 2 * len(data) + 2, device)
+    ref = gold["carry_p16__bytes"].tobytes()
+    assert out[0, : int(lens[0])].cpu().numpy().tobytes() == ref
+
+
+def test_scan_variant_follows_the_stream_count(device):
+    """encode_scan takes the warp kernel up to WARP_ENCODE_MAX_STREAMS
+    streams and the thread kernel above."""
+    edge = cuda_coder.WARP_ENCODE_MAX_STREAMS
+    rng = np.random.RandomState(14)
+    ops = as_tensors(valid_micro_ops(rng, 40, edge + 1, 0.9), device)
+    for streams, warp in ((edge, 1), (edge + 1, 0), (1, 1)):
+        part = tuple(t[:, :streams].contiguous() for t in ops)
+        before = (cuda_coder.LAUNCHES["encode_scan"],
+                  cuda_coder.LAUNCHES_WARP["encode_scan"])
+        out, lens = cuda_coder.encode_scan(*part, 82)
+        assert (cuda_coder.LAUNCHES["encode_scan"],
+                cuda_coder.LAUNCHES_WARP["encode_scan"]) == (
+                    before[0] + 1, before[1] + warp)
+        ref = (torch.empty_like(out), torch.empty_like(lens))
+        cuda_coder.encode_scan_plain(*part, *ref)
+        assert torch.equal(out, ref[0]) and torch.equal(lens, ref[1])
