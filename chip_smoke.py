@@ -26,9 +26,15 @@ Phases, one JSON line each (any failure exits non-zero):
      corrupted streams, on streams of 0, 1, 2, 3 and 1031 bytes in a buffer
      of odd width (also from a view one byte into its storage), on a table
      at precision 16 and on a stream count on either side of the wrapper's
-     dispatch constant.  K3' has two kernels, one thread and one warp per
-     stream: in every one of these cases the plain version runs once and
-     the wrapper's choice and both kernels are held against that result;
+     dispatch constant.  K1, K3' and K6' have two kernels each, one thread
+     and one warp per stream: in every one of their cases the plain version
+     runs once and the wrapper's choice and both kernels are held against
+     that result, and the wrapper's choice is logged; K1 and K6' also on
+     tests/symbol_cases.py's inputs (escapes in lane 0 and 31 of a window,
+     several in one, in the last partial window, g = 2^31 back to back,
+     streams of 0 to 400 symbols, bounded rows at precision 1 to 16) in
+     rows of even and odd width, and at a stream count on either side of
+     their dispatch constant;
      K7' (pair lookup) and K6 in its micro-op mode on what compress_device
      gives them for those y and z latents and for the y latent with 40
      planted escapes (1 x 196608 indices and 198848 x 1 micro-ops for y),
@@ -48,9 +54,10 @@ Phases, one JSON line each (any failure exits non-zero):
      K8' (bucketed single-row decode) against its plain version and against
      K5' at 32768 x 512, on every golden case and on corrupted streams;
   4. main paths, each with the launch counts reset just before it and read
-     just after: (a) bls2017 at num_filters=128 (seeded init, its own
-     tables) on a 512x512 and a 768x512 image through compress_native /
-     decompress / reconstruct / compress_native_many /
+     just after, every K1, K3' and K6' launch of (a), (b) and (d) expected
+     on the warp-per-stream kernel: (a) bls2017 at num_filters=128 (seeded
+     init, its own tables) on a 512x512 and a 768x512 image through
+     compress_native / decompress / reconstruct / compress_native_many /
      decompress_native_many; (b) the same images through the classic
      .tfci container, compress / decompress, and a latent scaled past the
      table through the entropy model's compress / decompress; (c) the coder
@@ -79,8 +86,10 @@ Phases, one JSON line each (any failure exits non-zero):
      from 1 to 65536 streams of 512 symbols (what the dispatch constant
      rests on); both kernels of the micro-op mode on compress_device's y
      and z scans beside the byte bound and the chain's floor, and from 1
-     to 65536 streams of 590 steps; K7' and its library call by events
-     around a loop and replayed from a CUDA graph.
+     to 65536 streams of 590 steps; both kernels of K6' and K1 at the
+     classic streams and the native launches beside the byte bound and the
+     chain's floor, and from 1 to 65536 streams of 512 symbols; K7' and its
+     library call by events around a loop and replayed from a CUDA graph.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.  Nothing of
@@ -120,6 +129,9 @@ LONG_STREAM = (1, 8192)
 # bmshj2018 at the reference's published width, and K7''s shape.
 BMSHJ_FILTERS = 192
 PAIR_LOOKUP_SHAPE = (512, 32768)
+# Stream counts of the dispatch sweeps (K3', the micro-op scan, K1 and K6').
+SWEEP_STREAMS = (1, 2, 32, 256, 1024, 4096, 8192, 12288, 16384, 16896, 24576,
+                 32768, 65536)
 # compress_device's default budget: 64 escapes of 2 * 16 + 3 slots each.
 ESCAPE_BUDGET = 64
 MICRO_SLOTS = 2 * 16 + 3
@@ -127,9 +139,9 @@ MICRO_SLOTS = 2 * 16 + 3
 # lies this close to a rounding boundary (the float error of the transforms
 # between two implementations reaches 1e-4).
 PIXEL_BOUNDARY = 2e-4
-# Dependent register operations a step of the warp-per-stream micro-op
-# scan takes from one size - 1 to the next in the compiled kernel
-# (scan_floor_ms).
+# Dependent register operations a step of the warp-per-stream chain (the
+# micro-op scan's, which K1's and K6''s warp kernels share) takes from one
+# size - 1 to the next in the compiled kernel (scan_floor_ms).
 SCAN_CHAIN_OPS = 6
 # (kernel name, source, TPU kernel it replaces)
 KERNELS = [
@@ -309,45 +321,56 @@ def check_decode(name, kernel, plain, args, variants=()):
     return sym_k, san_k, same, ms
 
 
-def check_scan(label, ops, out_size, fails, expect_warp=None):
-    """K6's micro-op mode on one input: the plain recurrence once, and the
-    wrapper's choice and both of its kernels (warp and thread per stream)
-    held against that result.  ``expect_warp`` (True or False) checks the
-    wrapper's choice.  Returns (bytes, lengths, identical, plain ms)."""
+def check_variants(name, args, out_size):
+    """An encoder with two kernels (K1, K6' or K6's micro-op mode:
+    ``name``) on one input: the plain version once, and the wrapper's
+    choice and both of its kernels (warp and thread per stream) held
+    against that result.  Returns (bytes, lengths, identical, plain ms,
+    "warp" or "thread": the wrapper's choice)."""
     import torch
     from compression_tpu_torch.codec import cuda_coder as cc
-    warp_before = cc.LAUNCHES_WARP["encode_scan"]
-    out_k, len_k = cc.encode_scan(*ops, out_size)
-    took_warp = cc.LAUNCHES_WARP["encode_scan"] == warp_before + 1
+    warp_before = cc.LAUNCHES_WARP[name]
+    out_k, len_k = getattr(cc, name)(*args, out_size)
+    took = "warp" if cc.LAUNCHES_WARP[name] == warp_before + 1 else "thread"
     torch.cuda.synchronize()
     out_p, len_p = torch.empty_like(out_k), torch.empty_like(len_k)
-    ms = _plain_ms(lambda: cc.encode_scan_plain(*ops, out_p, len_p))
+    ms = _plain_ms(lambda: getattr(cc, name + "_plain")(*args, out_p, len_p))
     same = True
     for run in (lambda: (out_k, len_k),
-                lambda: cc.encode_scan_warp(*ops, out_size),
-                lambda: cc.encode_scan_thread(*ops, out_size)):
+                lambda: getattr(cc, name + "_warp")(*args, out_size),
+                lambda: getattr(cc, name + "_thread")(*args, out_size)):
         out_v, len_v = run()
         torch.cuda.synchronize()
         same &= bool(torch.equal(out_v, out_p) and torch.equal(len_v, len_p))
-        MAX_ABS_ERR["encode_scan"] = max(
-            MAX_ABS_ERR["encode_scan"], _err((out_v, out_p), (len_v, len_p)))
-    if expect_warp is not None and took_warp != expect_warp:
+        MAX_ABS_ERR[name] = max(MAX_ABS_ERR[name],
+                                _err((out_v, out_p), (len_v, len_p)))
+    return out_k, len_k, same, ms, took
+
+
+def check_scan(label, ops, out_size, fails, expect_warp=None):
+    """K6's micro-op mode on one input (``check_variants``); ``expect_warp``
+    (True or False) checks the wrapper's choice.  Returns (bytes, lengths,
+    identical, plain ms)."""
+    out_k, len_k, same, ms, took = check_variants("encode_scan", ops,
+                                                  out_size)
+    if expect_warp is not None and (took == "warp") != expect_warp:
         same = False
     log("kernels", case=label, steps=int(ops[0].shape[0]),
         streams=int(ops[0].shape[1]), out_size=out_size,
-        coded=int(ops[3].sum()), wrapper_took="warp" if took_warp
-        else "thread", identical_wrapper_and_both_kernels=same)
+        coded=int(ops[3].sum()), wrapper_took=took,
+        identical_wrapper_and_both_kernels=same)
     if not same:
         fails.append(label)
     return out_k, len_k, same, ms
 
 
-def scan_cases():
-    """tests/scan_cases.py (numpy and the port only), loaded by path: the
-    random and the constructed micro-op inputs the tests use too."""
+def tests_module(name):
+    """tests/<name>.py (numpy and the port only), loaded by path: the
+    inputs the tests use too (scan_cases: random and constructed micro-ops;
+    symbol_cases: symbols for K1 and K6')."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "scan_cases", os.path.join(REPO, "tests", "scan_cases.py"))
+        name, os.path.join(REPO, "tests", f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -363,22 +386,26 @@ def gamma_variants(table):
              cc.decode_gamma_thread))
 
 
-def compare_kernels(name, table, symbols, indexes, out_size, fails):
-    """K1 and K2 against their plain versions on one input; returns the
-    kernel's (bytes, lengths)."""
+def compare_kernels(name, table, symbols, indexes, out_size, fails,
+                    expect_warp=None):
+    """K1 (the wrapper and both kernels) and K2 against their plain
+    versions on one input; ``expect_warp`` checks K1's wrapper's choice.
+    Returns K1's (bytes, lengths)."""
     from compression_tpu_torch.codec import cuda_coder as cc
     cdf, meta = table.indexed_arrays()
-    out_k, len_k, enc_ok, _ = check_encode(
-        "encode_indexed", cc.encode_indexed, cc.encode_indexed_plain,
-        (symbols, indexes, cdf, meta), out_size)
+    out_k, len_k, enc_ok, _, took = check_variants(
+        "encode_indexed", (symbols, indexes, cdf, meta), out_size)
     _, san_k, dec_ok, _ = check_decode(
         "decode_indexed", cc.decode_indexed, cc.decode_indexed_plain,
         (out_k, len_k, indexes, cdf, meta))
     log("kernels", case=name, streams=int(symbols.shape[0]),
         symbols=int(symbols.shape[1]), rows=int(cdf.shape[0]),
-        max_precision=int(meta[:, 1].max()), encode_identical=enc_ok,
-        decode_identical=dec_ok, sanity_all=bool(san_k.all()))
-    if not (enc_ok and dec_ok and bool(san_k.all())):
+        max_precision=int(meta[:, 1].max()),
+        encode_identical_wrapper_and_both_kernels=enc_ok,
+        encode_wrapper_took=took, decode_identical=dec_ok,
+        sanity_all=bool(san_k.all()))
+    if not (enc_ok and dec_ok and bool(san_k.all())) or (
+            expect_warp is not None and (took == "warp") != expect_warp):
         fails.append(name)
     return out_k, len_k
 
@@ -416,18 +443,20 @@ def compare_single_row(name, table, symbols, fails, expect=None):
     return out_k, len_k, enc_ms, dec_ms, buck_ms
 
 
-def compare_gamma(name, table, symbols, indexes, fails, round_trip=True):
-    """K6' and K3' against their plain versions; returns (bytes, lengths,
-    coded intervals, plain encode ms, plain decode ms)."""
+def compare_gamma(name, table, symbols, indexes, fails, round_trip=True,
+                  expect_warp=None):
+    """K6' and K3' against their plain versions, each by its wrapper's
+    choice and both of its kernels; ``expect_warp`` checks K6''s wrapper's
+    choice.  Returns (bytes, lengths, coded intervals, plain encode ms,
+    plain decode ms)."""
     import torch
     from compression_tpu_torch.codec import cuda_coder as cc, torch_coder
     cdf, meta = table.indexed_arrays()
     counts, escape, _, _ = cc.interval_counts(symbols, indexes, meta)
     intervals = int(counts.sum())
     out_size = torch_coder.stream_out_size(int(counts.sum(1).max()))
-    out_k, len_k, enc_ok, enc_ms = check_encode(
-        "encode_gamma", cc.encode_gamma, cc.encode_gamma_plain,
-        (symbols, indexes, cdf, meta), out_size)
+    out_k, len_k, enc_ok, enc_ms, took = check_variants(
+        "encode_gamma", (symbols, indexes, cdf, meta), out_size)
     chosen, both = gamma_variants(table)
     sym_k, san_k, dec_ok, dec_ms = check_decode(
         "decode_gamma", chosen, cc.decode_gamma_plain,
@@ -436,10 +465,12 @@ def compare_gamma(name, table, symbols, indexes, fails, round_trip=True):
     log("kernels", case=name, streams=int(symbols.shape[0]),
         symbols=int(symbols.shape[1]), rows=int(cdf.shape[0]),
         escapes=int(escape.sum()), coded_intervals=intervals,
-        encode_identical=enc_ok, decode_identical_both_variants=dec_ok,
+        encode_identical_wrapper_and_both_kernels=enc_ok,
+        encode_wrapper_took=took, decode_identical_both_variants=dec_ok,
         sanity_all=bool(san_k.all()), round_trip=exact)
     if not (enc_ok and dec_ok and exact is not False
-            and (bool(san_k.all()) or not round_trip)):
+            and (bool(san_k.all()) or not round_trip)) or (
+                expect_warp is not None and (took == "warp") != expect_warp):
         fails.append(name)
     return out_k, len_k, intervals, enc_ms, dec_ms
 
@@ -632,15 +663,15 @@ def reset_counts():
 
 
 def read_counts(keys):
-    """(launches per kernel, with those of K3' and of K6's micro-op mode
-    that took the warp-per-stream kernel under "decode_gamma/warp" and
-    "encode_scan/warp"; dispatch routes of ``keys``)."""
+    """(launches per kernel, with those of K1, K3', K6' and K6's micro-op
+    mode that took the warp-per-stream kernel under "<name>/warp"; dispatch
+    routes of ``keys``)."""
     import torch
     from compression_tpu_torch.codec import cuda_coder, torch_coder
     torch.cuda.synchronize()
     launches = dict(cuda_coder.LAUNCHES)
-    launches["decode_gamma/warp"] = cuda_coder.LAUNCHES_WARP["decode_gamma"]
-    launches["encode_scan/warp"] = cuda_coder.LAUNCHES_WARP["encode_scan"]
+    for name, count in cuda_coder.LAUNCHES_WARP.items():
+        launches[f"{name}/warp"] = count
     return launches, {k: torch_coder.DISPATCH_LOG.get(k) for k in keys}
 
 
@@ -1129,7 +1160,7 @@ def main():
     # fill run outlasts the warp kernel's window in both directions, and a
     # stream count on either side of the dispatch constant.
     mrng = np.random.RandomState(13)
-    cases = scan_cases()
+    cases = tests_module("scan_cases")
     for label, (steps, streams, share, pad) in {
             "holes": (4096, 3, 0.6, 0), "holes_odd_rows": (4096, 5, 0.9, 1),
             "sparse": (2000, 2, 0.05, 3), "windows": (97, 7, 0.5, 1),
@@ -1160,6 +1191,49 @@ def main():
                    tuple(t[:, :streams].contiguous() for t in eops),
                    2 * 64 + 2, fails, expect_warp=streams == edge)
 
+    # K1 and K6' (the wrapper and both kernels) on tests/symbol_cases.py's
+    # inputs -- escapes in lane 0 and 31, several in a window, in the last
+    # partial window, negative, g = 2^31 back to back; streams of 0 to 400
+    # symbols; bounded rows at precision 1 to 16 -- in rows of even and odd
+    # width (most odd rows start at an odd address).
+    from compression_tpu_torch.codec import tables as port_tables
+    sym_cases = tests_module("symbol_cases")
+    sym_bad = []
+    for label in sorted(sym_cases.SYMBOL_CASES):
+        ragged, s_np, i_np = sym_cases.symbol_case(label)
+        st = torch_coder.DeviceCdfTable(port_tables.parse_ragged_cdf(ragged),
+                                        device)
+        s_t = torch.as_tensor(s_np, device=device)
+        i_t = torch.as_tensor(i_np, device=device)
+        s_cdf, s_meta = st.indexed_arrays()
+        steps = int(cc.interval_counts(s_t, i_t, s_meta)[0].sum(1).max()) \
+            if s_t.numel() else 0
+        for pad in (0, 1):
+            for name, width in (("encode_gamma", 2 * steps + 2 + pad),
+                                ("encode_indexed",
+                                 2 * s_t.shape[1] + 2 + pad)):
+                _, _, same, _, took = check_variants(
+                    name, (s_t, i_t, s_cdf, s_meta), width)
+                if not same or took != "warp":
+                    sym_bad.append(f"{label}/{name}/{width}")
+    log("kernels", case="symbol_cases", cases=sorted(sym_cases.SYMBOL_CASES),
+        widths=["even", "odd"], kernels=["encode_gamma", "encode_indexed"],
+        mismatched_or_thread=sym_bad)
+    fails.extend(f"symbol_cases/{b}" for b in sym_bad)
+    # K1 and K6' at a stream count on either side of their dispatch
+    # constant: the larger launch takes the thread-per-stream kernel.
+    edge = cc.WARP_ENCODE_MAX_STREAMS
+    reps = -(-(edge + 1) // gsym_t.shape[0])
+    esym = gsym_t[:, :64].repeat(reps, 1)[: edge + 1]
+    eidx = gidx_t[:, :64].repeat(reps, 1)[: edge + 1]
+    for streams in (edge, edge + 1):
+        part = esym[:streams].contiguous(), eidx[:streams].contiguous()
+        compare_kernels(f"encode_indexed/dispatch_{streams}", gtable, *part,
+                        torch_coder.stream_out_size(64), fails,
+                        expect_warp=streams == edge)
+        compare_gamma(f"encode_gamma/dispatch_{streams}", gtable, *part,
+                      fails, expect_warp=streams == edge)
+
     # Phase 4a: the native container (PR 1's main path).
     reset_counts()
     main_ok = True
@@ -1182,7 +1256,11 @@ def main():
     native_launches, paths = read_counts(("encode", "decode_sidecar"))
     log("main_path_many", images=len(batch), containers_equal=many_ok,
         launches=native_launches, dispatch=paths)
+    # Every K1 launch of the native path (256-1024 streams) takes the
+    # warp-per-stream kernel.
     if not (main_ok and many_ok and native_launches["encode_indexed"] > 0
+            and native_launches["encode_indexed/warp"]
+            == native_launches["encode_indexed"]
             and native_launches["decode_indexed"] > 0
             and set(paths.values()) == {"cuda-indexed"}):
         fails.append("main_path")
@@ -1252,9 +1330,14 @@ def main():
         classic_decompress_calls=n_decompress, launches=classic_launches,
         dispatch=classic_paths)
     # One encode launch per classic compress (K6' when the latent has
-    # escapes, K1 when it has none) and one K3' launch per decode.
+    # escapes, K1 when it has none) and one K3' launch per decode, each
+    # one stream: the warp-per-stream kernels.
     if not (classic_ok and many_ok and wide_ok
             and classic_launches["encode_gamma"] > 0
+            and classic_launches["encode_gamma/warp"]
+            == classic_launches["encode_gamma"]
+            and classic_launches["encode_indexed/warp"]
+            == classic_launches["encode_indexed"]
             and classic_launches["encode_gamma"]
             + classic_launches["encode_indexed"] == n_compress
             and classic_launches["decode_gamma"] == n_decompress
@@ -1335,9 +1418,10 @@ def main():
         + hyper_launches["encode_gamma"],
         "decode_indexed": hyper_launches["decode_indexed"],
         "decode_gamma": hyper_launches["decode_gamma"]}
-    # Every classic stream is one stream a launch: the warp kernel's.
-    hyper_ok &= hyper_launches["decode_gamma/warp"] == \
-        hyper_launches["decode_gamma"]
+    # Every classic stream is one stream a launch, and a native launch of
+    # K1 holds 32-2048 streams: the warp kernels'.
+    for name in ("decode_gamma", "encode_gamma", "encode_indexed"):
+        hyper_ok &= hyper_launches[f"{name}/warp"] == hyper_launches[name]
     log("bmshj2018_many", images=len(batch), containers_equal=hmany_ok,
         calls=calls, launches=hyper_launches, expected=expect,
         dispatch=hyper_paths)
@@ -1649,8 +1733,7 @@ def main():
             cuda_ms(thread_call, 3))
     gamma_sweep = {}
     g_layout = gtable.warp_arrays()
-    for streams in (1, 2, 32, 256, 1024, 4096, 8192, 16384, 24576, 32768,
-                    65536):
+    for streams in SWEEP_STREAMS:
         reps = -(-streams // gbuf.shape[0])
         sb = gbuf.repeat(reps, 1)[:streams].contiguous()
         sl = glens.repeat(reps)[:streams].contiguous()
@@ -1685,8 +1768,7 @@ def main():
             "chain_floor_ms": scan_floor_ms(coded_l, clock)}
     scan_sweep = {}
     gout = gbuf.shape[1]
-    for streams in (1, 2, 32, 256, 1024, 4096, 8192, 16384, 24576, 32768,
-                    65536):
+    for streams in SWEEP_STREAMS:
         reps = -(-streams // gops[0].shape[1])
         sw_ops = tuple(t.repeat(1, reps)[:, :streams].contiguous()
                        for t in gops)
@@ -1697,6 +1779,65 @@ def main():
             "warp_ms": [r[0] for r in rounds],
             "thread_ms": [r[1] for r in rounds]}
         del sw_ops
+    # K6' and K1: both kernels at the main paths' shapes beside the byte
+    # bound and the chain's floor (the longest stream's coded steps: the
+    # streams of a launch run side by side); and as streams grow (the
+    # Gaussian regime, 512 symbols a stream), which is what the dispatch
+    # constant rests on.
+    symbol_shapes = {
+        "encode_gamma/bls2017_y": (csym, cidx, table, cbuf.shape[1]),
+        # The classic compress of a latent without escapes takes K1.
+        "encode_indexed/bls2017_y": (csym, cidx, table, cbuf.shape[1]),
+        "encode_gamma/bmshj2018_y": (ysym.contiguous(), yidx1.contiguous(),
+                                     ytable, ybuf1.shape[1]),
+        "encode_gamma/bmshj2018_z": (zsym1.contiguous(), zidx1, htable,
+                                     zbuf1.shape[1])}
+    for img_name, (n_sym, n_idx, n_out, _, _) in main_inputs.items():
+        symbol_shapes[f"encode_indexed/bls2017_native_{img_name}"] = (
+            n_sym, n_idx, table, n_out)
+    symbol_shapes["encode_indexed/bmshj2018_y_native"] = (
+        ysym_n.contiguous(), yidx_n.contiguous(), ytable,
+        torch_coder.stream_out_size(ysym_n.shape[1]))
+    symbol_ms = {}
+    for label, (s_sym, s_idx, s_tab, width) in symbol_shapes.items():
+        name = label.split("/")[0]
+        s_cdf, s_meta = s_tab.indexed_arrays()
+        s_counts = cc.interval_counts(s_sym, s_idx, s_meta)[0]
+        if name == "encode_indexed":
+            s_counts = torch.ones_like(s_counts)
+        warp_call = lambda: getattr(cc, name + "_warp")(
+            s_sym, s_idx, s_cdf, s_meta, width)
+        thread_call = lambda: getattr(cc, name + "_thread")(
+            s_sym, s_idx, s_cdf, s_meta, width)
+        iters = 5 if s_sym.shape[0] == 1 else 20
+        rounds = [(cuda_ms(warp_call, iters), cuda_ms(thread_call, iters))
+                  for _ in range(2)]
+        symbol_ms[at(label, s_sym)] = {
+            "warp_ms": [r[0] for r in rounds],
+            "thread_ms": [r[1] for r in rounds],
+            "coded_steps": int(s_counts.sum()),
+            "bound_ms": encode_bound(*s_sym.shape, s_cdf, s_meta, width,
+                                     intervals=int(s_counts.sum()))[0],
+            "chain_floor_ms": scan_floor_ms(int(s_counts.sum(1).max()),
+                                            clock)}
+    symbol_sweep = {}
+    for streams in SWEEP_STREAMS:
+        reps = -(-streams // gsym_t.shape[0])
+        sw_sym = gsym_t.repeat(reps, 1)[:streams].contiguous()
+        sw_idx = gidx_t.repeat(reps, 1)[:streams].contiguous()
+        row = {}
+        for name, width in (("encode_gamma", gbuf.shape[1]),
+                            ("encode_indexed",
+                             torch_coder.stream_out_size(sw_sym.shape[1]))):
+            rounds = [(cuda_ms(lambda: getattr(cc, name + "_warp")(
+                sw_sym, sw_idx, gcdf, gmeta, width), 10),
+                       cuda_ms(lambda: getattr(cc, name + "_thread")(
+                           sw_sym, sw_idx, gcdf, gmeta, width), 10))
+                      for _ in range(2)]
+            row[name] = {"warp_ms": [r[0] for r in rounds],
+                         "thread_ms": [r[1] for r in rounds]}
+        symbol_sweep[f"{streams}x{sw_sym.shape[1]}"] = row
+        del sw_sym, sw_idx
     plain_ms = {
         "encode_indexed": cuda_ms(lambda: cc.encode_indexed_plain(
             symbols, idx, cdf, meta, out_p, len_p), 3),
@@ -1846,6 +1987,8 @@ def main():
         warp_decode_max_streams=cc.WARP_DECODE_MAX_STREAMS,
         encode_scan_variants_ms=scan_ms, encode_scan_streams_ms=scan_sweep,
         warp_encode_max_streams=cc.WARP_ENCODE_MAX_STREAMS,
+        encode_symbols_variants_ms=symbol_ms,
+        encode_symbols_streams_ms=symbol_sweep,
         sm_clock_mhz=clock, end_to_end=e2e_ms, card=smi)
 
     launches = {k: native_launches[k] + classic_launches[k]

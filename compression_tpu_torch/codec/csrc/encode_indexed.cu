@@ -1,6 +1,6 @@
-// Range encode, one thread per coder stream: four kernels over one copy of
-// the RangeEncoder recurrence (three from one template, one that reads
-// precomputed intervals).
+// Range encode: four functions over one copy of the RangeEncoder recurrence,
+// each run one thread per coder stream, and three of them also one warp per
+// stream for launches of few streams.
 //
 //   ctpu_encode_indexed     (K1)  replaces compression_tpu/codec/pallas_coder.py:
 //       encode_indexed_device -> _encode_indexed_call (with the fused
@@ -21,8 +21,8 @@
 //       top one down, then the sign; g = -v for v < 0 and v - (len-2) + 1
 //       above the range, in uint32.  The TPU expands every symbol into
 //       micro-ops first because a TPU lane cannot run a loop of its own
-//       length; a thread can, so the kernel reads symbols and indexes
-//       directly and needs no micro-op arrays.
+//       length; a thread can, so the kernels read symbols and indexes
+//       directly and need no micro-op arrays.
 //   ctpu_encode_scan        (K6, micro-op mode) is pallas_coder.py:
 //       encode_scan_pallas as the JAX package calls it: it reads the
 //       precomputed micro-ops (lower, upper, precision as uint32, mask as
@@ -33,8 +33,9 @@
 //       returns per-step records and the final state for a post-pass
 //       (jax_coder._encode_postpass), this one writes the stream's bytes and
 //       length itself, like the other three.
-//   ctpu_encode_scan_warp   (K6, micro-op mode, one warp per stream) the same
-//       function as ctpu_encode_scan for launches of few streams; see below.
+//   ctpu_encode_indexed_warp, ctpu_encode_gamma_warp, ctpu_encode_scan_warp
+//       the same functions as K1, K6' and the micro-op mode, one warp per
+//       stream; see below.
 //
 // Output is the byte stream of the reference RangeEncoder
 // (compression_tpu/native/range_coder.cc, copied below, not included) with
@@ -44,42 +45,54 @@
 // stream (two 64-bit multiplies, a handful of compares and a table read per
 // coded interval), so a launch takes about N times the latency of one step
 // and the card is busy only when there are many thousands of streams.  The
-// classic .tfci container codes a whole image as one stream, so K6' then
-// runs on one thread.  The bytes they move (8 B in and ~2 B out per symbol)
-// are far below the memory rate.
+// classic .tfci container codes a whole image as one stream.  The bytes
+// they move (8 B in and ~2 B out per symbol) are far below the memory rate.
 //
-// What the design does about it: state (base, size-1, delayed carry) lives
-// in registers; the CDF table and the per-row metadata are staged once per
-// block in shared memory (when they fit, else read through L1 from global),
-// so the only global traffic in the loop is the symbol/index read and the
-// byte write of the thread's own output row.  Because each thread owns its
-// output row, the delayed-carry runs are written in place, and the TPU
-// kernels' record buffer and reserve/resolve/compact post-pass disappear.
-// Small launches use 32-thread blocks to spread streams over more SMs.
+// Thread per stream (many streams): state (base, size-1, delayed carry)
+// lives in registers; the CDF table and the per-row metadata are staged once
+// per block in shared memory (when they fit, else read through L1 from
+// global), so the only global traffic in the loop is the symbol/index read
+// and the byte write of the thread's own output row.  Because each thread
+// owns its output row, the delayed-carry runs are written in place, and the
+// TPU kernels' record buffer and reserve/resolve/compact post-pass
+// disappear; the thread zeroes its row's tail with 16-byte stores.  Small
+// launches use 32-thread blocks to spread streams over more SMs.
 //
-// Warp per stream (the micro-op scan at few streams: compress_device codes
-// each latent as one stream of ~200k steps, which a thread per stream leaves
-// on a single lane of the card, at ~360 clocks a step).  The 32 lanes cannot
-// split the serial chain, so they carry it together and take everything
-// else off it.  One warp alone on its scheduler issues in program order:
-// what decides its time is the chain's dependent latencies, every
-// instruction that waits on a load or shuffle in front of the chain, every
-// taken branch, and the plain instruction count.
+// Warp per stream (few streams: a classic container's one stream of a
+// whole latent, ~200k coded steps, or the native container's 256-512
+// streams, would leave a thread per stream on a lane or a few warps of the
+// card, at ~360 clocks a step).  The 32 lanes cannot split the serial
+// chain, so they carry it together and take everything else off it.  One
+// warp alone on its scheduler issues in program order: what decides its
+// time is the chain's dependent latencies, every instruction that waits on
+// a load or shuffle in front of the chain, every taken branch, and the
+// plain instruction count.
 //   - Every lane carries the state (base, size - 1, the deferred chunk and
 //     its fill count) in registers; every branch is uniform.
 //   - The chain of a step is 32-bit: size * c is one wide multiply-add,
 //     (size - 1) * c + c < 2^48, and the interval's ends are its bits 16-47
-//     (one funnel shift), because the micro-op is pre-scaled to precision 16:
-//     c << (16 - precision) over 2^16 is c over 2^precision exactly.  The
-//     carry out of 2^32 is that of a 32-bit add.  Exact on every coded step
-//     whose interval is valid (0 <= lower < upper <= 2^precision, as every
-//     CDF and Elias-gamma micro-op is); ctpu_encode_scan takes any input.
-//   - Operands come a window of 32 steps at a time: lane l loads step
-//     32 w + l of the four arrays two windows ahead and packs it one window
-//     ahead (lower' | (upper' - 1) << 16 after the scaling); a ballot of the
-//     mask and a search over its population counts hand lane i the i-th
-//     coded step, so masked steps cost the chain nothing.  A step's packed
-//     operands reach every lane by one shuffle, issued a step ahead.
+//     (one funnel shift), because the operands are pre-scaled to precision
+//     16: c << (16 - precision) over 2^16 is c over 2^precision exactly.
+//     The carry out of 2^32 is that of a 32-bit add.  Exact on every coded
+//     step whose interval is valid (0 <= lower < upper <= 2^precision, as
+//     every CDF and Elias-gamma step is); ctpu_encode_scan takes any input.
+//   - Operands come a window of 32 steps at a time and are packed a window
+//     ahead (lower' | (upper' - 1) << 16 after the scaling); a step's
+//     packed operands reach every lane by one shuffle, issued a step ahead.
+//     The micro-op scan loads step 32 w + l of the four arrays into lane l
+//     two windows ahead; a ballot of the mask and a search over its
+//     population counts hand lane i the i-th coded step, so masked steps
+//     cost the chain nothing.  The symbol encoders load symbol 32 w + l and
+//     its index four windows ahead (coalesced: a stream's symbols are
+//     contiguous), the row's metadata three windows ahead and the CDF pair
+//     two ahead, so none of the three dependent loads of a symbol waits in
+//     front of the chain; the table sits in shared memory where it fits
+//     (bls2017's 128 x 129), else its reads go through L1 (bmshj2018's 64 x
+//     1481).  A window without an escape is exactly the scan's full window;
+//     one with escapes (a ballot of the lanes' flags) or the stream's last,
+//     partial window takes a path of its own, which codes symbol by symbol
+//     and expands an escape in place into its 2 nbits + 2 precision-1
+//     steps.
 //   - A step is predicated throughout: the delayed-carry state (the
 //     interval straddled 2^32 before the step) goes on or resolves by
 //     selects, and only a resolved group with a fill run leaves the step's
@@ -92,7 +105,12 @@
 //     fill pair), held chunk j sits in lane j % 32, and 32 chunks are
 //     stored as 64 bytes at once (byte by byte where the row starts at an
 //     odd address).  The window store and Finalize are functions of their
-//     own too; the warp zeroes the row's tail with 16-byte stores.
+//     own too; the warp zeroes the row's tail with 16-byte stores.  K6''s
+//     warp counts the coded steps of each window as it packs them (a
+//     reduction over the lanes) and stops before a window that could take
+//     the stream past its row, so a row too short for the stream (the
+//     wrappers size rows for the whole stream) cuts it and is never
+//     written past.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC encode_indexed.cu -o encode_indexed.so
@@ -193,6 +211,42 @@ struct Encoder {
   }
 };
 
+// Copies the table (cdf, then meta) into shared memory, 16 bytes a load
+// where cdf starts 16-byte aligned; all of the block's threads take part.
+__device__ void stage_table(const int32_t* __restrict__ cdf,
+                            const int32_t* __restrict__ meta, int n_cdf,
+                            int n_meta, int32_t* smem) {
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(cdf) & 15) == 0) {
+    const int quads = n_cdf / 4;
+    const int4* src = reinterpret_cast<const int4*>(cdf);
+    int4* dst = reinterpret_cast<int4*>(smem);
+    for (int i = threadIdx.x; i < quads; i += blockDim.x) dst[i] = src[i];
+    head = 4 * quads;
+  }
+  for (int i = head + threadIdx.x; i < n_cdf; i += blockDim.x)
+    smem[i] = cdf[i];
+  for (int i = threadIdx.x; i < n_meta; i += blockDim.x)
+    smem[n_cdf + i] = meta[i];
+  __syncthreads();
+}
+
+// One thread zeroes row[from, size): bytes up to a 16-byte boundary, 16-byte
+// stores, bytes after the last boundary.
+__device__ void zero_tail(uint8_t* row, int64_t from, int64_t size) {
+  uint8_t* p = row + from;
+  uint8_t* end = row + size;
+  if (p >= end) return;
+  uint8_t* mid = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 15) & ~static_cast<uintptr_t>(15));
+  if (mid > end) mid = end;
+  for (; p < mid; ++p) *p = 0;
+  uint4* v = reinterpret_cast<uint4*>(mid);
+  const int64_t vecs = (end - mid) / 16;
+  for (int64_t i = 0; i < vecs; ++i) v[i] = make_uint4(0, 0, 0, 0);
+  for (p = mid + 16 * vecs; p < end; ++p) *p = 0;
+}
+
 template <int kMode>
 __global__ void encode_kernel(
     const int32_t* __restrict__ symbols, const int32_t* __restrict__ indexes,
@@ -201,17 +255,13 @@ __global__ void encode_kernel(
     int num_rows, int max_len, bool use_shared,
     uint8_t* __restrict__ out, int64_t out_size,
     int32_t* __restrict__ lengths) {
-  extern __shared__ int32_t smem[];
+  extern __shared__ __align__(16) int32_t smem[];
   const int32_t* tab = cdf;
   const int32_t* mt = meta;
   if (use_shared) {
-    const int n_cdf = num_rows * max_len;
-    for (int i = threadIdx.x; i < n_cdf; i += blockDim.x) smem[i] = cdf[i];
-    for (int i = threadIdx.x; i < kMetaCols * num_rows; i += blockDim.x)
-      smem[n_cdf + i] = meta[i];
-    __syncthreads();
+    stage_table(cdf, meta, num_rows * max_len, kMetaCols * num_rows, smem);
     tab = smem;
-    mt = smem + n_cdf;
+    mt = smem + num_rows * max_len;
   }
   const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= num_streams) return;
@@ -250,7 +300,7 @@ __global__ void encode_kernel(
   enc.finalize();
   // The wrappers size out_size for the most a stream can emit (two bytes
   // per coded interval plus two), so enc.len never exceeds the row.
-  for (int64_t p = enc.len; p < out_size; ++p) enc.out[p] = 0;
+  zero_tail(enc.out, enc.len, out_size);
   lengths[s] = static_cast<int32_t>(enc.len);
 }
 
@@ -269,12 +319,12 @@ __global__ void encode_scan_kernel(
     if (mask[p]) enc.encode(lower[p], upper[p], static_cast<int>(prec[p]));
   }
   enc.finalize();
-  for (int64_t p = enc.len; p < out_size; ++p) enc.out[p] = 0;
+  zero_tail(enc.out, enc.len, out_size);
   lengths[s] = static_cast<int32_t>(enc.len);
 }
 
 // ---------------------------------------------------------------------------
-// K6 micro-op mode, one warp per stream.
+// One warp per stream: the chain (K6 micro-op mode, K6', K1).
 // ---------------------------------------------------------------------------
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kScanWarps = 4;  // streams (one warp each) per block
@@ -392,6 +442,16 @@ __device__ __forceinline__ void scan_step(ScanState& e, uint32_t op,
   e.sm1 = ss;
 }
 
+// The output row of the warp of stream s.
+__device__ __forceinline__ ScanOut scan_out(uint8_t* out, int64_t s,
+                                            int64_t out_size, int lane) {
+  ScanOut o;
+  o.row = out + s * out_size;
+  o.lane = lane;
+  o.even = (reinterpret_cast<uintptr_t>(o.row) & 1) == 0;
+  return o;
+}
+
 // RangeEncoder::Finalize, the held chunks, the tail's zeros and the length.
 __device__ __noinline__ void scan_finish(ScanState e, ScanOut o,
                                          int64_t out_size, int32_t* length) {
@@ -439,6 +499,26 @@ __device__ __noinline__ void scan_finish(ScanState e, ScanOut o,
   if (o.lane < end - rest) rest[o.lane] = 0;
 }
 
+// A full window: the 32 steps whose packed operands lanes 0-31 hold in
+// ``ops``, in two straight runs of 16, drained after each.  ``op_a`` is
+// lane 0's, shuffled by the caller before it branched.
+__device__ __forceinline__ void scan_window32(ScanState& e, uint32_t ops,
+                                              uint32_t op_a,
+                                              const ScanOut& o) {
+  for (int h = 0; h < 32; h += 16) {
+#pragma unroll
+    for (int i = h; i < h + 16; i += 2) {
+      // Two operand registers that swap roles: the shuffle of the next
+      // step goes out before the chain of this one.
+      const uint32_t op_b = __shfl_sync(kFullMask, ops, i + 1);
+      scan_step(e, op_a, o);
+      op_a = __shfl_sync(kFullMask, ops, i + 2);
+      scan_step(e, op_b, o);
+    }
+    drain(e, o);
+  }
+}
+
 // One window's worth of a stream's micro-ops, one step a lane, as loaded.
 struct ScanLoads {
   uint32_t lower, upper, prec;
@@ -455,10 +535,7 @@ encode_scan_warp_kernel(
   const int64_t s =
       static_cast<int64_t>(blockIdx.x) * kScanWarps + (threadIdx.x >> 5);
   if (s >= num_streams) return;
-  ScanOut o;
-  o.row = out + s * out_size;
-  o.lane = lane;
-  o.even = (reinterpret_cast<uintptr_t>(o.row) & 1) == 0;
+  const ScanOut o = scan_out(out, s, out_size, lane);
   ScanState e = {0u, 0xFFFFFFFFu, 0u, 0u, 0, 0u, 0u, 0};
 
   // Lane l's step of window w.
@@ -499,20 +576,9 @@ encode_scan_warp_kernel(
     pack(raw, ops_next, bits_next);  // window w + 1, loaded a window ago
     load(w + 2, raw);
     const int n = __popc(bits);
-    // Two operand registers that swap roles: the shuffle of the next step
-    // goes out before the chain of this one.
     uint32_t op_a = __shfl_sync(kFullMask, ops, 0);
     if (n == 32) {
-      for (int h = 0; h < 32; h += 16) {
-#pragma unroll
-        for (int i = h; i < h + 16; i += 2) {
-          const uint32_t op_b = __shfl_sync(kFullMask, ops, i + 1);
-          scan_step(e, op_a, o);
-          op_a = __shfl_sync(kFullMask, ops, i + 2);
-          scan_step(e, op_b, o);
-        }
-        drain(e, o);
-      }
+      scan_window32(e, ops, op_a, o);
     } else {
 #pragma unroll 1
       for (int i = 0; i < n; i += 2) {
@@ -531,7 +597,192 @@ encode_scan_warp_kernel(
   scan_finish(e, o, out_size, lengths + s);
 }
 
+// The operands of a precision-1 step coding ``bit``: scan_op(bit, bit + 1, 1).
+__device__ __forceinline__ uint32_t bit_op(uint32_t bit) {
+  return bit ? 0xFFFF8000u : 0x7FFF0000u;
+}
+
+// OverflowEncode of an escape with Elias-gamma magnitude g >= 1 and sign
+// ``neg``: 2 nbits + 2 steps at precision 1 (nbits zeros, the nbits + 1
+// bits of g from the top one down, the sign), drained after every two.  At
+// most 64 steps (g <= 2^31).
+__device__ __noinline__ ScanState gamma_steps(ScanState e, uint32_t g,
+                                              uint32_t neg, ScanOut o) {
+  const int nbits = 31 - __clz(g);
+  auto bit = [&](int k) -> uint32_t {
+    return k < nbits ? 0u : (k <= 2 * nbits ? (g >> (2 * nbits - k)) & 1u
+                                            : neg);
+  };
+#pragma unroll 1
+  for (int k = 0; k <= 2 * nbits; k += 2) {
+    scan_step(e, bit_op(bit(k)), o);
+    scan_step(e, bit_op(bit(k + 1)), o);
+    drain(e, o);
+  }
+  return e;
+}
+
+// A window that is not a full run of 32 plain steps: its first ``nsym``
+// symbols one at a time (``op_a`` lane 0's operands, as scan_window32's),
+// each escape (bit i of ``esc``) followed in place by its Elias-gamma steps
+// (lane i's ``gs``, bit i of ``neg``); drained after every symbol, so at
+// most 2 + 4 chunks come between two drains.
+__device__ __noinline__ ScanState symbol_window(ScanState e, uint32_t ops,
+                                                uint32_t op_a, uint32_t gs,
+                                                uint32_t esc, uint32_t neg,
+                                                int nsym, ScanOut o) {
+#pragma unroll 1
+  for (int i = 0; i < nsym; ++i) {
+    const uint32_t op_b = __shfl_sync(kFullMask, ops, i + 1);
+    const uint32_t g = __shfl_sync(kFullMask, gs, i);
+    scan_step(e, op_a, o);
+    if ((esc >> i) & 1u) e = gamma_steps(e, g, (neg >> i) & 1u, o);
+    drain(e, o);
+    op_a = op_b;
+  }
+  return e;
+}
+
+// A window of a stream's symbols on its way from the loads to packed
+// operands, lane l holding symbol 32 w + l: the symbol and its index, then
+// the row's metadata, then the CDF pair.
+struct SymLoads {
+  int32_t v, row, maxs, prec, ovf;
+  uint32_t c0, c1;
+};
+
+// A window's packed operands (``op``, lane l's symbol's), its escapes'
+// Elias-gamma magnitudes (``g``, lane l's), and the window's escapes and
+// negative values as ballots.
+struct SymOps {
+  uint32_t op, g, esc, neg;
+};
+
+// K1 (kIndexed) and K6' (kGamma), one warp per stream: encode_kernel's
+// function, on the chain above.  The table is staged by the block as in
+// encode_kernel.
 template <int kMode>
+__global__ void __launch_bounds__(32 * kScanWarps)
+encode_symbols_warp_kernel(
+    const int32_t* __restrict__ symbols, const int32_t* __restrict__ indexes,
+    int64_t num_streams, int64_t num_elements,
+    const int32_t* __restrict__ cdf, const int32_t* __restrict__ meta,
+    int num_rows, int max_len, bool use_shared,
+    uint8_t* __restrict__ out, int64_t out_size,
+    int32_t* __restrict__ lengths) {
+  extern __shared__ __align__(16) int32_t smem[];
+  const int32_t* tab = cdf;
+  const int32_t* mt = meta;
+  if (use_shared) {
+    stage_table(cdf, meta, num_rows * max_len, kMetaCols * num_rows, smem);
+    tab = smem;
+    mt = smem + num_rows * max_len;
+  }
+  const int lane = threadIdx.x & 31;
+  const int64_t s =
+      static_cast<int64_t>(blockIdx.x) * kScanWarps + (threadIdx.x >> 5);
+  if (s >= num_streams) return;
+  const ScanOut o = scan_out(out, s, out_size, lane);
+  ScanState e = {0u, 0xFFFFFFFFu, 0u, 0u, 0, 0u, 0u, 0};
+  const int64_t n = num_elements;
+  const int32_t* vrow = symbols + s * n;
+  const int32_t* irow = indexes + s * n;
+
+  // The stages, each a window ahead of the next.  Lanes past the stream's
+  // end read row 0 and code nothing.
+  auto load_symbols = [&](int64_t w, SymLoads& a) {
+    const int64_t j = 32 * w + lane;
+    a.v = 0;
+    a.row = 0;
+    if (j < n) {
+      a.v = vrow[j];
+      a.row = irow[j];
+    }
+  };
+  auto load_meta = [&](SymLoads& a) {
+    a.row = a.row < 0 ? 0 : (a.row >= num_rows ? num_rows - 1 : a.row);
+    const int32_t* m = mt + kMetaCols * a.row;
+    a.maxs = m[0];
+    a.prec = m[1];
+    a.ovf = m[2];
+  };
+  auto load_pair = [&](SymLoads& a) {
+    // Escape map: marker on overflow rows, clip on bounded rows.
+    const int32_t vq =
+        a.v < 0 ? (a.ovf ? a.maxs : 0) : (a.v < a.maxs ? a.v : a.maxs);
+    const int32_t* c = tab + static_cast<int64_t>(a.row) * max_len + vq;
+    a.c0 = static_cast<uint32_t>(c[0]);
+    a.c1 = static_cast<uint32_t>(c[1]);
+  };
+  auto pack = [&](int64_t w, const SymLoads& a, SymOps& q) {
+    const uint32_t sh = 16u - static_cast<uint32_t>(a.prec);
+    q.op = ((a.c0 << sh) & 0xFFFFu) | (((a.c1 << sh) - 1u) << 16);
+    q.g = q.esc = q.neg = 0u;
+    if (kMode == kGamma) {
+      q.esc = __ballot_sync(kFullMask, lane < n - 32 * w && a.ovf &&
+                                           (a.v < 0 || a.v >= a.maxs));
+      q.neg = __ballot_sync(kFullMask, a.v < 0);
+      q.g = a.v < 0 ? 0u - static_cast<uint32_t>(a.v)
+                    : static_cast<uint32_t>(a.v) -
+                          static_cast<uint32_t>(a.maxs) + 1u;
+    }
+  };
+
+  // Window 0 packed, 1 with its pair, 2 with its metadata, 3 loaded.
+  SymLoads a1, a2, a3;
+  SymOps cur;
+  load_symbols(0, a1);
+  load_meta(a1);
+  load_pair(a1);
+  pack(0, a1, cur);
+  load_symbols(1, a1);
+  load_meta(a1);
+  load_pair(a1);
+  load_symbols(2, a2);
+  load_meta(a2);
+  load_symbols(3, a3);
+  // A row of out_size bytes holds the bytes of (out_size - 2) / 2 coded
+  // steps for certain (each emits at most two, Finalize two more).  The
+  // wrappers give K1 and K6' a row for the stream's n symbols at least; so
+  // K6' counts its escapes' Elias-gamma steps, window by window, and does
+  // not code a window after which n plus those steps could pass that
+  // point.  (The wrappers size rows for the whole stream.)
+  int64_t extra = 0;
+  bool cut = false;
+  for (int64_t w = 0; 32 * w < n; ++w) {
+    SymOps next;
+    pack(w + 1, a1, next);  // each stage uses loads a window old
+    a1 = a2;
+    load_pair(a1);
+    a2 = a3;
+    load_meta(a2);
+    load_symbols(w + 4, a3);
+    const int64_t left = n - 32 * w;
+    const uint32_t op_a = __shfl_sync(kFullMask, cur.op, 0);
+    if (left >= 32 && cur.esc == 0u) {
+      scan_window32(e, cur.op, op_a, o);
+    } else {
+      if (kMode == kGamma && cur.esc != 0u) {
+        extra += __reduce_add_sync(
+            kFullMask, (cur.esc >> lane) & 1u ? 2u * (31u - __clz(cur.g)) + 2u
+                                              : 0u);
+        if (2 * (n + extra) + 2 > out_size) {
+          cut = true;
+          break;
+        }
+      }
+      e = symbol_window(e, cur.op, op_a, cur.g, cur.esc, cur.neg,
+                        left < 32 ? static_cast<int>(left) : 32, o);
+    }
+    cur = next;
+  }
+  scan_finish(e, o, out_size, lengths + s);
+  // A cut stream reports a length past its row, as the thread kernel's
+  // does.
+  if (cut && lane == 0) lengths[s] = static_cast<int32_t>(out_size + 1);
+}
+
+template <int kMode, bool kWarp>
 int launch(const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
            int64_t num_elements, const int32_t* cdf, const int32_t* meta,
            int num_rows, int max_len, uint8_t* out, int64_t out_size,
@@ -541,17 +792,27 @@ int launch(const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
                          static_cast<size_t>(kMetaCols) * num_rows);
   const bool use_shared = table_bytes <= 200 * 1024;
   const size_t smem = use_shared ? table_bytes : 0;
+  decltype(&encode_kernel<kMode>) kernel;
+  if constexpr (kWarp) {
+    kernel = encode_symbols_warp_kernel<kMode>;
+  } else {
+    kernel = encode_kernel<kMode>;
+  }
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        encode_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int threads = num_streams >= 128 * 132 ? 128 : 32;
-  const int64_t blocks = (num_streams + threads - 1) / threads;
+  // A warp per stream, kScanWarps streams a block; or a thread per stream,
+  // in 32-thread blocks while that spreads the launch over more SMs.
+  const int per_block =
+      kWarp ? kScanWarps : (num_streams >= 128 * 132 ? 128 : 32);
+  const int threads = kWarp ? 32 * kScanWarps : per_block;
+  const int64_t blocks = (num_streams + per_block - 1) / per_block;
   if (blocks > 0) {
-    encode_kernel<kMode><<<static_cast<unsigned>(blocks), threads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<static_cast<unsigned>(blocks), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
         symbols, indexes, num_streams, num_elements, cdf, meta, num_rows,
         max_len, use_shared, out, out_size, lengths);
   }
@@ -565,9 +826,20 @@ extern "C" int ctpu_encode_indexed(
     int64_t num_elements, const int32_t* cdf, const int32_t* meta,
     int num_rows, int max_len, uint8_t* out, int64_t out_size,
     int32_t* lengths, void* stream) {
-  return launch<kIndexed>(symbols, indexes, num_streams, num_elements, cdf,
-                          meta, num_rows, max_len, out, out_size, lengths,
-                          stream);
+  return launch<kIndexed, false>(symbols, indexes, num_streams, num_elements,
+                                 cdf, meta, num_rows, max_len, out, out_size,
+                                 lengths, stream);
+}
+
+// As ctpu_encode_indexed, one warp per stream; row precision 1 ... 16.
+extern "C" int ctpu_encode_indexed_warp(
+    const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
+    int64_t num_elements, const int32_t* cdf, const int32_t* meta,
+    int num_rows, int max_len, uint8_t* out, int64_t out_size,
+    int32_t* lengths, void* stream) {
+  return launch<kIndexed, true>(symbols, indexes, num_streams, num_elements,
+                                cdf, meta, num_rows, max_len, out, out_size,
+                                lengths, stream);
 }
 
 // cdf / meta hold the one row: int32 [1, max_len] and [1, 3].
@@ -575,8 +847,9 @@ extern "C" int ctpu_encode_single_row(
     const int32_t* symbols, int64_t num_streams, int64_t num_elements,
     const int32_t* cdf, const int32_t* meta, int max_len, uint8_t* out,
     int64_t out_size, int32_t* lengths, void* stream) {
-  return launch<kSingleRow>(symbols, nullptr, num_streams, num_elements, cdf,
-                            meta, 1, max_len, out, out_size, lengths, stream);
+  return launch<kSingleRow, false>(symbols, nullptr, num_streams,
+                                   num_elements, cdf, meta, 1, max_len, out,
+                                   out_size, lengths, stream);
 }
 
 extern "C" int ctpu_encode_gamma(
@@ -584,9 +857,20 @@ extern "C" int ctpu_encode_gamma(
     int64_t num_elements, const int32_t* cdf, const int32_t* meta,
     int num_rows, int max_len, uint8_t* out, int64_t out_size,
     int32_t* lengths, void* stream) {
-  return launch<kGamma>(symbols, indexes, num_streams, num_elements, cdf,
-                        meta, num_rows, max_len, out, out_size, lengths,
-                        stream);
+  return launch<kGamma, false>(symbols, indexes, num_streams, num_elements,
+                               cdf, meta, num_rows, max_len, out, out_size,
+                               lengths, stream);
+}
+
+// As ctpu_encode_gamma, one warp per stream; row precision 1 ... 16.
+extern "C" int ctpu_encode_gamma_warp(
+    const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
+    int64_t num_elements, const int32_t* cdf, const int32_t* meta,
+    int num_rows, int max_len, uint8_t* out, int64_t out_size,
+    int32_t* lengths, void* stream) {
+  return launch<kGamma, true>(symbols, indexes, num_streams, num_elements,
+                              cdf, meta, num_rows, max_len, out, out_size,
+                              lengths, stream);
 }
 
 // lower, upper, prec: uint32 [num_steps, num_streams]; mask: uint8 of the

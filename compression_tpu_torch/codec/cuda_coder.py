@@ -3,12 +3,19 @@ PyTorch versions (counterpart of compression_tpu/codec/pallas_coder.py).
 
 Nine kernels from three sources in ``csrc/``; the coders run one thread per
 coder stream over one copy of the encoder recurrence and one of the
-decoder's (the in-stream-gamma decode also one warp per stream, see
-below), the pair lookup four elements per thread:
+decoder's (the in-stream-gamma decode, the micro-op scan and the two symbol
+encoders K1 and K6' also one warp per stream, see below), the pair lookup
+four elements per thread:
 
 * ``encode_indexed`` (K1) replaces ``pallas_coder.encode_indexed_device``
   with its fused chunk post-pass: a CDF row per element, escapes coded as
-  the bare marker (the native container's sidecar format).
+  the bare marker (the native container's sidecar format).  Like K3' it
+  has two kernels, picked by the stream count alone: launches of at most
+  ``WARP_ENCODE_MAX_STREAMS`` streams take the warp-per-stream kernel,
+  which runs the micro-op scan's chain on the symbols' CDF intervals,
+  larger ones the thread-per-stream kernel.  ``encode_indexed_warp`` /
+  ``encode_indexed_thread`` run one variant whatever the shape;
+  ``encode_indexed_warp_plain`` mirrors the warp kernel on the CPU.
 * ``decode_indexed`` (K2) replaces
   ``pallas_coder.decode_indexed_pallas(in_stream_gamma=False)``.
 * ``encode_single_row`` (K4') replaces
@@ -17,7 +24,9 @@ below), the pair lookup four elements per thread:
 * ``encode_gamma`` (K6') replaces ``pallas_coder.encode_scan_pallas`` over
   the micro-ops of ``jax_coder.micro_ops_from_symbols``: escapes followed
   in the stream by their Elias-gamma magnitude and sign (the reference
-  .tfci format).
+  .tfci format).  Two kernels, as K1's (``encode_gamma_warp`` /
+  ``encode_gamma_thread``; ``encode_gamma_warp_plain`` on the CPU): the
+  warp kernel expands an escape in place into its precision-1 steps.
 * ``decode_gamma`` (K3') replaces
   ``pallas_coder.decode_indexed_pallas(in_stream_gamma=True)``.  It has two
   kernels for the one function.  A coder stream is a serial chain, so a
@@ -56,9 +65,8 @@ and then runs the plain version when the tensors lie on the CPU, or
 launches the kernel on the current CUDA stream (and adds one to
 ``LAUNCHES[name]``) when they lie on a CUDA device.  There is no fallback
 between the two: a CUDA tensor reaches the kernel or an exception.
-``LAUNCHES_WARP["decode_gamma"]`` and ``LAUNCHES_WARP["encode_scan"]`` count
-those of K3''s and K6''s micro-op launches that took the warp-per-stream
-kernel.
+``LAUNCHES_WARP[name]`` counts those of the launches of K1, K3', K6' and
+K6's micro-op mode that took the warp-per-stream kernel.
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use (or by
 ``build()``), one process per source started together, into the package's
@@ -94,10 +102,14 @@ __all__ = [
     "LAUNCHES",
     "build",
     "encode_indexed",
+    "encode_indexed_warp",
+    "encode_indexed_thread",
     "decode_indexed",
     "encode_single_row",
     "decode_single_row",
     "encode_gamma",
+    "encode_gamma_warp",
+    "encode_gamma_thread",
     "decode_gamma",
     "decode_gamma_warp",
     "decode_gamma_thread",
@@ -107,10 +119,12 @@ __all__ = [
     "pair_lookup",
     "decode_single_row_bucketed",
     "encode_indexed_plain",
+    "encode_indexed_warp_plain",
     "decode_indexed_plain",
     "encode_single_row_plain",
     "decode_single_row_plain",
     "encode_gamma_plain",
+    "encode_gamma_warp_plain",
     "decode_gamma_plain",
     "decode_gamma_warp_plain",
     "warp_table",
@@ -131,9 +145,10 @@ LAUNCHES = {"encode_indexed": 0, "decode_indexed": 0,
             "encode_scan": 0, "pair_lookup": 0,
             "decode_single_row_bucketed": 0}
 
-#: Of ``LAUNCHES["decode_gamma"]`` and ``LAUNCHES["encode_scan"]``, the
-#: launches of the warp-per-stream kernels.
-LAUNCHES_WARP = {"decode_gamma": 0, "encode_scan": 0}
+#: Of ``LAUNCHES[name]`` for the four functions that have two kernels, the
+#: launches of the warp-per-stream kernel.
+LAUNCHES_WARP = {"decode_gamma": 0, "encode_scan": 0, "encode_gamma": 0,
+                 "encode_indexed": 0}
 
 #: K3' launches of at most this many streams take the warp-per-stream
 #: kernel, larger ones the thread-per-stream kernel.  Measured on an NVIDIA
@@ -146,16 +161,23 @@ LAUNCHES_WARP = {"decode_gamma": 0, "encode_scan": 0}
 #: and leads.
 WARP_DECODE_MAX_STREAMS = 16384
 
-#: K6 micro-op launches of at most this many streams take the
-#: warp-per-stream kernel, larger ones the thread-per-stream kernel.
-#: Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py, streams
-#: x 590 steps of the Gaussian regime, warp / thread ms: 1 0.079 / 0.120,
-#: 1024 0.070 / 0.344, 4096 0.171 / 0.481, 8192 0.320 / 0.655, 16384 0.611
-#: / 0.751, 24576 0.888 / 0.884, 32768 1.18 / 0.960, 65536 2.31 / 1.48;
-#: bmshj2018's y scan, 198848 steps x 1, 10.28 / 36.1.  The warp kernel
-#: leads up to 16384 streams; the
-#: thread kernel steps 32 streams with the instructions the warp kernel
-#: spends on one, and leads once its threads fill the card.
+#: K6 micro-op, K6' and K1 launches of at most this many streams take
+#: their warp-per-stream kernels, larger ones their thread-per-stream
+#: kernels.  Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py,
+#: warp / thread ms.  The micro-op scan, streams x 590 steps of the Gaussian
+#: regime: 1 0.079 / 0.120, 1024 0.070 / 0.344, 4096 0.171 / 0.481, 8192
+#: 0.320 / 0.655, 16384 0.611 / 0.751, 24576 0.888 / 0.884, 32768 1.18 /
+#: 0.960, 65536 2.31 / 1.48; bmshj2018's y scan, 198848 steps x 1, 10.28 /
+#: 36.1.  K6' and K1, streams x 512 symbols of the same regime (the first
+#: of two rounds): 1 0.051 / 0.180 and 0.047 / 0.164, 1024 0.074 / 0.333
+#: and 0.059 / 0.247, 8192 0.489 / 0.515 and 0.419 / 0.430, 12288 0.716 /
+#: 0.961 and 0.624 / 0.822, 16384 0.947 / 0.974 and 0.828 / 0.831, 16896
+#: 0.972 / 0.476 and 0.850 / 0.420, 65536 3.65 / 1.29 and 3.23 / 1.25; one
+#: stream of 131072 symbols (bls2017's classic latent) 7.00 / 33.0 and
+#: 6.87 / 29.3.  Every warp kernel leads or draws up to 16384 streams; from
+#: 16896 on the thread kernels run 128-thread blocks, fill the card and
+#: lead (a thread kernel steps 32 streams with the instructions a warp
+#: kernel spends on one).
 WARP_ENCODE_MAX_STREAMS = 16384
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -177,6 +199,8 @@ _DECODE_ARGS = [_vp, _i64, _vp, _vp, _i64, _i64, _vp, _vp, _int, _int, _vp,
 _ARGTYPES = {
     "ctpu_encode_indexed": _ENCODE_ARGS,
     "ctpu_encode_gamma": _ENCODE_ARGS,
+    "ctpu_encode_indexed_warp": _ENCODE_ARGS,
+    "ctpu_encode_gamma_warp": _ENCODE_ARGS,
     "ctpu_encode_single_row": [_vp, _i64, _i64, _vp, _vp, _int, _vp, _i64,
                                _vp, _vp],
     "ctpu_decode_indexed": _DECODE_ARGS,
@@ -290,7 +314,9 @@ def _launch(name, fn, *args):
 # -----------------------------------------------------------------------------
 # Encoders: K1, K4', K6'
 # -----------------------------------------------------------------------------
-def _encode(name, symbols, indexes, cdf, meta, out_size, plain):
+def _encode(name, symbols, indexes, cdf, meta, out_size, plain, warp=False):
+    """Checks, allocates and runs an encoder; ``warp`` picks the
+    warp-per-stream kernel of K1 or K6'."""
     device = symbols.device
     _check("symbols", symbols, torch.int32, 2, device)
     single = indexes is None
@@ -311,14 +337,21 @@ def _encode(name, symbols, indexes, cdf, meta, out_size, plain):
         else:
             plain(symbols, indexes, cdf, meta, out, lengths)
         return out, lengths
-    fn = getattr(_lib("encode_indexed"), "ctpu_" + name)
+    fn = getattr(_lib("encode_indexed"),
+                 "ctpu_" + name + ("_warp" if warp else ""))
     if single:
         _launch(name, fn, symbols, num_streams, n, cdf, meta, cdf.shape[1],
                 out, out_size, lengths)
     else:
         _launch(name, fn, symbols, indexes, num_streams, n, cdf, meta,
                 cdf.shape[0], cdf.shape[1], out, out_size, lengths)
+    if warp:
+        LAUNCHES_WARP[name] += 1
     return out, lengths
+
+
+def _takes_warp(symbols):
+    return symbols.ndim == 2 and symbols.shape[0] <= WARP_ENCODE_MAX_STREAMS
 
 
 def encode_indexed(symbols, indexes, cdf, meta, out_size: int):
@@ -329,14 +362,38 @@ def encode_indexed(symbols, indexes, cdf, meta, out_size: int):
       symbols: int32 [S, N]; out-of-range values map to the escape marker
         on overflow rows and are clipped on bounded rows.
       indexes: int32 [S, N] CDF row per element.
-      cdf, meta: the table (see module docstring); row precision <= 16.
+      cdf, meta: the table (see module docstring); every row a valid CDF
+        (strictly increasing from 0 to 2^precision, as every
+        ``tables.CdfTable`` row is) at precision 1 ... 16.
       out_size: bytes per output row, >= 2 * N + 2.
 
     Returns:
       (bytes uint8 [S, out_size] zero past each length, lengths int32 [S]).
+
+    The number of streams alone picks the kernel: at most
+    ``WARP_ENCODE_MAX_STREAMS`` take ``encode_indexed_warp``, more take
+    ``encode_indexed_thread``.  The warp kernel's 32-bit chain is exact
+    where every coded interval is valid (``0 <= lower < upper <=
+    2^precision``), which the table's contract above gives; nothing checks
+    it, so that the encode never waits for the card.
     """
+    if _takes_warp(symbols):
+        return encode_indexed_warp(symbols, indexes, cdf, meta, out_size)
+    return encode_indexed_thread(symbols, indexes, cdf, meta, out_size)
+
+
+def encode_indexed_thread(symbols, indexes, cdf, meta, out_size: int):
+    """K1 by its thread-per-stream kernel (arguments and result as
+    ``encode_indexed``); on the CPU ``encode_indexed_plain``."""
     return _encode("encode_indexed", symbols, indexes, cdf, meta, out_size,
                    encode_indexed_plain)
+
+
+def encode_indexed_warp(symbols, indexes, cdf, meta, out_size: int):
+    """K1 by its warp-per-stream kernel (arguments and result as
+    ``encode_indexed``); on the CPU ``encode_indexed_plain``."""
+    return _encode("encode_indexed", symbols, indexes, cdf, meta, out_size,
+                   encode_indexed_plain, warp=True)
 
 
 def encode_single_row(symbols, cdf, meta, out_size: int):
@@ -353,11 +410,31 @@ def encode_gamma(symbols, indexes, cdf, meta, out_size: int):
     sign, each bit at precision 1.
 
     ``out_size`` must hold 2 * T + 2 bytes, T the most coded intervals of
-    any stream (``interval_counts(...).sum(1).max()``); the kernel never
-    writes past a row, but a shorter row would cut the stream.
+    any stream (``interval_counts(...).sum(1).max()``); the kernels never
+    write past a row, but a shorter row may cut a stream: its bytes are
+    then undefined and its length is past the row.  The table's contract
+    and the choice of kernel are those of ``encode_indexed``
+    (``encode_gamma_warp`` up to ``WARP_ENCODE_MAX_STREAMS`` streams, else
+    ``encode_gamma_thread``); every Elias-gamma step is a valid interval
+    too.
     """
+    if _takes_warp(symbols):
+        return encode_gamma_warp(symbols, indexes, cdf, meta, out_size)
+    return encode_gamma_thread(symbols, indexes, cdf, meta, out_size)
+
+
+def encode_gamma_thread(symbols, indexes, cdf, meta, out_size: int):
+    """K6' by its thread-per-stream kernel (arguments and result as
+    ``encode_gamma``); on the CPU ``encode_gamma_plain``."""
     return _encode("encode_gamma", symbols, indexes, cdf, meta, out_size,
                    encode_gamma_plain)
+
+
+def encode_gamma_warp(symbols, indexes, cdf, meta, out_size: int):
+    """K6' by its warp-per-stream kernel (arguments and result as
+    ``encode_gamma``); on the CPU ``encode_gamma_plain``."""
+    return _encode("encode_gamma", symbols, indexes, cdf, meta, out_size,
+                   encode_gamma_plain, warp=True)
 
 
 def interval_counts(symbols, indexes, meta):
@@ -669,6 +746,81 @@ def encode_scan_warp_plain(lower, upper, prec, mask, out, lengths):
     lengths.copy_(lens.to(lengths.device))
 
 
+def encode_gamma_warp_plain(symbols, indexes, cdf, meta, out, lengths):
+    """Plain mirror of K6''s warp-per-stream kernel (writes out, lengths):
+    the same bytes as ``encode_gamma_plain``, by the kernel's own steps, for
+    the tests.  Per stream and window of 32 symbols: each symbol's CDF
+    interval packed at precision 16 (``scan_op``) and the ballot of the
+    window's escapes; a window of 32 symbols without an escape is the
+    micro-op scan's full window (drained after each half); any other window
+    (escapes, or the stream's last, partial one) codes symbol by symbol,
+    each escape followed in place by its 2 nbits + 2 precision-1 steps
+    (drained after every two) and every symbol by a drain; then Finalize.
+    Python integers; slow, and meant for small inputs.  Rows must be valid
+    CDFs at precision 1 ... 16 (``encode_indexed``'s contract)."""
+    _encode_symbols_warp_plain(symbols, indexes, cdf, meta, out, lengths,
+                               gamma=True)
+
+
+def encode_indexed_warp_plain(symbols, indexes, cdf, meta, out, lengths):
+    """Plain mirror of K1's warp-per-stream kernel (writes out, lengths):
+    ``encode_gamma_warp_plain``'s steps without the Elias-gamma ones (an
+    escape is the bare marker), for the tests."""
+    _encode_symbols_warp_plain(symbols, indexes, cdf, meta, out, lengths,
+                               gamma=False)
+
+
+def _encode_symbols_warp_plain(symbols, indexes, cdf, meta, out, lengths,
+                               gamma):
+    symbols, indexes, cdf, meta = (t.cpu() for t in (symbols, indexes, cdf,
+                                                     meta))
+    rows = indexes.long().clamp(0, cdf.shape[0] - 1)
+    ops = scan_op(*_main_intervals(symbols, rows, cdf, meta,
+                                   bounded=False)).tolist()
+    _, escape, g, _ = interval_counts(symbols, indexes, meta)
+    escape = (escape & gamma).tolist()
+    g, neg = g.tolist(), (symbols < 0).tolist()
+    num_streams, n = symbols.shape
+    width = out.shape[1]
+    out_rows = torch.zeros((num_streams, width), dtype=torch.uint8)
+    lens = torch.zeros((num_streams,), dtype=torch.int32)
+    for s in range(num_streams):
+        row = bytearray(width)
+        enc = _WarpScanMirror(row)
+        for start in range(0, n, _LANES):
+            window = range(start, min(start + _LANES, n))
+            if len(window) == _LANES and not any(escape[s][j]
+                                                 for j in window):
+                for i, j in enumerate(window):
+                    enc.step(ops[s][j])
+                    if i % 16 == 15:
+                        enc.drain()
+                continue
+            for j in window:
+                enc.step(ops[s][j])
+                if escape[s][j]:
+                    _gamma_steps(enc, g[s][j], int(neg[s][j]))
+                enc.drain()
+        lens[s] = enc.finish()
+        if width:
+            out_rows[s] = torch.frombuffer(row, dtype=torch.uint8)
+    out.copy_(out_rows.to(out.device))
+    lengths.copy_(lens.to(lengths.device))
+
+
+def _gamma_steps(enc, g, neg):
+    """encode_indexed.cu's gamma_steps: OverflowEncode's 2 nbits + 2 steps
+    at precision 1 (nbits zeros, the bits of g from the top one down, the
+    sign), drained after every two."""
+    nbits = g.bit_length() - 1
+    for k in range(2 * nbits + 2):
+        bit = 0 if k < nbits else (
+            (g >> (2 * nbits - k)) & 1 if k <= 2 * nbits else neg)
+        enc.step(scan_op(bit, bit + 1, 1))
+        if k % 2 == 1:
+            enc.drain()
+
+
 def scan_op(lower, upper, prec):
     """The warp scan's packed operands of one coded step: lower and upper
     scaled to precision 16, ``lower' | (upper' - 1) << 16``."""
@@ -703,7 +855,7 @@ def _nth_set_bit(bits, i):
 
 
 class _WarpScanMirror:
-    """One stream's state in encode_indexed.cu's warp scan (ScanState) and
+    """One stream's state in encode_indexed.cu's warp chain (ScanState) and
     the kernel's functions that change it: scan_step, the window of held
     chunks (hold, store_window, drain), fill_run and scan_finish."""
 
@@ -726,6 +878,9 @@ class _WarpScanMirror:
         self._store(_LANES)
 
     def drain(self):
+        # The kernel holds at most 64 chunks, two in each lane, and the
+        # count grows only between drains.
+        assert len(self.held) <= 2 * _LANES
         if len(self.held) >= _LANES:
             self.store_window()
 

@@ -14,6 +14,7 @@ import torch
 from compression_tpu_torch.codec import cuda_coder, tables, torch_coder
 from scan_cases import (as_tensors, limit_micro_ops, long_carry_ops,
                         valid_micro_ops)
+from symbol_cases import SYMBOL_CASES, symbol_case
 
 pytestmark = pytest.mark.cuda
 
@@ -349,25 +350,29 @@ def test_pair_lookup_any_element_count(device, count):
         assert torch.equal(lo, ref_lo) and torch.equal(hi, ref_hi)
 
 
-def _scan_both_match_plain(ops, out_size, device):
-    """Both kernels of K6's micro-op mode and the wrapper against
-    encode_scan_plain, run once; returns the plain result."""
-    ops = as_tensors(ops, device)
-    before = (cuda_coder.LAUNCHES["encode_scan"],
-              cuda_coder.LAUNCHES_WARP["encode_scan"])
-    got = [cuda_coder.encode_scan_warp(*ops, out_size),
-           cuda_coder.encode_scan_thread(*ops, out_size),
-           cuda_coder.encode_scan(*ops, out_size)]
+def _both_kernels_match_plain(name, args, out_size, streams):
+    """Both kernels of an encoder with two (K1, K6' or K6's micro-op mode:
+    ``name``) and its wrapper against its plain version, run once; returns
+    the plain result."""
+    before = (cuda_coder.LAUNCHES[name], cuda_coder.LAUNCHES_WARP[name])
+    got = [getattr(cuda_coder, name + "_warp")(*args, out_size),
+           getattr(cuda_coder, name + "_thread")(*args, out_size),
+           getattr(cuda_coder, name)(*args, out_size)]
     torch.cuda.synchronize()
-    warp = int(ops[0].shape[1] <= cuda_coder.WARP_ENCODE_MAX_STREAMS)
-    assert (cuda_coder.LAUNCHES["encode_scan"],
-            cuda_coder.LAUNCHES_WARP["encode_scan"]) == (
-                before[0] + 3, before[1] + 1 + warp)
+    warp = int(streams <= cuda_coder.WARP_ENCODE_MAX_STREAMS)
+    assert (cuda_coder.LAUNCHES[name], cuda_coder.LAUNCHES_WARP[name]) == (
+        before[0] + 3, before[1] + 1 + warp)
     ref = (torch.empty_like(got[0][0]), torch.empty_like(got[0][1]))
-    cuda_coder.encode_scan_plain(*ops, *ref)
+    getattr(cuda_coder, name + "_plain")(*args, *ref)
     for out, lens in got:
         assert torch.equal(out, ref[0]) and torch.equal(lens, ref[1])
     return ref
+
+
+def _scan_both_match_plain(ops, out_size, device):
+    ops = as_tensors(ops, device)
+    return _both_kernels_match_plain("encode_scan", ops, out_size,
+                                     ops[0].shape[1])
 
 
 # (steps, streams, share of coded steps, extra bytes a row: odd widths put
@@ -437,3 +442,66 @@ def test_scan_variant_follows_the_stream_count(device):
         ref = (torch.empty_like(out), torch.empty_like(lens))
         cuda_coder.encode_scan_plain(*part, *ref)
         assert torch.equal(out, ref[0]) and torch.equal(lens, ref[1])
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("name", sorted(SYMBOL_CASES))
+def test_symbol_variants_match_plain(device, name, pad):
+    """Both kernels of K6' and of K1 and their wrappers on tests/
+    symbol_cases.py's inputs (escapes in lane 0 and 31, several in a
+    window, in the last partial window, negative, g = 2^31; streams of 0 to
+    400 symbols; bounded rows at precision 1 to 16), in rows of even and
+    odd width; K6''s streams decode back to the symbols (clipped on
+    bounded rows)."""
+    ragged, sym, idx = symbol_case(name)
+    table = torch_coder.DeviceCdfTable(tables.parse_ragged_cdf(ragged),
+                                       device)
+    cdf, meta = table.indexed_arrays()
+    sym = torch.as_tensor(sym, device=device)
+    idx = torch.as_tensor(idx, device=device)
+    counts = cuda_coder.interval_counts(sym, idx, meta)[0]
+    steps = int(counts.sum(1).max()) if sym.numel() else 0
+    args = (sym, idx, cdf, meta)
+    buf, lens = _both_kernels_match_plain(
+        "encode_gamma", args, 2 * steps + 2 + pad, sym.shape[0])
+    _both_kernels_match_plain("encode_indexed", args,
+                              2 * sym.shape[1] + 2 + pad, sym.shape[0])
+    out, ok = cuda_coder.decode_gamma(buf, lens, idx, cdf, meta)
+    # Bounded rows decode their clipped values; INT32_MIN does not
+    # round-trip in the reference format.
+    rows = idx.long().clamp(0, cdf.shape[0] - 1)
+    maxs, _, ovf = meta.long()[rows].unbind(-1)
+    expect = torch.where(ovf != 0, sym.long(),
+                         torch.minimum(sym.long().clamp(min=0), maxs))
+    keep = (sym != -2 ** 31).all(1)
+    assert torch.equal(out[keep].long(), expect[keep])
+    assert bool(ok[keep].all())
+
+
+def test_symbol_variant_follows_the_stream_count(device):
+    """encode_gamma and encode_indexed take the warp kernel up to
+    WARP_ENCODE_MAX_STREAMS streams and the thread kernel above."""
+    table = _table(16, True, device)
+    cdf, meta = table.indexed_arrays()
+    edge = cuda_coder.WARP_ENCODE_MAX_STREAMS
+    rng = np.random.RandomState(16)
+    idx = torch.as_tensor(rng.randint(0, 8, (edge + 1, 40)),
+                          dtype=torch.int32, device=device)
+    sym = torch.as_tensor(
+        np.round(rng.laplace(0, 30, (edge + 1, 40))).astype(np.int32),
+        device=device)
+    out_size = torch_coder.stream_out_size(int(cuda_coder.interval_counts(
+        sym, idx, meta)[0].sum(1).max()))
+    for streams, warp in ((edge, 1), (edge + 1, 0), (1, 1)):
+        part = sym[:streams].contiguous(), idx[:streams].contiguous()
+        for name in ("encode_gamma", "encode_indexed"):
+            before = (cuda_coder.LAUNCHES[name],
+                      cuda_coder.LAUNCHES_WARP[name])
+            out, lens = getattr(cuda_coder, name)(*part, cdf, meta,
+                                                  out_size)
+            assert (cuda_coder.LAUNCHES[name],
+                    cuda_coder.LAUNCHES_WARP[name]) == (
+                        before[0] + 1, before[1] + warp)
+            ref = (torch.empty_like(out), torch.empty_like(lens))
+            getattr(cuda_coder, name + "_plain")(*part, cdf, meta, *ref)
+            assert torch.equal(out, ref[0]) and torch.equal(lens, ref[1])

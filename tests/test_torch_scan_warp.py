@@ -248,4 +248,5 @@ def test_cpu_wrappers_run_the_plain_version(variant):
 def test_dispatch_constant():
     assert isinstance(cuda_coder.WARP_ENCODE_MAX_STREAMS, int)
     assert cuda_coder.WARP_ENCODE_MAX_STREAMS >= 1
-    assert set(cuda_coder.LAUNCHES_WARP) == {"decode_gamma", "encode_scan"}
+    assert set(cuda_coder.LAUNCHES_WARP) == {
+        "decode_gamma", "encode_scan", "encode_gamma", "encode_indexed"}
