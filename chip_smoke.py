@@ -321,20 +321,27 @@ def check_decode(name, kernel, plain, args, variants=()):
     return sym_k, san_k, same, ms
 
 
-def check_variants(name, args, out_size):
+def check_variants(name, args, out_size, expect=None):
     """An encoder with two kernels (K1, K6' or K6's micro-op mode:
     ``name``) on one input: the plain version once, and the wrapper's
     choice and both of its kernels (warp and thread per stream) held
-    against that result.  Returns (bytes, lengths, identical, plain ms,
-    "warp" or "thread": the wrapper's choice)."""
+    against that result.  ``expect`` (bytes, lengths) stands for the plain
+    run where another kernel's result, already held against its own plain
+    version, is the same function's (plain ms None).  Returns (bytes,
+    lengths, identical, plain ms, "warp" or "thread": the wrapper's
+    choice)."""
     import torch
     from compression_tpu_torch.codec import cuda_coder as cc
     warp_before = cc.LAUNCHES_WARP[name]
     out_k, len_k = getattr(cc, name)(*args, out_size)
     took = "warp" if cc.LAUNCHES_WARP[name] == warp_before + 1 else "thread"
     torch.cuda.synchronize()
-    out_p, len_p = torch.empty_like(out_k), torch.empty_like(len_k)
-    ms = _plain_ms(lambda: getattr(cc, name + "_plain")(*args, out_p, len_p))
+    if expect is None:
+        out_p, len_p = torch.empty_like(out_k), torch.empty_like(len_k)
+        ms = _plain_ms(lambda: getattr(cc, name + "_plain")(*args, out_p,
+                                                            len_p))
+    else:
+        (out_p, len_p), ms = expect, None
     same = True
     for run in (lambda: (out_k, len_k),
                 lambda: getattr(cc, name + "_warp")(*args, out_size),
@@ -1044,6 +1051,23 @@ def main():
     cidx = crow.to(torch.int32)[None].expand_as(csym).contiguous()
     cbuf, clens, c_intervals, k6_plain, k3_plain = compare_gamma(
         f"gamma/classic_{first}", table, csym, cidx, fails)
+    # The classic compress codes an escape-free latent by K1 on this one
+    # stream: its wrapper and both kernels.  Without an escape K1's format
+    # and K6''s code the same intervals in rows of the same size, so K6''s
+    # bytes, held against its plain version just above, stand for K1's.
+    ccdf, cmeta = table.indexed_arrays()
+    c_escapes = int(cc.interval_counts(csym, cidx, cmeta)[1].sum())
+    _, _, k1_ok, _, k1_took = check_variants(
+        "encode_indexed", (csym, cidx, ccdf, cmeta), cbuf.shape[1],
+        expect=(cbuf, clens) if c_escapes == 0 else None)
+    log("kernels", case=f"indexed/classic_{first}",
+        streams=int(csym.shape[0]), symbols=int(csym.shape[1]),
+        escapes=c_escapes, held_against="encode_gamma" if c_escapes == 0
+        else "encode_indexed_plain",
+        encode_identical_wrapper_and_both_kernels=k1_ok,
+        encode_wrapper_took=k1_took)
+    if not k1_ok or k1_took != "warp":
+        fails.append(f"indexed/classic_{first}")
 
     # The bmshj2018 codec at full width: its tables give K7' its shapes.
     t0 = time.time()

@@ -756,8 +756,13 @@ def encode_gamma_warp_plain(symbols, indexes, cdf, meta, out, lengths):
     (escapes, or the stream's last, partial one) codes symbol by symbol,
     each escape followed in place by its 2 nbits + 2 precision-1 steps
     (drained after every two) and every symbol by a drain; then Finalize.
-    Python integers; slow, and meant for small inputs.  Rows must be valid
-    CDFs at precision 1 ... 16 (``encode_indexed``'s contract)."""
+    A row shorter than ``encode_gamma`` asks for cuts a stream as the
+    kernel does: before a window with escapes after which the stream's
+    symbols and the Elias-gamma steps counted so far could pass the row
+    (two bytes a step and two), the stream is finalized and its length set
+    to the row's width plus one.  Python integers; slow, and meant for
+    small inputs.  Rows must be valid CDFs at precision 1 ... 16
+    (``encode_indexed``'s contract)."""
     _encode_symbols_warp_plain(symbols, indexes, cdf, meta, out, lengths,
                                gamma=True)
 
@@ -787,21 +792,28 @@ def _encode_symbols_warp_plain(symbols, indexes, cdf, meta, out, lengths,
     for s in range(num_streams):
         row = bytearray(width)
         enc = _WarpScanMirror(row)
+        extra, cut = 0, False
         for start in range(0, n, _LANES):
             window = range(start, min(start + _LANES, n))
-            if len(window) == _LANES and not any(escape[s][j]
-                                                 for j in window):
+            escapes = [j for j in window if escape[s][j]]
+            if len(window) == _LANES and not escapes:
                 for i, j in enumerate(window):
                     enc.step(ops[s][j])
                     if i % 16 == 15:
                         enc.drain()
                 continue
+            extra += sum(2 * g[s][j].bit_length() for j in escapes)
+            if 2 * (n + extra) + 2 > width:
+                cut = True
+                break
             for j in window:
                 enc.step(ops[s][j])
                 if escape[s][j]:
                     _gamma_steps(enc, g[s][j], int(neg[s][j]))
                 enc.drain()
         lens[s] = enc.finish()
+        if cut:
+            lens[s] = width + 1
         if width:
             out_rows[s] = torch.frombuffer(row, dtype=torch.uint8)
     out.copy_(out_rows.to(out.device))

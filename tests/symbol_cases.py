@@ -120,6 +120,23 @@ def symbol_case(name):
             np.asarray(idx, np.int32))
 
 
+def short_row_case(name):
+    """symbol_case(name)'s streams, each between two escape-free streams
+    (its own values moved into their rows' ranges), as one launch: a row
+    sized for the symbols alone (2 N + 2 bytes) is too short for the
+    escaping streams' Elias-gamma steps, and the streams beside one that
+    is cut must come out whole.  Returns (ragged, symbols, indexes)."""
+    from compression_tpu_torch.codec import tables
+    ragged, sym, idx = symbol_case(name)
+    marker = np.asarray(tables.parse_ragged_cdf(ragged).length)[idx] - 2
+    clean = np.clip(sym, 0, marker - 1).astype(np.int32)
+    order = [clean[0]] + [r for s in range(len(sym))
+                          for r in (sym[s], clean[(s + 1) % len(sym)])]
+    rows = [idx[0]] + [r for s in range(len(sym))
+                       for r in (idx[s], idx[(s + 1) % len(sym)])]
+    return ragged, np.stack(order), np.stack(rows)
+
+
 # name -> (kind, symbols a stream)
 SYMBOL_CASES = {
     "placements": ("placements", 100),

@@ -14,7 +14,7 @@ import torch
 from compression_tpu_torch.codec import cuda_coder, tables, torch_coder
 from scan_cases import (as_tensors, limit_micro_ops, long_carry_ops,
                         valid_micro_ops)
-from symbol_cases import SYMBOL_CASES, symbol_case
+from symbol_cases import SYMBOL_CASES, short_row_case, symbol_case
 
 pytestmark = pytest.mark.cuda
 
@@ -476,6 +476,46 @@ def test_symbol_variants_match_plain(device, name, pad):
     keep = (sym != -2 ** 31).all(1)
     assert torch.equal(out[keep].long(), expect[keep])
     assert bool(ok[keep].all())
+
+
+@pytest.mark.parametrize("slack", [0, 41])
+@pytest.mark.parametrize("name", ["placements", "all_escapes"])
+def test_gamma_variants_cut_a_short_row(device, name, slack):
+    """Rows of 2 N + 2 + ``slack`` bytes, too short for some streams'
+    Elias-gamma steps, in one launch with escape-free streams beside each
+    escaping one.  The warp kernel (also as the wrapper's choice) equals
+    its mirror byte for byte: every stream that could pass its row (2 T + 2
+    bytes) cut, length row + 1, every other one as encode_gamma_plain
+    codes it in a row long enough.  The thread kernel codes every stream
+    whole and writes no byte past its row: the plain lengths, the plain
+    bytes up to the row's end."""
+    ragged, sym, idx = short_row_case(name)
+    table = torch_coder.DeviceCdfTable(tables.parse_ragged_cdf(ragged),
+                                       device)
+    cdf, meta = table.indexed_arrays()
+    args = (torch.as_tensor(sym, device=device),
+            torch.as_tensor(idx, device=device), cdf, meta)
+    steps = cuda_coder.interval_counts(*args[:2], meta)[0].sum(1)
+    out_size = 2 * sym.shape[1] + 2 + slack
+    cut = 2 * steps + 2 > out_size
+    assert bool(cut.any()) and not bool(cut.all())
+    ref = (torch.empty((sym.shape[0], 2 * int(steps.max()) + 2),
+                       dtype=torch.uint8, device=device),
+           torch.empty((sym.shape[0],), dtype=torch.int32, device=device))
+    cuda_coder.encode_gamma_plain(*args, *ref)
+    mirror = (torch.empty((sym.shape[0], out_size), dtype=torch.uint8),
+              torch.empty((sym.shape[0],), dtype=torch.int32))
+    cuda_coder.encode_gamma_warp_plain(*args, *mirror)
+    for run in (cuda_coder.encode_gamma_warp, cuda_coder.encode_gamma):
+        out, lens = run(*args, out_size)
+        assert torch.equal(out.cpu(), mirror[0])
+        assert torch.equal(lens.cpu(), mirror[1])
+        assert bool((lens[cut] == out_size + 1).all())
+        assert torch.equal(lens[~cut], ref[1][~cut])
+        assert torch.equal(out[~cut], ref[0][~cut, :out_size])
+    out, lens = cuda_coder.encode_gamma_thread(*args, out_size)
+    assert torch.equal(lens, ref[1])
+    assert torch.equal(out, ref[0][:, :out_size])
 
 
 def test_symbol_variant_follows_the_stream_count(device):

@@ -23,7 +23,7 @@ import torch
 from compression_tpu.codec import jax_coder
 from compression_tpu.codec import tables as jax_tables
 from compression_tpu_torch.codec import cuda_coder, tables, torch_coder
-from symbol_cases import SYMBOL_CASES, symbol_case
+from symbol_cases import SYMBOL_CASES, short_row_case, symbol_case
 
 torch.set_num_threads(1)
 
@@ -107,6 +107,30 @@ def test_golden_cases_through_gamma_mirror(name):
         assert int(lens[0]) == len(ref)
         assert buf[0, : len(ref)].tobytes() == ref
         assert not buf[0, len(ref):].any()
+
+
+@pytest.mark.parametrize("slack", [0, 41])
+@pytest.mark.parametrize("name", ["placements", "all_escapes"])
+def test_gamma_mirror_cuts_a_short_row(name, slack):
+    """Rows of 2 N + 2 + ``slack`` bytes, too short for some streams'
+    Elias-gamma steps, in one launch with escape-free streams beside each
+    escaping one: K6''s warp mirror reports every stream that could pass
+    its row (2 T + 2 bytes, T its coded intervals) as cut, length row + 1,
+    and writes every other stream's bytes as encode_gamma_plain does in a
+    row long enough."""
+    ragged, sym, idx = short_row_case(name)
+    args = _port(ragged, sym, idx)
+    steps = cuda_coder.interval_counts(*args[:2], args[3])[0].sum(1).numpy()
+    width = 2 * sym.shape[1] + 2 + slack
+    cut = 2 * steps + 2 > width
+    assert cut.any() and not cut.all()
+    ref_buf, ref_lens = _run(cuda_coder.encode_gamma_plain, args,
+                             2 * int(steps.max()) + 2)
+    buf, lens = _run(cuda_coder.encode_gamma_warp_plain, args, width)
+    np.testing.assert_array_equal(lens[cut], width + 1)
+    np.testing.assert_array_equal(lens[~cut], ref_lens[~cut])
+    np.testing.assert_array_equal(buf[~cut], ref_buf[~cut, :width])
+    assert not ref_buf[~cut, width:].any()
 
 
 def test_gamma_steps_are_the_reference_order():
