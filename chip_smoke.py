@@ -26,10 +26,12 @@ Phases, one JSON line each (any failure exits non-zero):
      corrupted streams, on streams of 0, 1, 2, 3 and 1031 bytes in a buffer
      of odd width (also from a view one byte into its storage), on a table
      at precision 16 and on a stream count on either side of the wrapper's
-     dispatch constant.  K1, K3' and K6' have two kernels each, one thread
-     and one warp per stream: in every one of their cases the plain version
-     runs once and the wrapper's choice and both kernels are held against
-     that result, and the wrapper's choice is logged; K1 and K6' also on
+     dispatch constant.  K1, K2, K3' and K6' have two kernels each, one
+     thread and one warp per stream: in every one of their cases the plain
+     version runs once and the wrapper's choice and both kernels are held
+     against that result, and the wrapper's choice is logged (K2's must
+     follow the dispatch constant, also at a stream count on either side of
+     it); K1 and K6' also on
      tests/symbol_cases.py's inputs (escapes in lane 0 and 31 of a window,
      several in one, in the last partial window, g = 2^31 back to back,
      streams of 0 to 400 symbols, bounded rows at precision 1 to 16) in
@@ -54,8 +56,8 @@ Phases, one JSON line each (any failure exits non-zero):
      K8' (bucketed single-row decode) against its plain version and against
      K5' at 32768 x 512, on every golden case and on corrupted streams;
   4. main paths, each with the launch counts reset just before it and read
-     just after, every K1, K3' and K6' launch of (a), (b) and (d) expected
-     on the warp-per-stream kernel: (a) bls2017 at num_filters=128 (seeded
+     just after, every K1, K2, K3' and K6' launch of (a), (b) and (d)
+     expected on the warp-per-stream kernel: (a) bls2017 at num_filters=128 (seeded
      init, its own tables) on a 512x512 and a 768x512 image through
      compress_native / decompress / reconstruct / compress_native_many /
      decompress_native_many; (b) the same images through the classic
@@ -88,8 +90,13 @@ Phases, one JSON line each (any failure exits non-zero):
      and z scans beside the byte bound and the chain's floor, and from 1
      to 65536 streams of 590 steps; both kernels of K6' and K1 at the
      classic streams and the native launches beside the byte bound and the
-     chain's floor, and from 1 to 65536 streams of 512 symbols; K7' and its
-     library call by events around a loop and replayed from a CUDA graph.
+     chain's floor (K1's native launches also from a CUDA graph), and from
+     1 to 65536 streams of 512 symbols; K2's wrapper and both kernels at
+     both models' native launches of both images, on the buffers
+     decompress gives them, by events and from a CUDA graph, beside the
+     byte bound and the chain's floor, and both kernels from 1 to 65536
+     streams of 512 symbols; K7' and its library call by events around a loop and
+     replayed from a CUDA graph.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.  Nothing of
@@ -383,35 +390,58 @@ def tests_module(name):
     return module
 
 
-def gamma_variants(table):
-    """K3' by the wrapper's own choice, and both of its kernels whatever
-    the shape; arguments (buf, lens, indexes, cdf, meta)."""
+def decode_variants(name, table, took=None):
+    """A decoder with two kernels (K2 or K3': ``name``) by the wrapper's
+    own choice, and both of its kernels whatever the shape; arguments
+    (buf, lens, indexes, cdf, meta).  The wrapper's choice of each call
+    ("warp" or "thread") is appended to ``took``."""
     from compression_tpu_torch.codec import cuda_coder as cc
     layout = table.warp_arrays()
-    return (lambda *a: cc.decode_gamma(*a, layout),
-            (lambda *a: cc.decode_gamma_warp(*a, layout),
-             cc.decode_gamma_thread))
+
+    def chosen(*a):
+        before = cc.LAUNCHES_WARP[name]
+        out = getattr(cc, name)(*a, layout)
+        if took is not None:
+            took.append("warp" if cc.LAUNCHES_WARP[name] > before
+                        else "thread")
+        return out
+
+    return (chosen, (lambda *a: getattr(cc, name + "_warp")(*a, layout),
+                     getattr(cc, name + "_thread")))
+
+
+def decode_choice_ok(took, streams):
+    """The wrapper's choices follow the stream count and the dispatch
+    constant."""
+    from compression_tpu_torch.codec import cuda_coder as cc
+    want = "warp" if streams <= cc.WARP_DECODE_MAX_STREAMS else "thread"
+    return bool(took) and set(took) == {want}
 
 
 def compare_kernels(name, table, symbols, indexes, out_size, fails,
                     expect_warp=None):
-    """K1 (the wrapper and both kernels) and K2 against their plain
-    versions on one input; ``expect_warp`` checks K1's wrapper's choice.
-    Returns K1's (bytes, lengths)."""
+    """K1 and K2 against their plain versions on one input, each by its
+    wrapper's choice and both of its kernels; ``expect_warp`` checks K1's
+    wrapper's choice, K2's must follow WARP_DECODE_MAX_STREAMS.  Returns
+    K1's (bytes, lengths)."""
     from compression_tpu_torch.codec import cuda_coder as cc
     cdf, meta = table.indexed_arrays()
     out_k, len_k, enc_ok, _, took = check_variants(
         "encode_indexed", (symbols, indexes, cdf, meta), out_size)
+    dec_took = []
+    chosen, both = decode_variants("decode_indexed", table, dec_took)
     _, san_k, dec_ok, _ = check_decode(
-        "decode_indexed", cc.decode_indexed, cc.decode_indexed_plain,
-        (out_k, len_k, indexes, cdf, meta))
+        "decode_indexed", chosen, cc.decode_indexed_plain,
+        (out_k, len_k, indexes, cdf, meta), both)
+    choice_ok = decode_choice_ok(dec_took, int(symbols.shape[0]))
     log("kernels", case=name, streams=int(symbols.shape[0]),
         symbols=int(symbols.shape[1]), rows=int(cdf.shape[0]),
         max_precision=int(meta[:, 1].max()),
         encode_identical_wrapper_and_both_kernels=enc_ok,
-        encode_wrapper_took=took, decode_identical=dec_ok,
-        sanity_all=bool(san_k.all()))
-    if not (enc_ok and dec_ok and bool(san_k.all())) or (
+        encode_wrapper_took=took,
+        decode_identical_wrapper_and_both_kernels=dec_ok,
+        decode_wrapper_took=dec_took[0], sanity_all=bool(san_k.all()))
+    if not (enc_ok and dec_ok and choice_ok and bool(san_k.all())) or (
             expect_warp is not None and (took == "warp") != expect_warp):
         fails.append(name)
     return out_k, len_k
@@ -464,7 +494,7 @@ def compare_gamma(name, table, symbols, indexes, fails, round_trip=True,
     out_size = torch_coder.stream_out_size(int(counts.sum(1).max()))
     out_k, len_k, enc_ok, enc_ms, took = check_variants(
         "encode_gamma", (symbols, indexes, cdf, meta), out_size)
-    chosen, both = gamma_variants(table)
+    chosen, both = decode_variants("decode_gamma", table)
     sym_k, san_k, dec_ok, dec_ms = check_decode(
         "decode_gamma", chosen, cc.decode_gamma_plain,
         (out_k, len_k, indexes, cdf, meta), both)
@@ -670,9 +700,9 @@ def reset_counts():
 
 
 def read_counts(keys):
-    """(launches per kernel, with those of K1, K3', K6' and K6's micro-op
-    mode that took the warp-per-stream kernel under "<name>/warp"; dispatch
-    routes of ``keys``)."""
+    """(launches per kernel, with those of K1, K2, K3', K6' and K6's
+    micro-op mode that took the warp-per-stream kernel under "<name>/warp";
+    dispatch routes of ``keys``)."""
     import torch
     from compression_tpu_torch.codec import cuda_coder, torch_coder
     torch.cuda.synchronize()
@@ -922,8 +952,9 @@ def main():
                         torch_coder.stream_out_size(n), fails)
         stress_input = (sym, idx, st, torch_coder.stream_out_size(n))
     symbols, idx, _, buf, lens = main_inputs[first]
-    corrupt_cases("decode_indexed", cc.decode_indexed, cc.decode_indexed_plain,
-                  buf, lens, (idx, cdf, meta), 5, fails)
+    i_chosen, i_both = decode_variants("decode_indexed", table)
+    corrupt_cases("decode_indexed", i_chosen, cc.decode_indexed_plain,
+                  buf, lens, (idx, cdf, meta), 5, fails, i_both)
 
     # K4'/K5' at the micro-bench regime, and corrupted streams.
     ztab, zpmf = zipf_table()
@@ -988,7 +1019,7 @@ def main():
     safe_idx = gidx_t[:64, :64][[i for i in range(64)
                                  if i not in (0, 8)]].contiguous()
     compare_gamma("gamma/large_magnitudes", gtable, safe, safe_idx, fails)
-    g_chosen, g_both = gamma_variants(gtable)
+    g_chosen, g_both = decode_variants("decode_gamma", gtable)
     corrupt_cases("decode_gamma", g_chosen, cc.decode_gamma_plain,
                   gbuf[:2048].contiguous(), glens[:2048].contiguous(),
                   (gidx_t[:2048].contiguous(), gcdf, gmeta), 7, fails, g_both)
@@ -1280,12 +1311,14 @@ def main():
     native_launches, paths = read_counts(("encode", "decode_sidecar"))
     log("main_path_many", images=len(batch), containers_equal=many_ok,
         launches=native_launches, dispatch=paths)
-    # Every K1 launch of the native path (256-1024 streams) takes the
-    # warp-per-stream kernel.
+    # Every K1 and K2 launch of the native path (256-1024 streams) takes
+    # the warp-per-stream kernel.
     if not (main_ok and many_ok and native_launches["encode_indexed"] > 0
             and native_launches["encode_indexed/warp"]
             == native_launches["encode_indexed"]
             and native_launches["decode_indexed"] > 0
+            and native_launches["decode_indexed/warp"]
+            == native_launches["decode_indexed"]
             and set(paths.values()) == {"cuda-indexed"}):
         fails.append("main_path")
 
@@ -1443,8 +1476,9 @@ def main():
         "decode_indexed": hyper_launches["decode_indexed"],
         "decode_gamma": hyper_launches["decode_gamma"]}
     # Every classic stream is one stream a launch, and a native launch of
-    # K1 holds 32-2048 streams: the warp kernels'.
-    for name in ("decode_gamma", "encode_gamma", "encode_indexed"):
+    # K1 or K2 holds 32-2048 streams: the warp kernels'.
+    for name in ("decode_gamma", "encode_gamma", "encode_indexed",
+                 "decode_indexed"):
         hyper_ok &= hyper_launches[f"{name}/warp"] == hyper_launches[name]
     log("bmshj2018_many", images=len(batch), containers_equal=hmany_ok,
         calls=calls, launches=hyper_launches, expected=expect,
@@ -1677,7 +1711,7 @@ def main():
         "encode_indexed": cuda_ms(lambda: cc.encode_indexed(
             symbols, idx, cdf, meta, out_size), 50),
         "decode_indexed": cuda_ms(lambda: cc.decode_indexed(
-            buf, lens, idx, cdf, meta), 50),
+            buf, lens, idx, cdf, meta, table.warp_arrays()), 50),
         "encode_single_row": cuda_ms(lambda: cc.encode_single_row(
             zsym, zcdf, zmeta, zbuf.shape[1]), 20),
         "decode_single_row": cuda_ms(lambda: cc.decode_single_row(
@@ -1771,6 +1805,76 @@ def main():
             "warp_ms": [r[0] for r in rounds],
             "thread_ms": [r[1] for r in rounds]}
         del sb, sl, si
+    # K2: the wrapper and both kernels at the native main paths' launches,
+    # on the buffers decompress gives them (from_bytes_list of the
+    # container's strings: rows as wide as the longest stream), by events
+    # around a loop of calls and replayed from a CUDA graph; beside the
+    # byte bound and the serial chain's floor (the streams of a launch run
+    # side by side: one stream's symbols).  Then as streams grow, 512
+    # symbols of the Gaussian regime a stream, which is what the dispatch
+    # constant rests on.
+    indexed_shapes = {f"bls2017/{img_name}": (table, n_sym, n_idx, n_buf,
+                                              n_lens)
+                      for img_name, (n_sym, n_idx, _, n_buf, n_lens)
+                      in main_inputs.items()}
+    with torch.no_grad():
+        for img_name, img in images.items():
+            iy, iz, iidx = hcodec._encode(hcodec._upload(img))
+            isym, iidx_n, _ = hcodec.em._symbols(
+                native_format.to_streams(iy), native_format.to_streams(iidx))
+            zsym_i, _, zrow_i = hcodec.side_em._symbols_from_bottleneck(
+                native_format.to_streams(iz))
+            zidx_i = zrow_i.to(torch.int32)[None].expand_as(zsym_i)
+            for part, tab, i_sym, i_idx in (
+                    ("y", ytable, isym, iidx_n), ("z", htable, zsym_i, zidx_i)):
+                i_sym, i_idx = i_sym.contiguous(), i_idx.contiguous()
+                i_cdf, i_meta = tab.indexed_arrays()
+                i_buf, i_lens = cc.encode_indexed(
+                    i_sym, i_idx, i_cdf, i_meta,
+                    torch_coder.stream_out_size(i_sym.shape[1]))
+                indexed_shapes[f"bmshj2018_{part}/{img_name}"] = (
+                    tab, i_sym, i_idx, i_buf, i_lens)
+    indexed_ms = {}
+    for label, (tab, i_sym, i_idx, i_buf, i_lens) in indexed_shapes.items():
+        i_cdf, i_meta = tab.indexed_arrays()
+        layout = tab.warp_arrays()
+        strings = torch_coder.to_bytes_list(i_buf.cpu().numpy(),
+                                            i_lens.cpu().numpy())
+        c_buf, c_lens = (torch.as_tensor(a, device=device)
+                         for a in torch_coder.from_bytes_list(strings))
+        n = int(i_sym.shape[1])
+        calls = {
+            "wrapper": lambda: cc.decode_indexed(c_buf, c_lens, i_idx, i_cdf,
+                                                 i_meta, layout),
+            "warp": lambda: cc.decode_indexed_warp(c_buf, c_lens, i_idx,
+                                                   i_cdf, i_meta, layout),
+            "thread": lambda: cc.decode_indexed_thread(c_buf, c_lens, i_idx,
+                                                       i_cdf, i_meta)}
+        row = {"container_width": int(c_buf.shape[1]),
+               "bound_ms": decode_bound(c_lens, n, i_cdf, i_meta)[0],
+               "chain_floor_ms": warp_floor_ms(n, tab.max_len, clock)}
+        for name, call in calls.items():
+            row[f"{name}_ms_events"] = [cuda_ms(call, 20) for _ in range(2)]
+            row[f"{name}_ms_graph"] = [graph_ms(call) for _ in range(2)]
+        indexed_ms[at(label, i_sym)] = row
+    kbuf, klens = cc.encode_indexed(gsym_t, gidx_t, gcdf, gmeta,
+                                    torch_coder.stream_out_size(gsym_t.shape[1]))
+    indexed_sweep = {}
+    for streams in SWEEP_STREAMS:
+        reps = -(-streams // kbuf.shape[0])
+        sb = kbuf.repeat(reps, 1)[:streams].contiguous()
+        sl = klens.repeat(reps)[:streams].contiguous()
+        si = gidx_t.repeat(reps, 1)[:streams].contiguous()
+        warp_call = lambda: cc.decode_indexed_warp(sb, sl, si, gcdf, gmeta,
+                                                   g_layout)
+        thread_call = lambda: cc.decode_indexed_thread(sb, sl, si, gcdf,
+                                                       gmeta)
+        rounds = [(cuda_ms(warp_call, 10), cuda_ms(thread_call, 10))
+                  for _ in range(2)]
+        indexed_sweep[f"{streams}x{si.shape[1]}"] = {
+            "warp_ms": [r[0] for r in rounds],
+            "thread_ms": [r[1] for r in rounds]}
+        del sb, sl, si
     # K6's micro-op mode: both kernels on compress_device's y and z scans
     # beside the byte bound and the serial chain's floor; and as streams
     # grow (590 steps of the Gaussian regime a stream), which is what the
@@ -1839,6 +1943,11 @@ def main():
         symbol_ms[at(label, s_sym)] = {
             "warp_ms": [r[0] for r in rounds],
             "thread_ms": [r[1] for r in rounds],
+            # A native launch takes ~0.05 ms: the events above time the
+            # host's enqueueing of wrapper calls, a CUDA graph the card.
+            **({"warp_ms_graph": [graph_ms(warp_call) for _ in range(2)],
+                "thread_ms_graph": [graph_ms(thread_call) for _ in range(2)]}
+               if s_sym.shape[0] > 1 else {}),
             "coded_steps": int(s_counts.sum()),
             "bound_ms": encode_bound(*s_sym.shape, s_cdf, s_meta, width,
                                      intervals=int(s_counts.sum()))[0],
@@ -2008,6 +2117,8 @@ def main():
                        "coded_intervals": int(wcounts.sum())},
         pair_lookup_ms=pair_ms, decode_gamma_variants_ms=gamma_ms,
         decode_gamma_streams_ms=gamma_sweep,
+        decode_indexed_variants_ms=indexed_ms,
+        decode_indexed_streams_ms=indexed_sweep,
         warp_decode_max_streams=cc.WARP_DECODE_MAX_STREAMS,
         encode_scan_variants_ms=scan_ms, encode_scan_streams_ms=scan_sweep,
         warp_encode_max_streams=cc.WARP_ENCODE_MAX_STREAMS,

@@ -1,14 +1,18 @@
-// Range decode: five kernels over the RangeDecoder recurrence.  Four run one
+// Range decode: six kernels over the RangeDecoder recurrence.  Four run one
 // thread per coder stream (three from one template, one with the bucketed
-// symbol search); the fifth runs one warp per stream and serves the
-// in-stream-gamma decode when a launch holds few streams.
+// symbol search); two run one warp per stream (one template) and serve the
+// indexed and the in-stream-gamma decode when a launch holds few streams.
 //
-//   ctpu_decode_indexed     (K2)  replaces compression_tpu/codec/pallas_coder.py:
+//   ctpu_decode_indexed      (K2, thread per stream) and
+//   ctpu_decode_indexed_warp (K2, warp per stream) replace
+//       compression_tpu/codec/pallas_coder.py:
 //       decode_indexed_pallas(in_stream_gamma=False) -> _decode_indexed_call
 //       (_make_decode_kernel_indexed with any_overflow=False).  Each element
 //       s,t is decoded with CDF row indexes[s,t]; an escape comes back as
 //       the marker len-2 with no Elias-gamma bits consumed (the values
-//       travel in the native container's sidecar).
+//       travel in the native container's sidecar).  Both kernels compute
+//       the same function; the wrapper picks one from the number of streams
+//       in the launch.
 //   ctpu_decode_single_row  (K5') replaces pallas_coder.py:
 //       decode_scan_pallas_v2 -> _decode_v2_call.  One shared CDF row, no
 //       indexes, no overflow.
@@ -39,7 +43,7 @@
 //       (the same check as the other kernels').  It is the second,
 //       independent single-row decoder that K5' is held against.
 //
-// The template's three and the warp kernel compute the same function as the
+// The template's three and the warp kernels compute the same function as the
 // XLA scan the TPU kernels are held to, jax_coder.decode_core
 // (jax_coder.py:779-914), also on corrupt input.  Bytes past the stream end
 // read as zero (Read16BitValue); the sanity flag is RangeDecoder::Finalize's
@@ -72,9 +76,12 @@
 // not fit), so the search probes never leave the SM.  Small launches use
 // 32-thread blocks to spread streams over more SMs.
 //
-// Warp per stream (down to the one stream of a classic .tfci container):
-// with one thread per stream a single lane of the card would run, so the 32
-// lanes of a warp shorten the chain of one step instead.  One warp alone on
+// Warp per stream (down to the one stream of a classic .tfci container, and
+// the few hundred of a native container's launch): with one thread per
+// stream a single lane of the card would run, so the 32 lanes of a warp
+// shorten the chain of one step instead.  K2 and K3' are one template over
+// the escape: K2's step returns the count, the marker included, where K3''s
+// goes on to decode_escape.  One warp alone on
 // its scheduler has nothing to hide a stall behind, and it runs its code in
 // program order: what decides its time is the chain's length, every
 // operation that waits for a load in front of the chain, every jump, and the
@@ -109,9 +116,18 @@
 //     symbol's path has no refill branch.  Lane j % 32 keeps symbol j until
 //     the warp stores 32 of them as 128 bytes.  Escapes are decoded by a
 //     function of its own, outside the other symbols' path.
-//   - Measured on an H100 (PERF.md): 3.6-6x the thread kernel on one long
-//     stream, and ahead of it up to tens of thousands of streams, where
-//     the thread kernel's ~20x less work a symbol begins to count.
+//   - A block holds a few warps, each with its own stream and ring, and
+//     stages the table once for all of them with four 16-byte loads in
+//     flight a thread.  K3' launches eight warps a block; K2, whose launches
+//     hold a few hundred streams, four (kIndexedWarpsPerBlock): fewer warps
+//     a block spread the streams over more SMs, one warp to a scheduler,
+//     but each block stages the table again, and a block of bmshj2018's y
+//     table (196 KB) fills an SM alone.
+//   - Measured on an H100 (PERF.md): K3' 3.6-6x the thread kernel on one
+//     long stream; K2 6-8x at the native containers' 32-512 streams
+//     (0.058 against 0.408 ms at 256 x 512, 2.7x its chain's floor); both
+//     ahead of the thread kernel up to 16384 streams, where its ~20x less
+//     work a symbol begins to count.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC decode_indexed.cu -o decode_indexed.so
@@ -328,10 +344,23 @@ __global__ void decode_bucketed_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K3', one warp per stream.
+// K2 and K3', one warp per stream.
 // ---------------------------------------------------------------------------
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr int kWarpsPerBlock = 8;  // one stream each
+// Warps a block, one stream each.  K2's launches hold a few hundred
+// streams; measured on an NVIDIA H100 80GB HBM3 (700 W) by
+// tools/indexed_warp_geometry.py, from a CUDA graph, at the native
+// containers' launches, 2 / 4 / 8 warps a block, ms: bls2017's 256 x 512
+// 0.0584 / 0.0584 / 0.0710, its 512 x 384 0.0449 / 0.0448 / 0.0542;
+// bmshj2018's y 512 x 384 0.1296 / 0.0644 / 0.0734 (two blocks of its
+// 196 KB table do not fit an SM, so 2 warps a block run in two waves),
+// 512 x 576 0.1880 / 0.0936 / 0.1075, its z 32 x 384 0.0451 / 0.0450 /
+// 0.0543.
+constexpr int kIndexedWarpsPerBlock = 4;
+constexpr int kGammaWarpsPerBlock = 8;
+__host__ __device__ constexpr int warps_per_block(int mode) {
+  return mode == kIndexed ? kIndexedWarpsPerBlock : kGammaWarpsPerBlock;
+}
 constexpr int kWindowBytes = 512;  // 32 lanes x 16 bytes
 constexpr int kRingBytes = 2 * kWindowBytes;
 constexpr int kDirectBuckets = 4;  // rows of <= 129 entries: one level
@@ -555,13 +584,15 @@ __device__ __noinline__ Escaped decode_escape(WarpDecoder dec, int32_t marker) {
   return out;
 }
 
-// layout: the 16-bit table layout of geometry g, 16-byte aligned.  Dynamic
-// shared memory: kWarpsPerBlock rings, then (kSharedTable) the layout.
-// kDirect: rows of at most 129 entries (g.buckets == kDirectBuckets), found
-// in one level.
-template <bool kSharedTable, bool kDirect>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock, 1)
-decode_gamma_warp_kernel(
+// layout: the 16-bit table layout of geometry g, 16-byte aligned.  One
+// stream a warp, warps_per_block(kMode) warps a block.  Dynamic shared
+// memory: a ring a warp, then (kSharedTable) the layout.  kMode: kIndexed
+// (K2, the escape marker comes back as the symbol) or kGamma (K3', the
+// escape is decoded from the stream).  kDirect: rows of at most 129
+// entries (g.buckets == kDirectBuckets), found in one level.
+template <int kMode, bool kSharedTable, bool kDirect>
+__global__ void __launch_bounds__(32 * warps_per_block(kMode), 1)
+decode_symbols_warp_kernel(
     const uint8_t* __restrict__ buf, int64_t buf_width,
     const int32_t* __restrict__ byte_lens,
     const int32_t* __restrict__ indexes, int64_t num_streams,
@@ -570,15 +601,26 @@ decode_gamma_warp_kernel(
   extern __shared__ uint4 warp_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  constexpr int warps = warps_per_block(kMode);
   const char* table = reinterpret_cast<const char*>(layout);
   if (kSharedTable) {
-    uint4* dst = warp_smem + kWarpsPerBlock * (kRingBytes / 16);
-    for (int64_t i = threadIdx.x; i < g.units / 8; i += blockDim.x)
-      dst[i] = layout[i];
+    // Four loads in flight a thread before their stores.
+    uint4* dst = warp_smem + warps * (kRingBytes / 16);
+    const int64_t n = g.units / 8, step = 32 * warps;
+    int64_t i = threadIdx.x;
+    for (; i + 3 * step < n; i += 4 * step) {
+      const uint4 a = layout[i], b = layout[i + step];
+      const uint4 c = layout[i + 2 * step], d = layout[i + 3 * step];
+      dst[i] = a;
+      dst[i + step] = b;
+      dst[i + 2 * step] = c;
+      dst[i + 3 * step] = d;
+    }
+    for (; i < n; i += step) dst[i] = layout[i];
     __syncthreads();
     table = reinterpret_cast<const char*>(dst);
   }
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * warps + warp;
   if (s >= num_streams) return;
 
   const int buckets = kDirect ? kDirectBuckets : g.buckets;
@@ -677,11 +719,18 @@ decode_gamma_warp_kernel(
         count == cur.meta.w ? static_cast<uint32_t>(cur.meta.z) : c_up;
     dec.refine(static_cast<uint32_t>(dec.scaled(c_lo) >> prec),
                static_cast<uint32_t>(dec.scaled(c_hi) >> prec) - 1u);
+    // K2: the count is the symbol, the escape marker len-2 included.  It
+    // is capped at the row's limit, the thread kernel's at max_len - 2:
+    // the same, since count <= limit <= max_len - 2 on every row that
+    // reaches 2^precision before its padding (warp_table), which every
+    // row of a tables.CdfTable does.
     int32_t sym = count;
-    if (__builtin_expect(sym == cur.meta.x, 0)) {
-      const Escaped e = decode_escape(dec, cur.meta.x);
-      dec = e.dec;
-      sym = e.value;
+    if (kMode == kGamma) {
+      if (__builtin_expect(sym == cur.meta.x, 0)) {
+        const Escaped e = decode_escape(dec, cur.meta.x);
+        dec = e.dec;
+        sym = e.value;
+      }
     }
     return lane == t ? sym : keep;
   };
@@ -788,19 +837,22 @@ extern "C" int ctpu_decode_gamma(
 
 // layout: the table in the 16-bit layout of cuda_coder.warp_table (int16
 // [layout_units], 16-byte aligned) for a table of num_rows x max_len.
-extern "C" int ctpu_decode_gamma_warp(
-    const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
-    const int32_t* indexes, int64_t num_streams, int64_t num_elements,
-    const void* layout, int64_t layout_units, int num_rows, int max_len,
-    int32_t* symbols, uint8_t* sanity, void* stream) {
+template <int kMode>
+int launch_warp(const uint8_t* buf, int64_t buf_width,
+                const int32_t* byte_lens, const int32_t* indexes,
+                int64_t num_streams, int64_t num_elements,
+                const void* layout, int64_t layout_units, int num_rows,
+                int max_len, int32_t* symbols, uint8_t* sanity,
+                void* stream) {
   const WarpLayout g = warp_layout(num_rows, max_len);
   if (g.units != layout_units || (reinterpret_cast<uintptr_t>(layout) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t rings = static_cast<size_t>(kWarpsPerBlock) * kRingBytes;
+  constexpr int warps = warps_per_block(kMode);
+  const size_t rings = static_cast<size_t>(warps) * kRingBytes;
   const size_t table_bytes = 2 * static_cast<size_t>(g.units);
   const bool use_shared = rings + table_bytes <= 227 * 1024;
   const size_t smem = rings + (use_shared ? table_bytes : 0);
-  const int64_t blocks = (num_streams + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int64_t blocks = (num_streams + warps - 1) / warps;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
   const uint4* lay = static_cast<const uint4*>(layout);
   const bool direct = g.buckets == kDirectBuckets;
@@ -811,17 +863,38 @@ extern "C" int ctpu_decode_gamma_warp(
           static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    kernel<<<static_cast<unsigned>(blocks), 32 * kWarpsPerBlock, smem,
+    kernel<<<static_cast<unsigned>(blocks), 32 * warps, smem,
              static_cast<cudaStream_t>(stream)>>>(
         buf, buf_width, byte_lens, indexes, num_streams, num_elements, lay, g,
         symbols, sanity);
     return static_cast<int>(cudaGetLastError());
   };
   if (use_shared)
-    return direct ? run(decode_gamma_warp_kernel<true, true>)
-                  : run(decode_gamma_warp_kernel<true, false>);
-  return direct ? run(decode_gamma_warp_kernel<false, true>)
-                : run(decode_gamma_warp_kernel<false, false>);
+    return direct ? run(decode_symbols_warp_kernel<kMode, true, true>)
+                  : run(decode_symbols_warp_kernel<kMode, true, false>);
+  return direct ? run(decode_symbols_warp_kernel<kMode, false, true>)
+                : run(decode_symbols_warp_kernel<kMode, false, false>);
+}
+
+extern "C" int ctpu_decode_gamma_warp(
+    const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
+    const int32_t* indexes, int64_t num_streams, int64_t num_elements,
+    const void* layout, int64_t layout_units, int num_rows, int max_len,
+    int32_t* symbols, uint8_t* sanity, void* stream) {
+  return launch_warp<kGamma>(buf, buf_width, byte_lens, indexes, num_streams,
+                             num_elements, layout, layout_units, num_rows,
+                             max_len, symbols, sanity, stream);
+}
+
+extern "C" int ctpu_decode_indexed_warp(
+    const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
+    const int32_t* indexes, int64_t num_streams, int64_t num_elements,
+    const void* layout, int64_t layout_units, int num_rows, int max_len,
+    int32_t* symbols, uint8_t* sanity, void* stream) {
+  return launch_warp<kIndexed>(buf, buf_width, byte_lens, indexes,
+                               num_streams, num_elements, layout,
+                               layout_units, num_rows, max_len, symbols,
+                               sanity, stream);
 }
 
 extern "C" int ctpu_decode_single_row_bucketed(

@@ -3,9 +3,9 @@ PyTorch versions (counterpart of compression_tpu/codec/pallas_coder.py).
 
 Nine kernels from three sources in ``csrc/``; the coders run one thread per
 coder stream over one copy of the encoder recurrence and one of the
-decoder's (the in-stream-gamma decode, the micro-op scan and the two symbol
-encoders K1 and K6' also one warp per stream, see below), the pair lookup
-four elements per thread:
+decoder's (the two indexed decoders K2 and K3', the micro-op scan and the
+two symbol encoders K1 and K6' also one warp per stream, see below), the
+pair lookup four elements per thread:
 
 * ``encode_indexed`` (K1) replaces ``pallas_coder.encode_indexed_device``
   with its fused chunk post-pass: a CDF row per element, escapes coded as
@@ -17,7 +17,14 @@ four elements per thread:
   ``encode_indexed_thread`` run one variant whatever the shape;
   ``encode_indexed_warp_plain`` mirrors the warp kernel on the CPU.
 * ``decode_indexed`` (K2) replaces
-  ``pallas_coder.decode_indexed_pallas(in_stream_gamma=False)``.
+  ``pallas_coder.decode_indexed_pallas(in_stream_gamma=False)``.  Like
+  K3' it has two kernels, picked by the stream count alone: launches of at
+  most ``WARP_DECODE_MAX_STREAMS`` streams (every native container's) take
+  the warp-per-stream kernel, K3''s with the escape's decode compiled out,
+  larger ones the thread-per-stream kernel.  ``decode_indexed_warp`` /
+  ``decode_indexed_thread`` run one variant whatever the shape;
+  ``decode_indexed_warp_plain`` mirrors the warp kernel's search on the
+  CPU.
 * ``encode_single_row`` (K4') replaces
   ``pallas_coder.encode_single_row_device``: one shared row, no overflow.
 * ``decode_single_row`` (K5') replaces ``pallas_coder.decode_scan_pallas_v2``.
@@ -65,8 +72,8 @@ and then runs the plain version when the tensors lie on the CPU, or
 launches the kernel on the current CUDA stream (and adds one to
 ``LAUNCHES[name]``) when they lie on a CUDA device.  There is no fallback
 between the two: a CUDA tensor reaches the kernel or an exception.
-``LAUNCHES_WARP[name]`` counts those of the launches of K1, K3', K6' and
-K6's micro-op mode that took the warp-per-stream kernel.
+``LAUNCHES_WARP[name]`` counts those of the launches of K1, K2, K3', K6'
+and K6's micro-op mode that took the warp-per-stream kernel.
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use (or by
 ``build()``), one process per source started together, into the package's
@@ -105,6 +112,8 @@ __all__ = [
     "encode_indexed_warp",
     "encode_indexed_thread",
     "decode_indexed",
+    "decode_indexed_warp",
+    "decode_indexed_thread",
     "encode_single_row",
     "decode_single_row",
     "encode_gamma",
@@ -121,6 +130,7 @@ __all__ = [
     "encode_indexed_plain",
     "encode_indexed_warp_plain",
     "decode_indexed_plain",
+    "decode_indexed_warp_plain",
     "encode_single_row_plain",
     "decode_single_row_plain",
     "encode_gamma_plain",
@@ -145,20 +155,23 @@ LAUNCHES = {"encode_indexed": 0, "decode_indexed": 0,
             "encode_scan": 0, "pair_lookup": 0,
             "decode_single_row_bucketed": 0}
 
-#: Of ``LAUNCHES[name]`` for the four functions that have two kernels, the
+#: Of ``LAUNCHES[name]`` for the five functions that have two kernels, the
 #: launches of the warp-per-stream kernel.
-LAUNCHES_WARP = {"decode_gamma": 0, "encode_scan": 0, "encode_gamma": 0,
-                 "encode_indexed": 0}
+LAUNCHES_WARP = {"decode_indexed": 0, "decode_gamma": 0, "encode_scan": 0,
+                 "encode_gamma": 0, "encode_indexed": 0}
 
-#: K3' launches of at most this many streams take the warp-per-stream
-#: kernel, larger ones the thread-per-stream kernel.  Measured on an NVIDIA
-#: H100 80GB HBM3 (700 W) by chip_smoke.py, streams x 512 symbols on 64
-#: Gaussian overflow rows, warp / thread ms: 1 x 512 0.114 / 0.520, 1024
-#: 0.130 / 0.682, 4096 0.302 / 0.684, 8192 0.546 / 0.974, 16384 1.05 / 1.94,
-#: 24576 1.56 / 0.852, 32768 2.05 / 0.856, 65536 3.99 / 1.68; one stream of
-#: 131072 symbols 18.9 / 83.4.  The warp kernel leads up to 16384 streams;
-#: from 16896 on the thread kernel runs 128-thread blocks, fills the card
-#: and leads.
+#: K2 and K3' launches of at most this many streams take their
+#: warp-per-stream kernels, larger ones their thread-per-stream kernels.
+#: Measured on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py, streams x
+#: 512 symbols on 64 Gaussian overflow rows, warp / thread ms.  K3': 1 x 512
+#: 0.114 / 0.520, 1024 0.130 / 0.682, 4096 0.302 / 0.684, 8192 0.546 /
+#: 0.974, 16384 1.05 / 1.94, 24576 1.56 / 0.852, 32768 2.05 / 0.856, 65536
+#: 3.99 / 1.68; one stream of 131072 symbols 18.9 / 83.4.  K2: 1 0.094 /
+#: 0.482, 256 0.095 / 0.589, 1024 0.105 / 0.597, 4096 0.324 / 0.597, 8192
+#: 0.640 / 0.883, 16384 1.22 / 1.77, 16896 1.22 / 0.720, 32768 2.35 /
+#: 0.769, 65536 4.64 / 1.51.  Both warp kernels lead up to 16384 streams;
+#: from 16896 on the thread kernels run 128-thread blocks, fill the card
+#: and lead.
 WARP_DECODE_MAX_STREAMS = 16384
 
 #: K6 micro-op, K6' and K1 launches of at most this many streams take
@@ -196,6 +209,8 @@ _ENCODE_ARGS = [_vp, _vp, _i64, _i64, _vp, _vp, _int, _int, _vp, _i64, _vp,
                 _vp]
 _DECODE_ARGS = [_vp, _i64, _vp, _vp, _i64, _i64, _vp, _vp, _int, _int, _vp,
                 _vp, _vp]
+_DECODE_WARP_ARGS = [_vp, _i64, _vp, _vp, _i64, _i64, _vp, _i64, _int,
+                     _int, _vp, _vp, _vp]
 _ARGTYPES = {
     "ctpu_encode_indexed": _ENCODE_ARGS,
     "ctpu_encode_gamma": _ENCODE_ARGS,
@@ -211,8 +226,8 @@ _ARGTYPES = {
                          _vp],
     "ctpu_encode_scan_warp": [_vp, _vp, _vp, _vp, _i64, _i64, _vp, _i64,
                               _vp, _vp],
-    "ctpu_decode_gamma_warp": [_vp, _i64, _vp, _vp, _i64, _i64, _vp, _i64,
-                               _int, _int, _vp, _vp, _vp],
+    "ctpu_decode_gamma_warp": _DECODE_WARP_ARGS,
+    "ctpu_decode_indexed_warp": _DECODE_WARP_ARGS,
     "ctpu_pair_lookup": [_vp, _i64, _vp, _i64, _vp, _vp, _int, _vp],
     "ctpu_decode_single_row_bucketed": [_vp, _i64, _vp, _i64, _i64, _vp, _vp,
                                         _int, _int, _int, _vp, _vp, _vp],
@@ -1103,7 +1118,7 @@ def _encode_plain(lower, upper, prec, mask, out, lengths):
 def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain,
             layout=None):
     """Checks, allocates and runs a decoder; with ``layout`` (the table as
-    ``warp_table`` gives it) the warp-per-stream kernel of K3'."""
+    ``warp_table`` gives it) the warp-per-stream kernel of K2 or K3'."""
     device = buf.device
     _check("buf", buf, torch.uint8, 2, device)
     _check("byte_lens", byte_lens, torch.int32, 1, device)
@@ -1130,9 +1145,10 @@ def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain,
             plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity, layout)
         return symbols, sanity
     if layout is not None:
-        _launch(name, _lib("decode_indexed").ctpu_decode_gamma_warp, buf,
-                buf.shape[1], byte_lens, indexes, num_streams, n, layout,
-                layout.numel(), cdf.shape[0], cdf.shape[1], symbols, sanity)
+        fn = getattr(_lib("decode_indexed"), f"ctpu_{name}_warp")
+        _launch(name, fn, buf, buf.shape[1], byte_lens, indexes, num_streams,
+                n, layout, layout.numel(), cdf.shape[0], cdf.shape[1],
+                symbols, sanity)
         LAUNCHES_WARP[name] += 1
         return symbols, sanity
     fn = getattr(_lib("decode_indexed"), "ctpu_" + name)
@@ -1145,7 +1161,11 @@ def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain,
     return symbols, sanity
 
 
-def decode_indexed(buf, byte_lens, indexes, cdf, meta):
+def _takes_warp_decode(buf):
+    return buf.ndim == 2 and buf.shape[0] <= WARP_DECODE_MAX_STREAMS
+
+
+def decode_indexed(buf, byte_lens, indexes, cdf, meta, layout=None):
     """K2: range-decodes every stream with a CDF row per element (sidecar
     format).
 
@@ -1153,14 +1173,42 @@ def decode_indexed(buf, byte_lens, indexes, cdf, meta):
       buf: uint8 [S, W] stream bytes; bytes past byte_lens[s] read as zero.
       byte_lens: int32 [S].
       indexes: int32 [S, N] CDF row per element.
-      cdf, meta: the table (see module docstring); row precision <= 16.
+      cdf, meta: the table (see module docstring); row precision <= 16,
+        every row reaching 2^precision (as every ``tables.CdfTable`` row
+        does).
+      layout: ``warp_table(cdf, meta)`` where the caller keeps it
+        (``DeviceCdfTable.warp_arrays``); without it the warp variant lays
+        the table out on every call.
 
     Returns:
       (symbols int32 [S, N] with escapes as the marker length - 2,
        sanity bool [S]).
+
+    The number of streams alone picks the kernel: at most
+    ``WARP_DECODE_MAX_STREAMS`` take ``decode_indexed_warp``, more take
+    ``decode_indexed_thread``.
     """
+    if _takes_warp_decode(buf):
+        return decode_indexed_warp(buf, byte_lens, indexes, cdf, meta, layout)
+    return decode_indexed_thread(buf, byte_lens, indexes, cdf, meta)
+
+
+def decode_indexed_thread(buf, byte_lens, indexes, cdf, meta):
+    """K2 by its thread-per-stream kernel (arguments and result as
+    ``decode_indexed``); on the CPU ``decode_indexed_plain``."""
     return _decode("decode_indexed", buf, byte_lens, indexes, None, cdf,
                    meta, decode_indexed_plain)
+
+
+def decode_indexed_warp(buf, byte_lens, indexes, cdf, meta, layout=None):
+    """K2 by its warp-per-stream kernel (arguments and result as
+    ``decode_indexed``); on the CPU ``decode_indexed_warp_plain``, the
+    plain decoder over the kernel's table layout and search."""
+    if layout is None:
+        _check_table(cdf, meta, cdf.device)
+        layout = warp_table(cdf, meta)
+    return _decode("decode_indexed", buf, byte_lens, indexes, None, cdf,
+                   meta, decode_indexed_warp_plain, layout)
 
 
 def decode_single_row(buf, byte_lens, num_elements, cdf, meta):
@@ -1181,7 +1229,7 @@ def decode_gamma(buf, byte_lens, indexes, cdf, meta, layout=None):
     ``decode_gamma_thread``.  ``layout`` is ``warp_table(cdf, meta)`` where
     the caller keeps it (``DeviceCdfTable.warp_arrays``); without it the
     warp variant lays the table out on every call."""
-    if buf.ndim == 2 and buf.shape[0] <= WARP_DECODE_MAX_STREAMS:
+    if _takes_warp_decode(buf):
         return decode_gamma_warp(buf, byte_lens, indexes, cdf, meta, layout)
     return decode_gamma_thread(buf, byte_lens, indexes, cdf, meta)
 
@@ -1424,6 +1472,17 @@ def decode_indexed_plain(buf, byte_lens, indexes, cdf, meta, symbols,
                          sanity):
     """Plain PyTorch version of K2 (writes symbols, sanity)."""
     _decode_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity, False)
+
+
+def decode_indexed_warp_plain(buf, byte_lens, indexes, cdf, meta, symbols,
+                              sanity, layout=None):
+    """Plain PyTorch version of K2's warp-per-stream kernel (writes symbols,
+    sanity): ``decode_indexed_plain`` with the symbol found by
+    ``warp_search_plain`` over ``layout`` (default ``warp_table(cdf,
+    meta)``)."""
+    layout = warp_table(cdf, meta) if layout is None else layout
+    _decode_plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity, False,
+                  _WarpSearch(layout, *cdf.shape))
 
 
 def decode_single_row_plain(buf, byte_lens, cdf, meta, symbols, sanity):

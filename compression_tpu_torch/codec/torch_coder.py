@@ -240,9 +240,9 @@ def decode_dispatch(buf, byte_lens, num_elements, table: DeviceCdfTable,
     cdf, meta = table.indexed_arrays()
     args = (buf.contiguous(), byte_lens.to(torch.int32).contiguous(),
             indexes.to(torch.int32).contiguous(), cdf, meta)
-    if in_stream_gamma:
-        return cuda_coder.decode_gamma(*args, table.warp_arrays())
-    return cuda_coder.decode_indexed(*args)
+    decode = cuda_coder.decode_gamma if in_stream_gamma else \
+        cuda_coder.decode_indexed
+    return decode(*args, table.warp_arrays())
 
 
 # -----------------------------------------------------------------------------
@@ -345,7 +345,8 @@ def decode_streams(buf, byte_lens, num_elements, table: DeviceCdfTable,
     if route == "gamma":
         return cuda_coder.decode_gamma(buf, byte_lens, indexes, cdf, meta,
                                        table.warp_arrays())
-    return cuda_coder.decode_indexed(buf, byte_lens, indexes, cdf, meta)
+    return cuda_coder.decode_indexed(buf, byte_lens, indexes, cdf, meta,
+                                     table.warp_arrays())
 
 
 # -----------------------------------------------------------------------------

@@ -545,3 +545,140 @@ def test_symbol_variant_follows_the_stream_count(device):
             ref = (torch.empty_like(out), torch.empty_like(lens))
             getattr(cuda_coder, name + "_plain")(*part, cdf, meta, *ref)
             assert torch.equal(out, ref[0]) and torch.equal(lens, ref[1])
+
+
+# -- K2's two kernels ---------------------------------------------------------
+def _indexed_streams(table, device, streams, n, seed, scale):
+    """Sidecar streams (K1) of Laplace symbols, escapes on the overflow
+    rows coded as the marker; returns (symbols as K2 gives them back,
+    indexes, bytes, lengths)."""
+    cdf, meta = table.indexed_arrays()
+    rng = np.random.RandomState(seed)
+    idx = torch.as_tensor(rng.randint(0, table.num_rows, (streams, n)),
+                          dtype=torch.int32, device=device)
+    sym = torch.as_tensor(
+        np.round(rng.laplace(0, scale, (streams, n))).astype(np.int32),
+        device=device)
+    buf, lens = cuda_coder.encode_indexed(sym, idx, cdf, meta,
+                                          torch_coder.stream_out_size(n))
+    marker, _, ovf = meta.long()[idx.long()].unbind(-1)
+    escape = (ovf != 0) & ((sym < 0) | (sym >= marker))
+    back = torch.where(escape, marker,
+                       torch.minimum(sym.long().clamp(min=0), marker))
+    return back.to(torch.int32), idx, buf, lens
+
+
+def _indexed_variants_match_plain(buf, lens, idx, table):
+    """The wrapper and both kernels of K2 against decode_indexed_plain,
+    run once; returns the plain result."""
+    cdf, meta = table.indexed_arrays()
+    before = (cuda_coder.LAUNCHES["decode_indexed"],
+              cuda_coder.LAUNCHES_WARP["decode_indexed"])
+    layout = table.warp_arrays()
+    got = [cuda_coder.decode_indexed_warp(buf, lens, idx, cdf, meta, layout),
+           cuda_coder.decode_indexed_thread(buf, lens, idx, cdf, meta),
+           cuda_coder.decode_indexed(buf, lens, idx, cdf, meta, layout)]
+    torch.cuda.synchronize()
+    warp = int(buf.shape[0] <= cuda_coder.WARP_DECODE_MAX_STREAMS)
+    assert (cuda_coder.LAUNCHES["decode_indexed"],
+            cuda_coder.LAUNCHES_WARP["decode_indexed"]) == (
+                before[0] + 3, before[1] + 1 + warp)
+    ref = (torch.empty_like(got[0][0]), torch.empty_like(got[0][1]))
+    cuda_coder.decode_indexed_plain(buf, lens, idx, cdf, meta, *ref)
+    for out, ok in got:
+        assert torch.equal(out, ref[0]) and torch.equal(ok, ref[1])
+    return ref
+
+
+@pytest.mark.parametrize("name", sorted(WARP_TABLES))
+def test_indexed_decode_variants_match_plain(device, name):
+    """The wrapper and both kernels of K2 on intact streams with escapes
+    (round trip to the marker included), truncated, bit-flipped, random
+    and empty ones, on tables that take each path of the warp kernel's
+    search."""
+    table = _table(17, True, device) if WARP_TABLES[name] is None else \
+        _long_row_table(device, *WARP_TABLES[name], seed=18)
+    sym, idx, buf, lens = _indexed_streams(table, device, 70, 150, 19, 60.0)
+    out, ok = _indexed_variants_match_plain(buf, lens, idx, table)
+    assert torch.equal(out, sym) and bool(ok.all())
+    gen = torch.Generator(device=device).manual_seed(20)
+    cols = torch.arange(buf.shape[1], device=device)
+    flipped = buf ^ ((torch.rand(buf.shape, generator=gen, device=device)
+                      < 0.01).to(torch.uint8) * 4)
+    noise = torch.randint(0, 256, buf.shape, generator=gen, device=device,
+                          dtype=torch.uint8)
+    for b, ln in ((buf, lens // 2), (flipped, lens), (noise, lens),
+                  (buf, torch.zeros_like(lens))):
+        b = torch.where(cols[None, :] < ln[:, None], b, 0).to(torch.uint8)
+        _indexed_variants_match_plain(b.contiguous(), ln.contiguous(), idx,
+                                      table)
+
+
+@pytest.mark.parametrize("width", [41, 64, 1031])
+def test_indexed_decode_variants_short_streams_and_odd_widths(device, width):
+    """Streams of 0, 1, 2, 3 and ``width`` bytes in a buffer full of noise,
+    also from a view one byte into its storage (most rows start
+    unaligned)."""
+    table = _table(21, True, device)
+    gen = torch.Generator(device=device).manual_seed(width + 1)
+    buf = torch.randint(0, 256, (40, width), generator=gen, device=device,
+                        dtype=torch.uint8)
+    lens = torch.tensor([0, 1, 2, 3, width] * 8, dtype=torch.int32,
+                        device=device)
+    idx = torch.randint(0, 8, (40, 600), generator=gen, device=device,
+                        dtype=torch.int32)
+    _indexed_variants_match_plain(buf, lens, idx, table)
+    flat = torch.randint(0, 256, (40 * width + 1,), generator=gen,
+                         device=device, dtype=torch.uint8)
+    _indexed_variants_match_plain(flat[1:].view(40, width), lens, idx, table)
+
+
+# The native main paths' K2 launches: bls2017's 512x512 and 768x512 image,
+# bmshj2018's y and z (streams, symbols, table).
+NATIVE_SHAPES = {"bls2017_512": (256, 512, "short"),
+                 "bls2017_768": (512, 384, "short"),
+                 "bmshj2018_y": (512, 384, "two_level"),
+                 "bmshj2018_z": (32, 384, "short")}
+
+
+@pytest.mark.parametrize("name", sorted(NATIVE_SHAPES))
+def test_indexed_decode_variants_at_native_shapes(device, name):
+    streams, n, kind = NATIVE_SHAPES[name]
+    table = _table(22, True, device) if kind == "short" else \
+        _long_row_table(device, 64, 1481, seed=23)
+    sym, idx, buf, lens = _indexed_streams(table, device, streams, n, 24,
+                                           20.0)
+    out, ok = _indexed_variants_match_plain(buf, lens, idx, table)
+    assert torch.equal(out, sym) and bool(ok.all())
+
+
+def test_indexed_decode_partial_last_block(device):
+    """K2's warp kernel with a stream count that fills no last block, the
+    table in shared memory and in global memory."""
+    for table in (_long_row_table(device, 6, 1481, seed=25),
+                  _long_row_table(device, 120, 1100, seed=26)):
+        sym, idx, buf, lens = _indexed_streams(table, device, 37, 90, 27,
+                                               40.0)
+        out, ok = _indexed_variants_match_plain(buf, lens, idx, table)
+        assert torch.equal(out, sym) and bool(ok.all())
+
+
+def test_indexed_decode_variant_follows_the_stream_count(device):
+    """decode_indexed takes the warp kernel up to WARP_DECODE_MAX_STREAMS
+    streams and the thread kernel above, through the front end's sidecar
+    decode."""
+    table = _table(28, True, device)
+    edge = cuda_coder.WARP_DECODE_MAX_STREAMS
+    sym, idx, buf, lens = _indexed_streams(table, device, edge + 1, 40, 29,
+                                           30.0)
+    for streams, warp in ((edge, 1), (edge + 1, 0), (1, 1)):
+        before = (cuda_coder.LAUNCHES["decode_indexed"],
+                  cuda_coder.LAUNCHES_WARP["decode_indexed"])
+        out, ok = torch_coder.decode_dispatch(
+            buf[:streams].contiguous(), lens[:streams].contiguous(), 40,
+            table, idx[:streams].contiguous())
+        assert torch_coder.DISPATCH_LOG["decode_sidecar"] == "cuda-indexed"
+        assert (cuda_coder.LAUNCHES["decode_indexed"],
+                cuda_coder.LAUNCHES_WARP["decode_indexed"]) == (
+                    before[0] + 1, before[1] + warp)
+        assert torch.equal(out, sym[:streams]) and bool(ok.all())

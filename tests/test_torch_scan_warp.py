@@ -249,4 +249,5 @@ def test_dispatch_constant():
     assert isinstance(cuda_coder.WARP_ENCODE_MAX_STREAMS, int)
     assert cuda_coder.WARP_ENCODE_MAX_STREAMS >= 1
     assert set(cuda_coder.LAUNCHES_WARP) == {
-        "decode_gamma", "encode_scan", "encode_gamma", "encode_indexed"}
+        "decode_indexed", "decode_gamma", "encode_scan", "encode_gamma",
+        "encode_indexed"}

@@ -186,7 +186,8 @@ def test_dispatch_by_stream_count(monkeypatch):
     launch is counted."""
     assert cuda_coder.WARP_ENCODE_MAX_STREAMS == 16384
     assert set(cuda_coder.LAUNCHES_WARP) == {
-        "decode_gamma", "encode_scan", "encode_gamma", "encode_indexed"}
+        "decode_indexed", "decode_gamma", "encode_scan", "encode_gamma",
+        "encode_indexed"}
     taken = []
     for name in ("encode_gamma", "encode_indexed"):
         for variant in ("warp", "thread"):
