@@ -15,8 +15,10 @@ Phases, one JSON line each (any failure exits non-zero):
      every golden case of tests/golden/golden.npz (bytes equal the
      reference coder's) and on corrupted streams;
      K4'/K5' (single row) at the coder micro-bench's regime (32768 streams x
-     512 symbols of a zipf row at precision 12), on every golden case and
-     on corrupted streams;
+     512 symbols of a zipf row at precision 12; K5' with the table's slot
+     table), K4' also into rows of odd width and K5' on a buffer of odd
+     width, the same symbols on the row at precision 16 (K5''s 128 KB table
+     of counts), on every golden case and on corrupted streams;
      K6'/K3' (in-stream gamma) on the classic containers' one stream of a
      512x512 image's latent (bls2017: 1 x 131072 on its 128-row table;
      bmshj2018: y, 1 x 196608 on its 64-row table with the escapes the
@@ -96,7 +98,9 @@ Phases, one JSON line each (any failure exits non-zero):
      decompress gives them, by events and from a CUDA graph, beside the
      byte bound and the chain's floor, and both kernels from 1 to 65536
      streams of 512 symbols; K7' and its library call by events around a loop and
-     replayed from a CUDA graph.
+     replayed from a CUDA graph; K4' and K5' from a CUDA graph at the
+     micro-bench regime at precision 12 and 16 beside the byte bound and
+     the chain's floor, and from 1 to 65536 streams of 512 symbols.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.  Nothing of
@@ -247,14 +251,16 @@ def mixed_table(rng, num_rows, prec_lo, prec_hi, overflow):
         tables.build_ragged_cdf(cdfs, precs, ovfs))
 
 
-def zipf_table():
+def zipf_table(precision=12):
     """bench.py's workload table: zipf alpha 1.2 over 256 symbols at
-    precision 12, one row, no overflow; returns (table, pmf)."""
+    precision 12 (or ``precision``), one row, no overflow; returns (table,
+    pmf)."""
     from compression_tpu_torch.codec import tables
     pmf = 1.0 / (1 + np.arange(256)) ** 1.2
     pmf /= pmf.sum()
     return tables.parse_ragged_cdf(tables.build_ragged_cdf(
-        [tables.pmf_to_quantized_cdf(pmf, 12)], [12], [False])), pmf
+        [tables.pmf_to_quantized_cdf(pmf, precision)], [precision],
+        [False])), pmf
 
 
 def gaussian_table():
@@ -448,20 +454,38 @@ def compare_kernels(name, table, symbols, indexes, out_size, fails,
 
 
 def compare_single_row(name, table, symbols, fails, expect=None):
-    """K4' and K5' against their plain versions; returns (bytes, lengths,
-    plain encode ms, plain decode ms)."""
+    """K4' and K5' against their plain versions, K5' with the table's
+    cached slot table; K4' also into rows of odd width and K5' on those
+    bytes in a buffer of odd width (every other row at an odd address).
+    Returns (bytes, lengths, plain encode ms, plain decode ms, plain K8'
+    ms)."""
     import torch
     from compression_tpu_torch.codec import cuda_coder as cc, torch_coder
     cdf, meta = table.indexed_arrays()
+    slots = table.single_row_slots()
     n = int(symbols.shape[1])
+    out_size = torch_coder.stream_out_size(n)
+    decode = lambda b, ln, c, m: cc.decode_single_row(b, ln, n, c, m, slots)
     out_k, len_k, enc_ok, enc_ms = check_encode(
         "encode_single_row", cc.encode_single_row, cc.encode_single_row_plain,
-        (symbols, cdf, meta), torch_coder.stream_out_size(n))
+        (symbols, cdf, meta), out_size)
     sym_k, san_k, dec_ok, dec_ms = check_decode(
-        "decode_single_row",
-        lambda b, ln, c, m: cc.decode_single_row(b, ln, n, c, m),
-        cc.decode_single_row_plain, (out_k, len_k, cdf, meta))
+        "decode_single_row", decode, cc.decode_single_row_plain,
+        (out_k, len_k, cdf, meta))
     exact = bool(torch.equal(sym_k, symbols if expect is None else expect))
+    # Rows of odd width: K4''s rows, and K5''s buffer, at odd addresses.
+    odd_k, odd_len, odd_enc_ok, _ = check_encode(
+        "encode_single_row", cc.encode_single_row, cc.encode_single_row_plain,
+        (symbols, cdf, meta), out_size + 1)
+    odd_buf = torch.zeros((out_k.shape[0], out_size + 1), dtype=torch.uint8,
+                          device=out_k.device)
+    odd_buf[:, :out_size] = out_k
+    odd_sym, _, odd_dec_ok, _ = check_decode(
+        "decode_single_row", decode, cc.decode_single_row_plain,
+        (odd_buf, len_k, cdf, meta))
+    odd_ok = bool(odd_enc_ok and odd_dec_ok and torch.equal(odd_sym, sym_k)
+                  and torch.equal(odd_k[:, :out_size], out_k)
+                  and torch.equal(odd_len, len_k))
     # K8', the second single-row decoder: its plain version, and K5'.
     sym_b, san_b, buck_ok, buck_ms = check_decode(
         "decode_single_row_bucketed",
@@ -470,12 +494,13 @@ def compare_single_row(name, table, symbols, fails, expect=None):
         (out_k, len_k) + table.bucketed_arrays())
     agree = bool(torch.equal(sym_b, sym_k) and torch.equal(san_b, san_k))
     log("kernels", case=name, streams=int(symbols.shape[0]), symbols=n,
-        rows=1, max_precision=int(meta[0, 1]), encode_identical=enc_ok,
-        decode_identical=dec_ok, sanity_all=bool(san_k.all()),
-        round_trip=exact, bucketed_identical=buck_ok,
-        bucketed_equals_single_row=agree)
-    if not (enc_ok and dec_ok and exact and bool(san_k.all()) and buck_ok
-            and agree):
+        rows=1, max_precision=int(meta[0, 1]),
+        slot_table_bytes=int(4 * slots[0].numel()), encode_identical=enc_ok,
+        decode_identical=dec_ok, odd_width_identical=odd_ok,
+        sanity_all=bool(san_k.all()), round_trip=exact,
+        bucketed_identical=buck_ok, bucketed_equals_single_row=agree)
+    if not (enc_ok and dec_ok and odd_ok and exact and bool(san_k.all())
+            and buck_ok and agree):
         fails.append(name)
     return out_k, len_k, enc_ms, dec_ms, buck_ms
 
@@ -730,6 +755,22 @@ def warp_floor_ms(intervals, max_len, clock_mhz):
     return intervals * clocks / (clock_mhz * 1e3)
 
 
+def slot_floor_ms(symbols, precision, clock_mhz):
+    """The serial chain's own floor for K5' (ms): symbols x the dependent
+    operations of one symbol in the compiled kernel (cuobjdump -sass) x
+    their latency, at the card's highest SM clock.  From one size - 1 to
+    the next the chain runs through 23 register operations (select, float
+    conversion and add, the divisor's range test and scaling, reciprocal,
+    multiply, min, rounding conversion, wide multiply-add, two compares,
+    three selects, min, address; after the slot's load: mask, wide
+    multiply-add, funnel shift, complement, add) and one shared-memory
+    load; above precision 14 through 25 and two loads (the count, then the
+    row).  Taken at 4 clocks a register operation and 23 a shared-memory
+    load, the architecture's nominal latencies (not measured here)."""
+    clocks = 23 * 4 + 23 if precision <= 14 else 25 * 4 + 2 * 23
+    return symbols * clocks / (clock_mhz * 1e3)
+
+
 def scan_floor_ms(coded_steps, clock_mhz):
     """The serial chain's own floor for the warp-per-stream micro-op scan
     (ms): coded steps x the dependent operations of one step in the
@@ -969,8 +1010,14 @@ def main():
     clipped[:64, :3] = torch.tensor([-7, 300, 2 ** 31 - 1], dtype=torch.int32)
     compare_single_row("single_row/clip", ztable, clipped[:64].contiguous(),
                        fails, expect=clipped[:64].clamp(0, 255))
+    # The same symbols on the row at precision 16: K5''s 128 KB table of
+    # counts, and the pair read from the row.
+    ztable16 = torch_coder.DeviceCdfTable(zipf_table(16)[0], device)
+    compare_single_row("single_row/zipf_p16", ztable16, zsym, fails)
+    z_slots = ztable.single_row_slots()
     corrupt_cases("decode_single_row",
-                  lambda b, ln, c, m: cc.decode_single_row(b, ln, n_z, c, m),
+                  lambda b, ln, c, m: cc.decode_single_row(b, ln, n_z, c, m,
+                                                           z_slots),
                   cc.decode_single_row_plain, zbuf[:4096].contiguous(),
                   zlens[:4096].contiguous(), (zcdf, zmeta), 6, fails)
     corrupt_cases("decode_single_row_bucketed",
@@ -1414,8 +1461,13 @@ def main():
     front_ok = bool(torch.equal(fsym, zsym) and fok.all()
                     and torch.equal(fbuf, zbuf) and torch.equal(bsym, fsym)
                     and torch.equal(bok, fok))
+    # decode_streams hands K5' the table's cached slot table (the kernel
+    # takes no other form of the row).
+    front_slots = ztable.kernel_tables.get("single_row")
+    front_ok &= front_slots is not None and front_slots[1] == 12
     log("coder_front_end", shape=list(SINGLE_ROW_SHAPE), round_trip=front_ok,
-        launches=front_launches, dispatch=front_paths)
+        slot_table_bytes=int(4 * front_slots[0].numel()) if front_slots
+        else None, launches=front_launches, dispatch=front_paths)
     if not (front_ok and front_launches["encode_single_row"] == 1
             and front_launches["decode_single_row"] == 1
             and front_launches["decode_single_row_bucketed"] == 1
@@ -1712,10 +1764,11 @@ def main():
             symbols, idx, cdf, meta, out_size), 50),
         "decode_indexed": cuda_ms(lambda: cc.decode_indexed(
             buf, lens, idx, cdf, meta, table.warp_arrays()), 50),
-        "encode_single_row": cuda_ms(lambda: cc.encode_single_row(
-            zsym, zcdf, zmeta, zbuf.shape[1]), 20),
-        "decode_single_row": cuda_ms(lambda: cc.decode_single_row(
-            zbuf, zlens, n_z, zcdf, zmeta), 20),
+        # The single-row pair from a CUDA graph (the device's time).
+        "encode_single_row": graph_ms(lambda: cc.encode_single_row(
+            zsym, zcdf, zmeta, zbuf.shape[1])),
+        "decode_single_row": graph_ms(lambda: cc.decode_single_row(
+            zbuf, zlens, n_z, zcdf, zmeta, z_slots)),
         "encode_gamma": cuda_ms(lambda: cc.encode_gamma(
             csym, cidx, cdf, meta, cbuf.shape[1]), 5),
         "decode_gamma": cuda_ms(lambda: cc.decode_gamma(
@@ -1971,6 +2024,44 @@ def main():
                          "thread_ms": [r[1] for r in rounds]}
         symbol_sweep[f"{streams}x{sw_sym.shape[1]}"] = row
         del sw_sym, sw_idx
+    # K4' and K5' at the micro-bench regime and on its row at precision 16,
+    # beside the byte bound and the chain's floor (one stream's symbols:
+    # the streams run side by side), and as streams grow; from CUDA graphs.
+    single_ms = {}
+    for label, (s_tab, s_sym) in {
+            "zipf_p12": (ztable, zsym),
+            "zipf_p16": (ztable16, zsym)}.items():
+        s_cdf, s_meta = s_tab.indexed_arrays()
+        s_slots = s_tab.single_row_slots()
+        s_buf, s_lens = cc.encode_single_row(s_sym, s_cdf, s_meta,
+                                             zbuf.shape[1])
+        single_ms[at(label, s_sym)] = {
+            "encode_ms_graph": [graph_ms(lambda: cc.encode_single_row(
+                s_sym, s_cdf, s_meta, zbuf.shape[1])) for _ in range(2)],
+            "decode_ms_graph": [graph_ms(lambda: cc.decode_single_row(
+                s_buf, s_lens, n_z, s_cdf, s_meta, s_slots))
+                for _ in range(2)],
+            "slot_table_bytes": int(4 * s_slots[0].numel()),
+            "encode_bound_ms": encode_bound(*s_sym.shape, s_cdf, s_meta,
+                                            zbuf.shape[1],
+                                            with_indexes=False)[0],
+            "decode_bound_ms": decode_bound(s_lens, n_z, s_cdf, s_meta,
+                                            with_indexes=False)[0],
+            "encode_chain_floor_ms": scan_floor_ms(n_z, clock),
+            "decode_chain_floor_ms": slot_floor_ms(n_z, s_slots[1], clock)}
+    single_sweep = {}
+    for streams in SWEEP_STREAMS:
+        reps = -(-streams // zsym.shape[0])
+        sw_sym = zsym.repeat(reps, 1)[:streams].contiguous()
+        sw_buf = zbuf.repeat(reps, 1)[:streams].contiguous()
+        sw_lens = zlens.repeat(reps)[:streams].contiguous()
+        single_sweep[f"{streams}x{n_z}"] = {
+            "encode_ms_graph": [graph_ms(lambda: cc.encode_single_row(
+                sw_sym, zcdf, zmeta, zbuf.shape[1])) for _ in range(2)],
+            "decode_ms_graph": [graph_ms(lambda: cc.decode_single_row(
+                sw_buf, sw_lens, n_z, zcdf, zmeta, z_slots))
+                for _ in range(2)]}
+        del sw_sym, sw_buf, sw_lens
     plain_ms = {
         "encode_indexed": cuda_ms(lambda: cc.encode_indexed_plain(
             symbols, idx, cdf, meta, out_p, len_p), 3),
@@ -2070,7 +2161,7 @@ def main():
         at("encode_single_row", z256): cuda_ms(lambda: cc.encode_single_row(
             z256, zcdf, zmeta, zbuf.shape[1]), 20),
         at("decode_single_row", z256): cuda_ms(lambda: cc.decode_single_row(
-            zb256, zl256, n_z, zcdf, zmeta), 20),
+            zb256, zl256, n_z, zcdf, zmeta, z_slots), 20),
     }
     e2e_ms = {}
     for name, img in images.items():
@@ -2124,6 +2215,7 @@ def main():
         warp_encode_max_streams=cc.WARP_ENCODE_MAX_STREAMS,
         encode_symbols_variants_ms=symbol_ms,
         encode_symbols_streams_ms=symbol_sweep,
+        single_row_variants_ms=single_ms, single_row_streams_ms=single_sweep,
         sm_clock_mhz=clock, end_to_end=e2e_ms, card=smi)
 
     launches = {k: native_launches[k] + classic_launches[k]

@@ -1,7 +1,8 @@
 // Range decode: six kernels over the RangeDecoder recurrence.  Four run one
-// thread per coder stream (three from one template, one with the bucketed
-// symbol search); two run one warp per stream (one template) and serve the
-// indexed and the in-stream-gamma decode when a launch holds few streams.
+// thread per coder stream (K2 and K3' from one template, K5' over a slot
+// table, K8' with the bucketed symbol search); two run one warp per stream
+// (one template) and serve the indexed and the in-stream-gamma decode when
+// a launch holds few streams.
 //
 //   ctpu_decode_indexed      (K2, thread per stream) and
 //   ctpu_decode_indexed_warp (K2, warp per stream) replace
@@ -15,7 +16,8 @@
 //       in the launch.
 //   ctpu_decode_single_row  (K5') replaces pallas_coder.py:
 //       decode_scan_pallas_v2 -> _decode_v2_call.  One shared CDF row, no
-//       indexes, no overflow.
+//       indexes, no overflow; the row comes as a slot table
+//       (cuda_coder.single_row_slots, see below).
 //   ctpu_decode_gamma       (K3', thread per stream) and
 //   ctpu_decode_gamma_warp  (K3', warp per stream) replace pallas_coder.py:
 //       decode_indexed_pallas(in_stream_gamma=True): the reference .tfci
@@ -43,8 +45,8 @@
 //       (the same check as the other kernels').  It is the second,
 //       independent single-row decoder that K5' is held against.
 //
-// The template's three and the warp kernels compute the same function as the
-// XLA scan the TPU kernels are held to, jax_coder.decode_core
+// The thread template's two, K5' and the warp kernels compute the same
+// function as the XLA scan the TPU kernels are held to, jax_coder.decode_core
 // (jax_coder.py:779-914), also on corrupt input.  Bytes past the stream end
 // read as zero (Read16BitValue); the sanity flag is RangeDecoder::Finalize's
 // check and 2 * chunks_read >= byte_len (jax_coder.py:901-913).
@@ -75,6 +77,33 @@
 // metadata sit in shared memory (read through L1 from global when they do
 // not fit), so the search probes never leave the SM.  Small launches use
 // 32-thread blocks to spread streams over more SMs.
+//
+// K5', the single-row decode of the coder's micro-bench (32768 streams of
+// 512 symbols, where a warp per stream loses to a thread per stream: K3''s
+// sweep, 2.05 against 0.86 ms), keeps one thread per stream and takes
+// everything but the recurrence off its chain:
+//   - The search is one load.  The row is the only one, so its counts are
+//     laid out once per table by threshold: count = #{k : size * cdf[k] <
+//     lower_bound} = #{k : cdf[k] < t}, t = ceil(lower_bound / size), since
+//     the entries are integers; slot t for t in [0, 2^prec + 1] holds it
+//     (past 2^prec, a corrupt stream, t is capped: every entry is below).
+//     t comes from an f32 quotient, within 0.03 of the exact one, set right
+//     by two exact 64-bit products.  Up to precision 14 a slot holds the
+//     symbol and both ends of its interval (8 bytes; 32 KB at precision
+//     12), above it a 16-bit count, and the pair is a second load from the
+//     row (128 KB of slots at 16).  The table is staged in shared memory
+//     once a block.
+//   - The stream's bytes come through a 64-byte ring a thread in shared
+//     memory, four 16-byte segments loaded by cp.async (zero-filled past
+//     the stream's end) from the row's 16-byte aligned start, one period of
+//     8 symbols ahead of their use; a row at an odd address is read byte by
+//     byte.  The next chunk is always in a register, loaded from the ring a
+//     symbol ahead.  chunks_read, which the sanity flag takes, counts
+//     chunks consumed, not loaded.
+//   - Symbols leave 8 at a time as two 16-byte stores.
+//   - Measured on an H100 (PERF.md): 0.084 ms at 32768 x 512 against
+//     0.467 for the binary search's kernel, ahead of it at every stream
+//     count from 1 to 65536; the chain's floor is 0.030 ms.
 //
 // Warp per stream (down to the one stream of a classic .tfci container, and
 // the few hundred of a native container's launch): with one thread per
@@ -140,7 +169,7 @@ namespace {
 constexpr uint32_t kU16 = 0xFFFFu;
 constexpr int kMetaCols = 3;  // per row: escape marker len-2, precision, overflow
 
-enum Mode { kIndexed = 0, kSingleRow = 1, kGamma = 2 };
+enum Mode { kIndexed = 0, kGamma = 2 };
 
 // RangeDecoder::Finalize check plus "stream fully consumed".
 __device__ inline bool stream_sane(uint32_t base, uint32_t sm1, uint32_t value,
@@ -258,15 +287,11 @@ __global__ void decode_kernel(
   dec.avail = src_len < buf_width ? src_len : buf_width;
   dec.start();
 
-  const int32_t* irow =
-      kMode == kSingleRow ? nullptr : indexes + s * num_elements;
+  const int32_t* irow = indexes + s * num_elements;
   int32_t* orow = symbols + s * num_elements;
   for (int64_t j = 0; j < num_elements; ++j) {
-    int row = 0;
-    if (kMode != kSingleRow) {
-      row = irow[j];
-      row = row < 0 ? 0 : (row >= num_rows ? num_rows - 1 : row);
-    }
+    int row = irow[j];
+    row = row < 0 ? 0 : (row >= num_rows ? num_rows - 1 : row);
     const int prec = mt[kMetaCols * row + 1];
     int32_t sym = dec.symbol(tab + static_cast<int64_t>(row) * max_len,
                              max_len, prec);
@@ -341,6 +366,252 @@ __global__ void decode_bucketed_kernel(
     orow[j] = pv - 1;
   }
   sanity[s] = dec.sane(src_len) ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// K5', one thread per stream over a slot table.
+// ---------------------------------------------------------------------------
+// Streams (threads) a block.  Measured on an NVIDIA H100 80GB HBM3 (700 W)
+// by tools/single_row_sweep.py --geometry, from a CUDA graph, at 32768 x 512
+// on the zipf row at precision 12, 32 / 64 / 128 / 256 threads, ms: 0.1448 /
+// 0.0864 / 0.0850 / 0.0834.  Every size puts at most eight warps on an SM,
+// but each block stages the table (32 KB here), and 32-thread blocks of
+// 34 KB each do not fit eight to an SM.
+constexpr int kSingleRowThreads = 256;
+// Each thread's stream bytes pass through a ring of its own in shared
+// memory, four 16-byte segments.
+constexpr int kSingleRowRing = 64;
+// Symbols decoded between two looks at the ring, stored together.
+constexpr int kSingleRowPeriod = 8;
+// Up to this precision a slot holds the symbol and both ends of its
+// interval (8 bytes); above it, the count alone (2 bytes).
+constexpr int kWideMaxPrecision = 14;
+
+// cuda_coder.single_row_slots' layout in int32 units, a multiple of four:
+// 2^prec + 2 slots, as (symbol, c_lo | (c_hi - 1) << 16) up to
+// kWideMaxPrecision, else as uint16 counts followed by the row and 65536.
+inline int64_t slot_units(int prec, int max_len) {
+  const int64_t slots = (int64_t{1} << prec) + 2;
+  const int64_t units =
+      prec <= kWideMaxPrecision ? 2 * slots : slots / 2 + max_len + 1;
+  return (units + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem,
+                                             int src_bytes) {
+  const uint32_t dst =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One stream's bytes through its ring: segment m holds the bytes at
+// [16 m, 16 m + 16) from ``seg0``, stream byte j at seg0 + shift + j.  An
+// even row is read from its 16-byte aligned start by cp.async (zero-filled
+// past the stream's end), an odd row byte by byte from the row itself
+// (shift 0), so that a chunk never straddles two 16-bit units of the ring.
+struct RowReader {
+  const uint8_t* seg0;
+  int64_t avail;  // readable bytes: min(byte_len, buffer width)
+  int shift;
+  bool odd;
+  uint8_t* ring;
+  int segs;       // segments started; the ring holds [segs - 4, segs)
+
+  __device__ void fill() {
+    uint8_t* dst = ring + ((16 * segs) & (kSingleRowRing - 1));
+    const int64_t first = int64_t{16} * segs - shift;  // its first byte's j
+    const int64_t left = avail - first;
+    if (!odd) {
+      const int n = left <= 0 ? 0 : (left >= 16 ? 16 : static_cast<int>(left));
+      copy16_async(dst, n > 0 ? seg0 + 16 * static_cast<int64_t>(segs) : seg0,
+                   n);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll 1
+      for (int i = 0; i < 16; ++i)
+        if (i < left) w[i >> 2] |= static_cast<uint32_t>(seg0[first + i])
+                                   << (8 * (i & 3));
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    ++segs;
+  }
+
+  // The chunk at byte ``pos`` of the ring (shift + 2 k for chunk k), as it
+  // lies in memory: its high byte first.
+  __device__ uint32_t raw(uint32_t pos) const {
+    return *reinterpret_cast<const uint16_t*>(ring +
+                                              (pos & (kSingleRowRing - 1)));
+  }
+
+  // Before a period of kSingleRowPeriod symbols, ``pos`` the next chunk's
+  // ring byte: starts the next segment where the oldest is consumed (at
+  // most 48 bytes ahead), then waits for all but that one.  Every period
+  // consumes at most 2 kSingleRowPeriod bytes, so at each look 34 or more
+  // bytes lie ahead and the 18 a period reads have landed.
+  __device__ void top_up(uint32_t pos) {
+    if (16 * segs - static_cast<int>(pos) <= 3 * kSingleRowRing / 4) fill();
+    copy_async_commit();
+    copy_async_wait<1>();
+  }
+};
+
+// The decoder state: size - 1, the offset value - base of the reference
+// decoder (what the search and the update need), value itself (for the
+// sanity check at the end), and the ring byte of the next chunk with that
+// chunk loaded ahead.
+struct SlotDecoder {
+  uint32_t sm1;
+  uint32_t offset;
+  uint32_t value;
+  uint32_t pos;
+  uint32_t next;
+};
+
+// slot table: tab (int32 units, see slot_units).  One symbol: t = ceil(
+// (offset + 1) 2^prec / size), capped at 2^prec + 1, from an f32 quotient
+// (within 0.03 of the exact one) set right by two exact products; then one
+// slot load (kWide) or a count and the row (two dependent loads).
+template <bool kWide>
+__device__ __forceinline__ int32_t slot_symbol(SlotDecoder& d,
+                                               const RowReader& rd,
+                                               const int32_t* tab, int prec,
+                                               int max_len, float scale,
+                                               uint32_t tmax) {
+  const float fo = __uint2float_rn(d.offset) + 1.0f;
+  const float fs = __uint2float_rn(d.sm1) + 1.0f;
+  const float q = fminf(__fdividef(fo * scale, fs), scale + 2.0f);
+  const uint32_t t0 = __float2uint_ru(q);
+  const uint64_t lb = (static_cast<uint64_t>(d.offset) + 1) << prec;
+  const bool up = static_cast<uint64_t>(d.sm1) * t0 + t0 < lb;
+  const bool down =
+      static_cast<uint64_t>(d.sm1) * (t0 - 1u) + (t0 - 1u) >= lb;
+  const uint32_t t = min(t0 + (up ? 1u : 0u) - (down ? 1u : 0u), tmax);
+  uint32_t c_lo, c_hi;
+  int32_t sym;
+  if (kWide) {
+    const uint2 sl = reinterpret_cast<const uint2*>(tab)[t];
+    sym = static_cast<int32_t>(sl.x);
+    c_lo = sl.y & kU16;
+    c_hi = (sl.y >> 16) + 1u;
+  } else {
+    const uint32_t stored = reinterpret_cast<const uint16_t*>(tab)[t];
+    const uint32_t count =
+        t == tmax ? static_cast<uint32_t>(max_len - 1) : stored;
+    const int32_t* row = tab + (tmax + 1) / 2;
+    c_lo = static_cast<uint32_t>(row[count]);
+    c_hi = static_cast<uint32_t>(row[count + 1]);
+    sym = static_cast<int32_t>(min(count, static_cast<uint32_t>(max_len - 2)));
+  }
+  const uint32_t a = static_cast<uint32_t>(
+      (static_cast<uint64_t>(d.sm1) * c_lo + c_lo) >> prec);
+  const uint32_t b = static_cast<uint32_t>(
+      (static_cast<uint64_t>(d.sm1) * c_hi + c_hi) >> prec) - 1u;
+  const uint32_t ns = b - a;
+  const bool renorm = (ns >> 16) == 0;
+  const uint32_t left = d.offset - a;
+  d.offset = renorm ? __byte_perm(left, d.next, 0x1045) : left;
+  d.value = renorm ? __byte_perm(d.value, d.next, 0x1045) : d.value;
+  d.sm1 = renorm ? (ns << 16) | kU16 : ns;
+  d.pos += renorm ? 2u : 0u;
+  d.next = rd.raw(d.pos);
+  return sym;
+}
+
+// slots: the slot table, 16-byte aligned, slot_quads 16-byte units; staged
+// in shared memory after the rings (kShared) or read from global memory.
+template <bool kWide, bool kShared>
+__global__ void __launch_bounds__(kSingleRowThreads)
+decode_single_row_kernel(const uint8_t* __restrict__ buf, int64_t buf_width,
+                         const int32_t* __restrict__ byte_lens,
+                         int64_t num_streams, int64_t num_elements,
+                         const int4* __restrict__ slots, int64_t slot_quads,
+                         int prec, int max_len, int32_t* __restrict__ symbols,
+                         uint8_t* __restrict__ sanity) {
+  extern __shared__ int4 row_smem[];
+  const int32_t* tab = reinterpret_cast<const int32_t*>(slots);
+  if (kShared) {
+    int4* dst = row_smem + kSingleRowThreads * kSingleRowRing / 16;
+    int64_t i = threadIdx.x;
+    constexpr int step = kSingleRowThreads;
+    for (; i + 3 * step < slot_quads; i += 4 * step) {
+      const int4 a = slots[i], b = slots[i + step];
+      const int4 c = slots[i + 2 * step], e = slots[i + 3 * step];
+      dst[i] = a;
+      dst[i + step] = b;
+      dst[i + 2 * step] = c;
+      dst[i + 3 * step] = e;
+    }
+    for (; i < slot_quads; i += step) dst[i] = slots[i];
+    __syncthreads();
+    tab = reinterpret_cast<const int32_t*>(dst);
+  }
+  const int64_t s =
+      static_cast<int64_t>(blockIdx.x) * kSingleRowThreads + threadIdx.x;
+  if (s >= num_streams) return;
+
+  const int64_t src_len = byte_lens[s];
+  const uint8_t* src = buf + s * buf_width;
+  RowReader rd;
+  rd.avail = src_len < buf_width ? src_len : buf_width;
+  rd.odd = (reinterpret_cast<uintptr_t>(src) & 1) != 0;
+  rd.shift = rd.odd ? 0 : static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  rd.seg0 = src - rd.shift;
+  rd.ring = reinterpret_cast<uint8_t*>(row_smem) + threadIdx.x * kSingleRowRing;
+  rd.segs = 0;
+  for (int k = 0; k < kSingleRowRing / 16; ++k) rd.fill();
+  copy_async_commit();
+  copy_async_wait<0>();
+
+  SlotDecoder d;
+  d.sm1 = 0xFFFFFFFFu;
+  d.pos = static_cast<uint32_t>(rd.shift);
+  d.offset = __byte_perm(__byte_perm(0u, rd.raw(d.pos), 0x1045),
+                         rd.raw(d.pos + 2), 0x1045);
+  d.value = d.offset;
+  d.pos += 4;
+  d.next = rd.raw(d.pos);
+
+  const float scale = static_cast<float>(1u << prec);
+  const uint32_t tmax = (1u << prec) + 1u;
+  const int64_t n = num_elements;
+  int32_t* orow = symbols + s * n;
+  const bool vec = (reinterpret_cast<uintptr_t>(orow) & 15) == 0;
+  int64_t j = 0;
+  for (; j + kSingleRowPeriod <= n; j += kSingleRowPeriod) {
+    rd.top_up(d.pos);
+    int32_t out[kSingleRowPeriod];
+#pragma unroll
+    for (int i = 0; i < kSingleRowPeriod; ++i)
+      out[i] = slot_symbol<kWide>(d, rd, tab, prec, max_len, scale, tmax);
+    if (vec) {
+      int4* o4 = reinterpret_cast<int4*>(orow + j);
+#pragma unroll
+      for (int i = 0; i < kSingleRowPeriod / 4; ++i)
+        o4[i] = make_int4(out[4 * i], out[4 * i + 1], out[4 * i + 2],
+                          out[4 * i + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSingleRowPeriod; ++i) orow[j + i] = out[i];
+    }
+  }
+  rd.top_up(d.pos);
+  for (; j < n; ++j)
+    orow[j] = slot_symbol<kWide>(d, rd, tab, prec, max_len, scale, tmax);
+  const int64_t chunks = (d.pos - static_cast<uint32_t>(rd.shift)) / 2;
+  sanity[s] = stream_sane(d.value - d.offset, d.sm1, d.value, chunks, src_len)
+                  ? 1
+                  : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -814,17 +1085,6 @@ extern "C" int ctpu_decode_indexed(
                           symbols, sanity, stream);
 }
 
-// cdf / meta hold the one row: int32 [1, max_len] and [1, 3].
-extern "C" int ctpu_decode_single_row(
-    const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
-    int64_t num_streams, int64_t num_elements, const int32_t* cdf,
-    const int32_t* meta, int max_len, int32_t* symbols, uint8_t* sanity,
-    void* stream) {
-  return launch<kSingleRow>(buf, buf_width, byte_lens, nullptr, num_streams,
-                            num_elements, cdf, meta, 1, max_len, symbols,
-                            sanity, stream);
-}
-
 extern "C" int ctpu_decode_gamma(
     const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
     const int32_t* indexes, int64_t num_streams, int64_t num_elements,
@@ -919,4 +1179,44 @@ extern "C" int ctpu_decode_single_row_bucketed(
         win17, num_buckets, max_pv, prec, symbols, sanity);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// slots: cuda_coder.single_row_slots(cdf, meta) of a one-row table of
+// max_len entries at precision prec (1 ... 16), ``units`` int32, 16-byte
+// aligned.
+extern "C" int ctpu_decode_single_row(
+    const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
+    int64_t num_streams, int64_t num_elements, const void* slots,
+    int64_t units, int prec, int max_len, int32_t* symbols, uint8_t* sanity,
+    void* stream) {
+  if (prec < 1 || prec > 16 || max_len < 2 ||
+      units != slot_units(prec, max_len) ||
+      (reinterpret_cast<uintptr_t>(slots) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t rings = static_cast<size_t>(kSingleRowThreads) * kSingleRowRing;
+  const size_t table_bytes = 4 * static_cast<size_t>(units);
+  const bool shared = rings + table_bytes <= 227 * 1024;
+  const size_t smem = rings + (shared ? table_bytes : 0);
+  const int64_t blocks =
+      (num_streams + kSingleRowThreads - 1) / kSingleRowThreads;
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  auto run = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<static_cast<unsigned>(blocks), kSingleRowThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        buf, buf_width, byte_lens, num_streams, num_elements,
+        static_cast<const int4*>(slots), units / 4, prec, max_len, symbols,
+        sanity);
+    return static_cast<int>(cudaGetLastError());
+  };
+  // A wide table (at most 131 KB) always fits beside the rings.
+  if (prec <= kWideMaxPrecision)
+    return run(decode_single_row_kernel<true, true>);
+  return shared ? run(decode_single_row_kernel<false, true>)
+                : run(decode_single_row_kernel<false, false>);
 }

@@ -1,6 +1,7 @@
 // Range encode: four functions over one copy of the RangeEncoder recurrence,
 // each run one thread per coder stream, and three of them also one warp per
-// stream for launches of few streams.
+// stream for launches of few streams; K4''s thread kernel runs the warp
+// kernels' 32-bit chain.
 //
 //   ctpu_encode_indexed     (K1)  replaces compression_tpu/codec/pallas_coder.py:
 //       encode_indexed_device -> _encode_indexed_call (with the fused
@@ -11,6 +12,7 @@
 //   ctpu_encode_single_row  (K4') replaces pallas_coder.py:
 //       encode_single_row_device -> _encode_v3_call.  One shared CDF row, no
 //       indexes; symbols are clipped to [0, len-2] (pallas_coder.py:1576).
+//       One thread per stream on the 32-bit chain below; see "K4'".
 //   ctpu_encode_gamma       (K6') replaces pallas_coder.py:encode_scan_pallas
 //       (the scan over jax_coder.micro_ops_from_symbols' micro-ops, resolved
 //       to bytes by jax_coder._encode_postpass): the reference .tfci format.
@@ -57,6 +59,29 @@
 // TPU kernels' record buffer and reserve/resolve/compact post-pass
 // disappear; the thread zeroes its row's tail with 16-byte stores.  Small
 // launches use 32-thread blocks to spread streams over more SMs.
+//
+// K4', the single-row encode of the coder's micro-bench (32768 streams of
+// 512 symbols), is a thread per stream, and what costs there is issue: a
+// step's chain is six operations, but a step is some sixty instructions and
+// two warps share a scheduler.  So the kernel sheds instructions and takes
+// loads off the chain:
+//   - The step is the warp kernels' (scan_step, below), on one thread: the
+//     32-bit chain on operands packed at precision 16, the delayed carry by
+//     selects.  A block packs the row's operands once into shared memory;
+//     a symbol's operands are then one load, issued for a window of 16
+//     symbols before its first step, and the symbols come as 16-byte loads
+//     one window ahead.
+//   - Every interval of a row must be valid for the chain (0 <= lower <
+//     upper <= 2^precision).  A row with a symbol of probability zero (an
+//     empty interval) is not, and a block that sees one in the row takes
+//     the reference recurrence, encode_stream, for its streams.
+//   - Output bytes gather in a 64-byte ring a thread in shared memory and
+//     leave it a 16-byte block at a time (a row's first and last block, and
+//     the blocks of a row at an odd address, byte by byte); the tail is
+//     zeroed by 16-byte stores.
+//   - Measured on an H100 (PERF.md): 0.100 ms at 32768 x 512 against 0.253
+//     for the reference recurrence one byte a store; ahead of it at every
+//     stream count from 1 to 65536.
 //
 // Warp per stream (few streams: a classic container's one stream of a
 // whole latent, ~200k coded steps, or the native container's 256-512
@@ -247,25 +272,15 @@ __device__ void zero_tail(uint8_t* row, int64_t from, int64_t size) {
   for (p = mid + 16 * vecs; p < end; ++p) *p = 0;
 }
 
+// Stream s by the reference recurrence, one byte a store; tab / meta the
+// table (staged or in global memory).
 template <int kMode>
-__global__ void encode_kernel(
-    const int32_t* __restrict__ symbols, const int32_t* __restrict__ indexes,
-    int64_t num_streams, int64_t num_elements,
-    const int32_t* __restrict__ cdf, const int32_t* __restrict__ meta,
-    int num_rows, int max_len, bool use_shared,
-    uint8_t* __restrict__ out, int64_t out_size,
-    int32_t* __restrict__ lengths) {
-  extern __shared__ __align__(16) int32_t smem[];
-  const int32_t* tab = cdf;
-  const int32_t* mt = meta;
-  if (use_shared) {
-    stage_table(cdf, meta, num_rows * max_len, kMetaCols * num_rows, smem);
-    tab = smem;
-    mt = smem + num_rows * max_len;
-  }
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (s >= num_streams) return;
-
+__device__ void encode_stream(int64_t s, const int32_t* __restrict__ symbols,
+                              const int32_t* __restrict__ indexes,
+                              int64_t num_elements, const int32_t* tab,
+                              const int32_t* mt, int num_rows, int max_len,
+                              uint8_t* __restrict__ out, int64_t out_size,
+                              int32_t* __restrict__ lengths) {
   Encoder enc;
   enc.out = out + s * out_size;
   enc.cap = out_size;
@@ -302,6 +317,28 @@ __global__ void encode_kernel(
   // per coded interval plus two), so enc.len never exceeds the row.
   zero_tail(enc.out, enc.len, out_size);
   lengths[s] = static_cast<int32_t>(enc.len);
+}
+
+template <int kMode>
+__global__ void encode_kernel(
+    const int32_t* __restrict__ symbols, const int32_t* __restrict__ indexes,
+    int64_t num_streams, int64_t num_elements,
+    const int32_t* __restrict__ cdf, const int32_t* __restrict__ meta,
+    int num_rows, int max_len, bool use_shared,
+    uint8_t* __restrict__ out, int64_t out_size,
+    int32_t* __restrict__ lengths) {
+  extern __shared__ __align__(16) int32_t smem[];
+  const int32_t* tab = cdf;
+  const int32_t* mt = meta;
+  if (use_shared) {
+    stage_table(cdf, meta, num_rows * max_len, kMetaCols * num_rows, smem);
+    tab = smem;
+    mt = smem + num_rows * max_len;
+  }
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= num_streams) return;
+  encode_stream<kMode>(s, symbols, indexes, num_elements, tab, mt, num_rows,
+                       max_len, out, out_size, lengths);
 }
 
 __global__ void encode_scan_kernel(
@@ -782,6 +819,293 @@ encode_symbols_warp_kernel(
   if (cut && lane == 0) lengths[s] = static_cast<int32_t>(out_size + 1);
 }
 
+// ---------------------------------------------------------------------------
+// K4', one thread per stream on the 32-bit chain.
+// ---------------------------------------------------------------------------
+// Streams (threads) a block.  Measured on an NVIDIA H100 80GB HBM3 (700 W)
+// by tools/single_row_sweep.py --geometry, from a CUDA graph, at 32768 x 512
+// on the zipf row at precision 12, 32 / 64 / 128 / 256 threads, ms: 0.1002
+// / 0.1000 / 0.1004 / 0.1014 (and 0.0993 / 0.0991 / 0.1000 / 0.1023 in a
+// second build of the source).
+constexpr int kEncodeRowThreads = 64;
+// Each thread's output bytes gather in a ring of its own in shared memory
+// and leave it a 16-byte block at a time.
+constexpr int kOutRing = 64;
+// Symbols a window: loaded one window ahead, as four 16-byte loads.
+constexpr int kRowWindow = 16;
+// Symbols between two flushes of the ring: at most 4 bytes each, so that
+// fewer than 16 + 4 * 8 bytes are ever held.
+constexpr int kFlushEvery = 8;
+
+// The packed operands of a valid interval, as scan_step takes them.
+__device__ __forceinline__ uint32_t row_op(uint32_t lo, uint32_t hi,
+                                           int prec) {
+  const uint32_t sh = 16u - static_cast<uint32_t>(prec);
+  return ((lo << sh) & 0xFFFFu) | (((hi << sh) - 1u) << 16);
+}
+
+// A thread's output row seen through its ring.  Positions count from
+// ``blocks``, the row's start rounded down to 16 bytes; a row at an odd
+// address is handled as if it began a byte earlier (its memory lies one
+// byte past its positions), so that chunks land on even positions.
+struct RowOut {
+  uint8_t* ring;
+  uint8_t* blocks;
+  int head;  // the row's first position (0 ... 15)
+  int end;   // one past its last
+  bool odd;
+};
+
+// The encoder state (ScanState's, one thread): ``w`` the next position to
+// write, ``fl`` the first not yet stored (a multiple of 16).
+struct RowState {
+  uint32_t base, sm1, pend, fill;
+  int w, fl;
+};
+
+// The bytes [lo, hi) of the 16 at position p: a row's first and last block,
+// and every block of a row at an odd address.
+__device__ __noinline__ void store_part(const RowOut o, int p, uint4 v, int lo,
+                                        int hi) {
+  const uint32_t word[4] = {v.x, v.y, v.z, v.w};
+  uint8_t* dst = o.blocks + p + (o.odd ? 1 : 0);
+  for (int i = lo; i < hi; ++i)
+    dst[i] = static_cast<uint8_t>(word[i >> 2] >> (8 * (i & 3)));
+}
+
+// Stores block p (its bytes as the ring holds them).
+__device__ __forceinline__ void store_block(const RowOut& o, int p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(o.ring + (p & (kOutRing - 1)));
+  if (__builtin_expect(!o.odd && p >= o.head && p + 16 <= o.end, 1)) {
+    *reinterpret_cast<uint4*>(o.blocks + p) = v;
+  } else {
+    store_part(o, p, v, max(o.head - p, 0), min(o.end - p, 16));
+  }
+}
+
+// Chunk ``sw`` (its two bytes already swapped into memory order) where
+// ``on`` holds.
+__device__ __forceinline__ void row_emit(RowState& e, const RowOut& o,
+                                         uint32_t sw, bool on) {
+  if (on) {
+    *reinterpret_cast<uint16_t*>(o.ring + (e.w & (kOutRing - 1))) =
+        static_cast<uint16_t>(sw);
+    e.w += 2;
+  }
+}
+
+// Stores the complete blocks of a period: at most two.
+__device__ __forceinline__ void row_flush(RowState& e, const RowOut& o) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (e.fl + 16 <= e.w) {
+      store_block(o, e.fl);
+      e.fl += 16;
+    }
+  }
+}
+
+// The deferred fill run, e.fill chunks of ``v``, flushed as it goes.
+__device__ __noinline__ RowState row_fill_run(RowState e, uint32_t v,
+                                              RowOut o) {
+  while (e.fill != 0) {
+    row_emit(e, o, v, true);
+    --e.fill;
+    if (e.fl + 16 <= e.w) {
+      store_block(o, e.fl);
+      e.fl += 16;
+    }
+  }
+  return e;
+}
+
+// scan_step on one thread: RangeEncoder::Encode of a valid interval, its
+// packed operands ``op``, on the 32-bit chain; the delayed carry by selects.
+__device__ __forceinline__ void row_step(RowState& e, uint32_t op,
+                                         const RowOut& o) {
+  const uint32_t lo = op & 0xFFFFu;
+  const uint32_t hi = (op >> 16) + 1u;
+  const uint32_t a =
+      static_cast<uint32_t>((static_cast<uint64_t>(e.sm1) * lo + lo) >> 16);
+  const uint32_t b =
+      static_cast<uint32_t>((static_cast<uint64_t>(e.sm1) * hi + hi) >> 16);
+  const uint32_t nb = e.base + a;
+  const uint32_t ns = b - 1u - a;
+  const bool renorm = ns < 0x10000u;
+  const uint32_t sb = renorm ? nb << 16 : nb;
+  const uint32_t ss = renorm ? (ns << 16) | 0xFFFFu : ns;
+  const bool in_delay = e.pend != 0;
+  const bool straddle = in_delay && (nb + ns < nb);
+  const bool resolved = in_delay && !straddle;
+  const bool up = nb < a;
+  row_emit(e, o, __byte_perm(up ? e.pend : e.pend - 1u, 0u, 0x0001),
+           resolved);
+  if (__builtin_expect(resolved && e.fill != 0, 0))
+    e = row_fill_run(e, up ? 0u : 0xFFFFu, o);
+  const uint32_t top = nb >> 16;
+  const bool amb = renorm && !straddle && (sb + ss < sb);
+  row_emit(e, o, __byte_perm(nb, 0u, 0x0023), renorm && !straddle && !amb);
+  e.fill += (straddle && renorm) ? 1u : 0u;
+  e.pend = straddle ? e.pend : (amb ? top + 1u : 0u);
+  e.base = sb;
+  e.sm1 = ss;
+}
+
+// RangeEncoder::Finalize, the ring's last bytes, the zeros to the row's end
+// and the length.
+__device__ __noinline__ void row_finish(RowState e, RowOut o,
+                                        int32_t* length) {
+  while (e.fl + 16 <= e.w) {
+    store_block(o, e.fl);
+    e.fl += 16;
+  }
+  uint32_t b0 = 0, b1 = 0;
+  int nbytes = 0;
+  if (e.pend != 0) {
+    b0 = (e.pend >> 8) & 0xFFu;
+    b1 = e.pend & 0xFFu;
+    nbytes = b1 ? 2 : 1;
+  } else if (e.base != 0) {
+    const uint32_t upper = e.base + e.sm1;
+    const uint32_t mid24 = ((e.base - 1u) >> 24) + 1u;
+    if (mid24 <= (upper >> 24)) {
+      b0 = mid24 & 0xFFu;
+      nbytes = 1;
+    } else {
+      const uint32_t mid16 = ((e.base - 1u) >> 16) + 1u;
+      b0 = (mid16 >> 8) & 0xFFu;
+      b1 = mid16 & 0xFFu;
+      nbytes = b1 ? 2 : 1;
+    }
+  }
+  *length = e.w - o.head + nbytes;
+  // The finalize bytes and zeros up to the block's end, in the ring.
+  const int stop = (e.w + 15) & ~15;
+  for (int p = e.w; p < stop; ++p) {
+    const int k = p - e.w;
+    o.ring[p & (kOutRing - 1)] =
+        static_cast<uint8_t>(k < nbytes ? (k == 0 ? b0 : b1) : 0u);
+  }
+  if (nbytes > 0 && e.w == stop) {
+    // The data ends on a block's end: the finalize bytes open a new one.
+    for (int k = 0; k < 16; ++k)
+      o.ring[(stop + k) & (kOutRing - 1)] =
+          static_cast<uint8_t>(k < nbytes ? (k == 0 ? b0 : b1) : 0u);
+  }
+  const int last = e.w + nbytes;  // one past the data
+  for (; e.fl < last && e.fl < o.end; e.fl += 16) store_block(o, e.fl);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int p = e.fl; p < o.end; p += 16) {
+    if (!o.odd && p + 16 <= o.end)
+      *reinterpret_cast<uint4*>(o.blocks + p) = zero;
+    else
+      store_part(o, p, zero, 0, min(o.end - p, 16));
+  }
+}
+
+__device__ __forceinline__ int32_t lane_of(const int4& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+// K4': encode_stream<kSingleRow>'s function.  The packed operands of every
+// symbol's interval are staged in shared memory after the rings (kShared)
+// or made from the row in global memory; a row with an interval the
+// 32-bit chain does not serve (empty, or past 2^prec: a symbol of
+// probability zero) takes the reference recurrence for the whole block.
+template <bool kShared>
+__global__ void __launch_bounds__(kEncodeRowThreads)
+encode_single_row_kernel(const int32_t* __restrict__ symbols,
+                         int64_t num_streams, int64_t num_elements,
+                         const int32_t* __restrict__ cdf,
+                         const int32_t* __restrict__ meta, int max_len,
+                         uint8_t* __restrict__ out, int64_t out_size,
+                         int32_t* __restrict__ lengths) {
+  extern __shared__ __align__(16) uint8_t row_smem[];
+  uint32_t* pairs =
+      reinterpret_cast<uint32_t*>(row_smem + kEncodeRowThreads * kOutRing);
+  const int prec = meta[1];
+  const int maxs = meta[0];
+  bool bad = prec < 1 || prec > 16 || maxs < 0 || maxs > max_len - 2;
+  if (!bad) {
+    for (int v = threadIdx.x; v < max_len - 1; v += kEncodeRowThreads) {
+      const int32_t lo = cdf[v], hi = cdf[v + 1];
+      bad |= !(0 <= lo && lo < hi && hi <= (1 << prec));
+      if (kShared)
+        pairs[v] = row_op(static_cast<uint32_t>(lo), static_cast<uint32_t>(hi),
+                          prec);
+    }
+  }
+  const bool gaps = __syncthreads_or(bad) != 0;
+  const int64_t s =
+      static_cast<int64_t>(blockIdx.x) * kEncodeRowThreads + threadIdx.x;
+  if (s >= num_streams) return;
+  if (gaps) {
+    encode_stream<kSingleRow>(s, symbols, nullptr, num_elements, cdf, meta, 1,
+                              max_len, out, out_size, lengths);
+    return;
+  }
+
+  uint8_t* row = out + s * out_size;
+  RowOut o;
+  o.odd = (reinterpret_cast<uintptr_t>(row) & 1) != 0;
+  const uintptr_t start = reinterpret_cast<uintptr_t>(row) - (o.odd ? 1 : 0);
+  o.blocks = reinterpret_cast<uint8_t*>(start & ~static_cast<uintptr_t>(15));
+  o.head = static_cast<int>(start & 15);
+  o.end = o.head + static_cast<int>(out_size);
+  o.ring = row_smem + threadIdx.x * kOutRing;
+  RowState e = {0u, 0xFFFFFFFFu, 0u, 0u, o.head, 0};
+
+  const int64_t n = num_elements;
+  const int32_t* vrow = symbols + s * n;
+  const bool vec = (reinterpret_cast<uintptr_t>(vrow) & 15) == 0;
+  auto op_of = [&](int32_t x) -> uint32_t {
+    const int v = min(max(x, 0), maxs);
+    if (kShared) return pairs[v];
+    return row_op(static_cast<uint32_t>(cdf[v]),
+                  static_cast<uint32_t>(cdf[v + 1]), prec);
+  };
+  auto load = [&](int64_t j, int4 (&w)[4]) {
+    if (vec && j + kRowWindow <= n) {
+      const int4* p = reinterpret_cast<const int4*>(vrow + j);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[q] = p[q];
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int64_t k = j + 4 * q;
+        w[q] = make_int4(k < n ? vrow[k] : 0, k + 1 < n ? vrow[k + 1] : 0,
+                         k + 2 < n ? vrow[k + 2] : 0,
+                         k + 3 < n ? vrow[k + 3] : 0);
+      }
+    }
+  };
+  auto code = [&](const int4 (&w)[4]) {
+    uint32_t ops[kRowWindow];
+#pragma unroll
+    for (int i = 0; i < kRowWindow; ++i) ops[i] = op_of(lane_of(w[i / 4], i % 4));
+#pragma unroll
+    for (int i = 0; i < kRowWindow; ++i) {
+      row_step(e, ops[i], o);
+      if (i % kFlushEvery == kFlushEvery - 1) row_flush(e, o);
+    }
+  };
+
+  int4 wa[4], wb[4];
+  load(0, wa);
+  int64_t j = 0;
+  for (; j + 2 * kRowWindow <= n; j += 2 * kRowWindow) {
+    load(j + kRowWindow, wb);
+    code(wa);
+    load(j + 2 * kRowWindow, wa);
+    code(wb);
+  }
+  for (; j < n; ++j) {
+    row_step(e, op_of(vrow[j]), o);
+    if (j % kFlushEvery == kFlushEvery - 1) row_flush(e, o);
+  }
+  row_finish(e, o, lengths + s);
+}
+
 template <int kMode, bool kWarp>
 int launch(const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
            int64_t num_elements, const int32_t* cdf, const int32_t* meta,
@@ -842,15 +1166,6 @@ extern "C" int ctpu_encode_indexed_warp(
                                 lengths, stream);
 }
 
-// cdf / meta hold the one row: int32 [1, max_len] and [1, 3].
-extern "C" int ctpu_encode_single_row(
-    const int32_t* symbols, int64_t num_streams, int64_t num_elements,
-    const int32_t* cdf, const int32_t* meta, int max_len, uint8_t* out,
-    int64_t out_size, int32_t* lengths, void* stream) {
-  return launch<kSingleRow, false>(symbols, nullptr, num_streams,
-                                   num_elements, cdf, meta, 1, max_len, out,
-                                   out_size, lengths, stream);
-}
 
 extern "C" int ctpu_encode_gamma(
     const int32_t* symbols, const int32_t* indexes, int64_t num_streams,
@@ -904,4 +1219,34 @@ extern "C" int ctpu_encode_scan_warp(
         lengths);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// cdf / meta hold the one row: int32 [1, max_len] and [1, 3].
+extern "C" int ctpu_encode_single_row(
+    const int32_t* symbols, int64_t num_streams, int64_t num_elements,
+    const int32_t* cdf, const int32_t* meta, int max_len, uint8_t* out,
+    int64_t out_size, int32_t* lengths, void* stream) {
+  const size_t rings = static_cast<size_t>(kEncodeRowThreads) * kOutRing;
+  const size_t pairs = 4 * static_cast<size_t>(max_len - 1);
+  const bool shared = rings + pairs <= 227 * 1024;
+  const size_t smem = rings + (shared ? pairs : 0);
+  const int64_t blocks =
+      (num_streams + kEncodeRowThreads - 1) / kEncodeRowThreads;
+  if (max_len < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  auto run = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<static_cast<unsigned>(blocks), kEncodeRowThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        symbols, num_streams, num_elements, cdf, meta, max_len, out,
+        out_size, lengths);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return shared ? run(encode_single_row_kernel<true>)
+                : run(encode_single_row_kernel<false>);
 }

@@ -27,7 +27,14 @@ pair lookup four elements per thread:
   CPU.
 * ``encode_single_row`` (K4') replaces
   ``pallas_coder.encode_single_row_device``: one shared row, no overflow.
+  One thread per stream on the warp scan's 32-bit chain, symbols and
+  packed operands loaded ahead of it, bytes stored 16 at a time;
+  ``encode_single_row_chain_plain`` mirrors it on the CPU.
 * ``decode_single_row`` (K5') replaces ``pallas_coder.decode_scan_pallas_v2``.
+  One thread per stream; a symbol is one load from a slot table laid out
+  by threshold (``single_row_slots``, kept by
+  ``DeviceCdfTable.single_row_slots``); ``decode_single_row_slot_plain``
+  mirrors it on the CPU.
 * ``encode_gamma`` (K6') replaces ``pallas_coder.encode_scan_pallas`` over
   the micro-ops of ``jax_coder.micro_ops_from_symbols``: escapes followed
   in the stream by their Elias-gamma magnitude and sign (the reference
@@ -84,8 +91,8 @@ The coder kernels take the table in the padded dense layout of
 ``tables.CdfTable`` (int32 ``cdf[num_rows, max_len]``, rows padded with
 their terminal value) plus an int32 ``meta[num_rows, 3]`` of (escape marker
 ``length - 2``, precision, overflow flag) per row; the single-row kernels
-take a table of one row, K8' that row in 16-entry buckets
-(``bucketize_row``).
+take a table of one row, K5' also its slot table, K8' that row in 16-entry
+buckets (``bucketize_row``).
 
 The plain versions of the coders are vectorized over streams and take one
 step per coded interval; a step never waits for the device, so that on a
@@ -132,7 +139,11 @@ __all__ = [
     "decode_indexed_plain",
     "decode_indexed_warp_plain",
     "encode_single_row_plain",
+    "encode_single_row_chain_plain",
     "decode_single_row_plain",
+    "decode_single_row_slot_plain",
+    "single_row_slots",
+    "single_row_threshold_plain",
     "encode_gamma_plain",
     "encode_gamma_warp_plain",
     "decode_gamma_plain",
@@ -220,8 +231,8 @@ _ARGTYPES = {
                                _vp, _vp],
     "ctpu_decode_indexed": _DECODE_ARGS,
     "ctpu_decode_gamma": _DECODE_ARGS,
-    "ctpu_decode_single_row": [_vp, _i64, _vp, _i64, _i64, _vp, _vp, _int,
-                               _vp, _vp, _vp],
+    "ctpu_decode_single_row": [_vp, _i64, _vp, _i64, _i64, _vp, _i64, _int,
+                               _int, _vp, _vp, _vp],
     "ctpu_encode_scan": [_vp, _vp, _vp, _vp, _i64, _i64, _vp, _i64, _vp,
                          _vp],
     "ctpu_encode_scan_warp": [_vp, _vp, _vp, _vp, _i64, _i64, _vp, _i64,
@@ -414,9 +425,10 @@ def encode_indexed_warp(symbols, indexes, cdf, meta, out_size: int):
 def encode_single_row(symbols, cdf, meta, out_size: int):
     """K4': range-encodes every stream with the table's one row; symbols
     are clipped to [0, length - 2].  cdf [1, L] / meta [1, 3]; other
-    arguments and the result as for ``encode_indexed``."""
+    arguments and the result as for ``encode_indexed``.  On the CPU
+    ``encode_single_row_chain_plain``, the kernel's arithmetic."""
     return _encode("encode_single_row", symbols, None, cdf, meta, out_size,
-                   encode_single_row_plain)
+                   encode_single_row_chain_plain)
 
 
 def encode_gamma(symbols, indexes, cdf, meta, out_size: int):
@@ -503,10 +515,38 @@ def encode_indexed_plain(symbols, indexes, cdf, meta, out, lengths):
 
 
 def encode_single_row_plain(symbols, cdf, meta, out, lengths):
-    """Plain PyTorch version of K4' (writes out, lengths)."""
+    """Plain PyTorch version of K4' (writes out, lengths): the reference
+    recurrence."""
     rows = torch.zeros_like(symbols, dtype=torch.int64)
     lo, hi, prec = _main_intervals(symbols, rows, cdf, meta, bounded=True)
     _encode_plain(lo.t(), hi.t(), prec.t(), None, out, lengths)
+
+
+def _chain_serves_row(cdf, meta):
+    """Whether K4''s 32-bit chain serves the row: precision 1 ... 16, the
+    marker within the row, and every symbol's interval valid (0 <= lower <
+    upper <= 2^precision, so no symbol of probability zero).  The kernel
+    decides the same on the card; here it costs a copy to the host."""
+    row = cdf[0].long()
+    marker, prec = int(meta[0, 0]), int(meta[0, 1])
+    if not (1 <= prec <= 16 and 0 <= marker <= row.shape[0] - 2):
+        return False
+    lo, hi = row[:-1], row[1:]
+    return bool(((lo >= 0) & (lo < hi) & (hi <= 1 << prec)).all())
+
+
+def encode_single_row_chain_plain(symbols, cdf, meta, out, lengths):
+    """Plain mirror of K4''s kernel (writes out, lengths): each symbol's
+    interval packed at precision 16 (``scan_op``) and the recurrence on the
+    32-bit chain (``_encode_plain`` with ``ops``); a row the chain does not
+    serve (``_chain_serves_row``) takes the reference recurrence, as the
+    kernel does.  The same bytes as ``encode_single_row_plain``."""
+    if not _chain_serves_row(cdf, meta):
+        encode_single_row_plain(symbols, cdf, meta, out, lengths)
+        return
+    rows = torch.zeros_like(symbols, dtype=torch.int64)
+    ops = scan_op(*_main_intervals(symbols, rows, cdf, meta, bounded=True))
+    _encode_plain(None, None, None, None, out, lengths, ops=ops.t())
 
 
 def encode_gamma_plain(symbols, indexes, cdf, meta, out, lengths):
@@ -1012,11 +1052,15 @@ def _run_steps(step, num_steps, device, done=None):
             graph.replay()
 
 
-def _encode_plain(lower, upper, prec, mask, out, lengths):
+def _encode_plain(lower, upper, prec, mask, out, lengths, ops=None):
     """The encoder recurrence over [T, S] intervals (writes out, lengths).
 
     Vectorized over streams, one step per interval, in int64 with explicit
     32-bit masks; ``mask`` (bool [T, S] or None) marks the steps that code.
+    With ``ops`` (int64 [T, S], ``scan_op``'s packed operands of valid
+    intervals) in place of lower, upper and prec, a step's interval ends
+    come from the 32-bit chain of the warp scan and of K4': (size - 1) * c
+    + c over 2^16, c scaled to precision 16.
     Every renormalization reserves its two output bytes at once; a
     delayed-carry group keeps its reserved bytes at zero (the "carry up"
     fill) and has them turned to 0xFF when it resolves down, which yields
@@ -1047,12 +1091,18 @@ def _encode_plain(lower, upper, prec, mask, out, lengths):
                                    z.clone())
 
     def step(t):
-        c_lo = lower.index_select(0, t)[0]
-        c_hi = upper.index_select(0, t)[0]
-        p = prec.index_select(0, t)[0]
-        size = sm1 + 1
-        a = (size * c_lo) >> p
-        b = ((size * c_hi) >> p) - 1
+        if ops is None:
+            c_lo = lower.index_select(0, t)[0]
+            c_hi = upper.index_select(0, t)[0]
+            p = prec.index_select(0, t)[0]
+            size = sm1 + 1
+            a = (size * c_lo) >> p
+            b = ((size * c_hi) >> p) - 1
+        else:
+            op = ops.index_select(0, t)[0]
+            lo16, hi16 = op & 0xFFFF, (op >> 16) + 1
+            a = ((sm1 * lo16 + lo16) >> 16) & _M32
+            b = (((sm1 * hi16 + hi16) >> 16) & _M32) - 1
         nb = (base + a) & _M32
         up = nb < a
         ns = (b - a) & _M32
@@ -1085,7 +1135,7 @@ def _encode_plain(lower, upper, prec, mask, out, lengths):
         base.copy_(new_base)
         sm1.copy_(new_sm1)
 
-    _run_steps(step, lower.shape[0], dev)
+    _run_steps(step, (lower if ops is None else ops).shape[0], dev)
     out.copy_(torch.where(
         marks[:, :width].cumsum(1, dtype=torch.int32) > 0,
         torch.full_like(out, 0xFF), work[:, :width]))
@@ -1116,9 +1166,10 @@ def _encode_plain(lower, upper, prec, mask, out, lengths):
 # Decoders: K2, K5', K3'
 # -----------------------------------------------------------------------------
 def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain,
-            layout=None):
+            layout=None, slots=None):
     """Checks, allocates and runs a decoder; with ``layout`` (the table as
-    ``warp_table`` gives it) the warp-per-stream kernel of K2 or K3'."""
+    ``warp_table`` gives it) the warp-per-stream kernel of K2 or K3'; with
+    ``slots`` (``single_row_slots``) K5'."""
     device = buf.device
     _check("buf", buf, torch.uint8, 2, device)
     _check("byte_lens", byte_lens, torch.int32, 1, device)
@@ -1131,6 +1182,8 @@ def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain,
     _check_table(cdf, meta, device, single_row=single)
     if layout is not None:
         _check("layout", layout, torch.int16, 1, device)
+    if slots is not None:
+        _check_slots(slots, cdf.shape[1], device)
     num_streams, n = buf.shape[0], int(num_elements)
     if byte_lens.shape[0] != num_streams:
         raise ValueError("buf and byte_lens disagree on streams")
@@ -1138,7 +1191,7 @@ def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain,
     sanity = torch.empty((num_streams,), dtype=torch.bool, device=device)
     if _device_kind(device) == "cpu":
         if single:
-            plain(buf, byte_lens, cdf, meta, symbols, sanity)
+            plain(buf, byte_lens, cdf, meta, symbols, sanity, slots)
         elif layout is None:
             plain(buf, byte_lens, indexes, cdf, meta, symbols, sanity)
         else:
@@ -1153,8 +1206,9 @@ def _decode(name, buf, byte_lens, indexes, num_elements, cdf, meta, plain,
         return symbols, sanity
     fn = getattr(_lib("decode_indexed"), "ctpu_" + name)
     if single:
-        _launch(name, fn, buf, buf.shape[1], byte_lens, num_streams, n, cdf,
-                meta, cdf.shape[1], symbols, sanity)
+        table, precision = slots
+        _launch(name, fn, buf, buf.shape[1], byte_lens, num_streams, n, table,
+                table.numel(), precision, cdf.shape[1], symbols, sanity)
     else:
         _launch(name, fn, buf, buf.shape[1], byte_lens, indexes, num_streams,
                 n, cdf, meta, cdf.shape[0], cdf.shape[1], symbols, sanity)
@@ -1211,12 +1265,154 @@ def decode_indexed_warp(buf, byte_lens, indexes, cdf, meta, layout=None):
                    meta, decode_indexed_warp_plain, layout)
 
 
-def decode_single_row(buf, byte_lens, num_elements, cdf, meta):
+def decode_single_row(buf, byte_lens, num_elements, cdf, meta, slots=None):
     """K5': range-decodes ``num_elements`` symbols per stream with the
-    table's one row (cdf [1, L] / meta [1, 3], no overflow); otherwise as
-    ``decode_indexed``."""
+    table's one row (cdf [1, L] / meta [1, 3], no overflow; precision 1 ...
+    16); otherwise as ``decode_indexed``.
+
+    ``slots`` is ``single_row_slots(cdf, meta, precision)`` where the caller
+    keeps it (``DeviceCdfTable.single_row_slots``); without it the call
+    builds it, which copies the precision to the host.  On the CPU
+    ``decode_single_row_slot_plain``, the kernel's search."""
+    if slots is None:
+        _check_table(cdf, meta, cdf.device, single_row=True)
+        slots = single_row_slots(cdf, meta)
     return _decode("decode_single_row", buf, byte_lens, None, num_elements,
-                   cdf, meta, decode_single_row_plain)
+                   cdf, meta, decode_single_row_slot_plain, slots=slots)
+
+
+#: Up to this precision a slot of ``single_row_slots`` holds the symbol and
+#: its interval, above it the count alone (decode_indexed.cu).
+SLOT_PAIR_MAX_PRECISION = 14
+
+
+def _slot_units(precision, max_len):
+    """int32 units of ``single_row_slots``' table, as decode_indexed.cu's
+    slot_units."""
+    slots = (1 << precision) + 2
+    units = 2 * slots if precision <= SLOT_PAIR_MAX_PRECISION else \
+        slots // 2 + max_len + 1
+    return -(-units // 4) * 4
+
+
+def _check_slots(slots, max_len, device):
+    table, precision = slots
+    _check("slots", table, torch.int32, 1, device)
+    if table.numel() != _slot_units(int(precision), max_len):
+        raise ValueError(f"slot table of {table.numel()} units for a row of "
+                         f"{max_len} entries at precision {precision}")
+
+
+def single_row_slots(cdf, meta, precision=None):
+    """K5''s slot table of a one-row table (cdf int32 [1, L], meta [1, 3]):
+    ``(table int32 [units], precision)``.
+
+    For t in [0, 2^precision + 1], the count of entries k in [1, L) below t
+    (``cdf[k] < t``): the decoder's count of entries with ``size * cdf[k] <
+    lower_bound`` is the slot of t = ceil(lower_bound / size), capped at
+    2^precision + 1 (every entry below it).  Up to precision
+    ``SLOT_PAIR_MAX_PRECISION`` slot t is two int32, the symbol min(count,
+    L - 2) and ``c_lo | (c_hi - 1) << 16`` with c_lo = cdf[count] and c_hi =
+    cdf[count + 1] (65536 past the row); above it, a uint16 count (capped at
+    65535; the kernel takes slot 2^precision + 1's as L - 1), then the row
+    as int32 followed by 65536.  Zeros pad the table to a multiple of four
+    units.  ``precision`` defaults to meta's, which costs a copy to the
+    host; nothing else is copied.  Rows must be non-decreasing, and at
+    precision 15 and 16 hold at most 65537 entries.
+    """
+    if precision is None:
+        precision = int(meta[0, 1])
+    precision, max_len = int(precision), cdf.shape[1]
+    if not 1 <= precision <= 16:
+        raise ValueError(f"precision {precision} outside 1 ... 16")
+    if precision > SLOT_PAIR_MAX_PRECISION and max_len > 65537:
+        raise ValueError(f"a row of {max_len} entries at precision "
+                         f"{precision}: counts past 16 bits")
+    row = cdf[0].long()
+    t = torch.arange((1 << precision) + 2, device=cdf.device)
+    count = torch.searchsorted(row[1:].contiguous(), t)
+    if precision <= SLOT_PAIR_MAX_PRECISION:
+        c_hi = torch.where(count + 1 < max_len,
+                           row[(count + 1).clamp(max=max_len - 1)], 65536)
+        pair = row[count] | ((c_hi - 1) << 16)
+        pair = torch.where(pair >= 1 << 31, pair - (1 << 32), pair)
+        table = torch.stack([count.clamp(max=max_len - 2), pair], 1)
+        table = table.reshape(-1).to(torch.int32)
+    else:
+        counts = count.clamp(max=65535)
+        counts = torch.where(counts >= 1 << 15, counts - (1 << 16), counts)
+        table = torch.cat([
+            counts.to(torch.int16).view(torch.int32),
+            row.to(torch.int32), row.new_full((1,), 65536).to(torch.int32)])
+    units = _slot_units(precision, max_len)
+    return F.pad(table, (0, units - table.numel())), precision
+
+
+def single_row_threshold_plain(offset, sm1, precision):
+    """K5''s slot index t for decoder states (int64 [S] offsets value - base
+    and sizes - 1, 32-bit values): ceil((offset + 1) 2^precision / (sm1 +
+    1)), capped at 2^precision + 1, as the kernel finds it -- an f32
+    quotient (the kernel's is __fdividef's, within 2 ulp of this one),
+    rounded up, then moved by one where an exact product shows it off."""
+    scale = float(1 << precision)
+    fo = offset.to(torch.float32) + 1
+    fs = sm1.to(torch.float32) + 1
+    q = torch.clamp(fo * scale / fs, max=scale + 2)
+    t0 = torch.ceil(q).long()
+    lb = (offset + 1) << precision
+    up = (sm1 * t0 + t0 < lb).long()
+    down = (sm1 * (t0 - 1) + (t0 - 1) >= lb).long()
+    return (t0 + up - down).clamp(max=(1 << precision) + 1)
+
+
+class _SlotSearch:
+    """(symbol, c_lo, c_hi) int64 [S] of slot indices t, read from
+    ``single_row_slots``' table as K5' reads it."""
+
+    def __init__(self, slots, max_len):
+        table, self.precision = slots
+        self.tmax = (1 << self.precision) + 1
+        self.max_len = max_len
+        if self.precision <= SLOT_PAIR_MAX_PRECISION:
+            self.pairs = table[: 2 * (self.tmax + 1)].long().reshape(-1, 2)
+        else:
+            half = (self.tmax + 1) // 2
+            self.counts = table[:half].contiguous().view(torch.int16).long() \
+                & 0xFFFF
+            self.row = table[half: half + max_len + 1].long()
+
+    def __call__(self, t):
+        if self.precision <= SLOT_PAIR_MAX_PRECISION:
+            sym, pair = self.pairs[t].unbind(1)
+            pair = pair & _M32
+            return sym, pair & 0xFFFF, (pair >> 16) + 1
+        count = torch.where(t == self.tmax, self.max_len - 1, self.counts[t])
+        return (count.clamp(max=self.max_len - 2), self.row[count],
+                self.row[count + 1])
+
+
+def decode_single_row_slot_plain(buf, byte_lens, cdf, meta, symbols, sanity,
+                                 slots=None):
+    """Plain mirror of K5''s kernel (writes symbols, sanity): each symbol
+    found by ``single_row_threshold_plain`` and one look into
+    ``single_row_slots``' table (default: built from cdf, meta), the
+    interval update of ``_PlainDecoder``.  The same symbols and flags as
+    ``decode_single_row_plain``."""
+    slots = single_row_slots(cdf, meta) if slots is None else slots
+    search = _SlotSearch(slots, cdf.shape[1])
+    prec = search.precision
+    dec = _PlainDecoder(buf, byte_lens)
+
+    def step(t):
+        size = dec.sm1 + 1
+        sym, c_lo, c_hi = search(single_row_threshold_plain(
+            (dec.value - dec.base) & _M32, dec.sm1, prec))
+        dec.refine(((size * c_lo) >> prec) & _M32,
+                   (((size * c_hi) >> prec) - 1) & _M32)
+        symbols.index_copy_(1, t, sym.to(torch.int32)[:, None])
+
+    _run_steps(step, symbols.shape[1], buf.device)
+    sanity.copy_(dec.sane(byte_lens))
 
 
 def decode_gamma(buf, byte_lens, indexes, cdf, meta, layout=None):
@@ -1486,7 +1682,8 @@ def decode_indexed_warp_plain(buf, byte_lens, indexes, cdf, meta, symbols,
 
 
 def decode_single_row_plain(buf, byte_lens, cdf, meta, symbols, sanity):
-    """Plain PyTorch version of K5' (writes symbols, sanity)."""
+    """Plain PyTorch version of K5' (writes symbols, sanity): the count
+    over the whole row."""
     _decode_plain(buf, byte_lens, None, cdf, meta, symbols, sanity, False)
 
 

@@ -123,6 +123,18 @@ class DeviceCdfTable:
             self.kernel_tables["bucketed"] = cached
         return cached
 
+    def single_row_slots(self):
+        """Row 0's slot table for the single-row decode
+        (``cuda_coder.single_row_slots``): (int32 [units], precision),
+        built once, with the precision from the host copy, and kept."""
+        cached = self.kernel_tables.get("single_row")
+        if cached is None:
+            cdf, meta = self.indexed_arrays()
+            cached = cuda_coder.single_row_slots(
+                cdf[:1], meta[:1], int(self.host.precision[0]))
+            self.kernel_tables["single_row"] = cached
+        return cached
+
     def warp_arrays(self):
         """The table in the 16-bit layout of the warp-per-stream
         in-stream-gamma decode (``cuda_coder.warp_table``): int16 [units],
@@ -336,7 +348,8 @@ def decode_streams(buf, byte_lens, num_elements, table: DeviceCdfTable,
     byte_lens = byte_lens.to(torch.int32).contiguous()
     cdf, meta = table.indexed_arrays()
     if route == "single":
-        return cuda_coder.decode_single_row(buf, byte_lens, n, cdf, meta)
+        return cuda_coder.decode_single_row(buf, byte_lens, n, cdf, meta,
+                                            table.single_row_slots())
     if indexes is None:
         indexes = _channel_indexes(num_streams, n, table, buf.device)
     indexes = indexes.to(torch.int32).contiguous()

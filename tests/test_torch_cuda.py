@@ -100,6 +100,119 @@ def test_single_row_kernels_match_plain(device):
     assert bool(ok[2:].all())
 
 
+def _single_row_table(cdf_row, precision, device):
+    return torch_coder.DeviceCdfTable(tables.parse_ragged_cdf(
+        tables.build_ragged_cdf([np.asarray(cdf_row)], [precision], [False])),
+        device)
+
+
+def _single_row_pair_matches_plain(table, sym, widths):
+    """K4' at each output width (rows at even, odd and 4-byte aligned
+    addresses) and K5' on buffers of each width holding those bytes,
+    truncated and bit-flipped streams included, against the plain
+    versions; the table's cached slot table and one built on the call."""
+    cdf, meta = table.indexed_arrays()
+    n = int(sym.shape[1])
+    out_size = torch_coder.stream_out_size(n)
+    for width in (out_size, out_size + 1, out_size + 2):
+        before = dict(cuda_coder.LAUNCHES)
+        buf, lens = cuda_coder.encode_single_row(sym, cdf, meta, width)
+        assert _launched("encode_single_row", before)
+        ref_buf, ref_lens = torch.empty_like(buf), torch.empty_like(lens)
+        cuda_coder.encode_single_row_plain(sym, cdf, meta, ref_buf, ref_lens)
+        assert torch.equal(buf, ref_buf) and torch.equal(lens, ref_lens)
+    buf, lens = ref_buf[:, :out_size].contiguous(), ref_lens.clone()
+    lens[1] //= 2
+    buf[2, 5] ^= 0x10
+    for width in widths:
+        b = torch.zeros((buf.shape[0], width), dtype=torch.uint8,
+                        device=buf.device)
+        w = min(width, out_size)
+        b[:, :w] = buf[:, :w]
+        ln = lens.clamp(max=width)
+        ref, ref_ok = torch.empty_like(sym), torch.empty(
+            sym.shape[0], dtype=torch.bool, device=sym.device)
+        cuda_coder.decode_single_row_plain(b, ln, cdf, meta, ref, ref_ok)
+        for slots in (table.single_row_slots(), None):
+            before = dict(cuda_coder.LAUNCHES)
+            out, ok = cuda_coder.decode_single_row(b, ln, n, cdf, meta, slots)
+            assert _launched("decode_single_row", before)
+            assert torch.equal(out, ref) and torch.equal(ok, ref_ok), width
+
+
+@pytest.mark.parametrize("precision", [1, 8, 12, 14, 15, 16])
+def test_single_row_pair_any_precision_and_width(device, precision):
+    """K4' and K5' at every precision (K5''s slot table with the pair up to
+    14, counts above), rows of even, odd and 4-byte aligned widths, and
+    buffers shorter than 16 bytes."""
+    rng = np.random.RandomState(precision)
+    k = min(256, 2 ** precision)
+    pmf = 1.0 / (1 + np.arange(k)) ** 1.2
+    pmf /= pmf.sum()
+    table = _single_row_table(tables.pmf_to_quantized_cdf(pmf, precision),
+                              precision, device)
+    sym = torch.as_tensor(rng.choice(k, size=(300, 77), p=pmf).astype(
+        np.int32), device=device)
+    sym[0, :3] = torch.tensor([-4, k + 5, 2 ** 31 - 1], dtype=torch.int32)
+    out_size = torch_coder.stream_out_size(77)
+    _single_row_pair_matches_plain(
+        table, sym, (out_size, out_size + 1, out_size + 2, out_size + 4, 9))
+
+
+@pytest.mark.parametrize("entries", [30000, 60000])
+def test_single_row_pair_long_rows(device, entries):
+    """A precision-16 row of 30000 entries (K5''s counts and row past
+    shared memory: read from global memory) and of 60000 (K4''s packed
+    pairs too)."""
+    rng = np.random.RandomState(entries)
+    pmf = rng.dirichlet(np.ones(entries - 1))
+    table = _single_row_table(tables.pmf_to_quantized_cdf(pmf, 16), 16,
+                              device)
+    sym = torch.as_tensor(rng.randint(0, entries - 1, (300, 64)).astype(
+        np.int32), device=device)
+    _single_row_pair_matches_plain(table, sym, (
+        torch_coder.stream_out_size(64), torch_coder.stream_out_size(64) + 1))
+
+
+@pytest.mark.parametrize("precision", [12, 16])
+def test_single_row_pair_zero_probability_symbols(device, precision):
+    """A row with flat runs (symbols of probability zero): K5''s slot table
+    counts them as the row does; K4' codes the others on its chain, and at
+    precision 12 a stream holding them by the reference recurrence."""
+    row = {12: [0, 100, 100, 100, 2000, 2000, 4095, 4096],
+           16: [0, 1, 1, 30000, 30000, 65535, 65536]}[precision]
+    table = _single_row_table(row, precision, device)
+    rng = np.random.RandomState(precision)
+    live = [v for v in range(len(row) - 1) if row[v + 1] > row[v]]
+    sym = torch.as_tensor(rng.choice(live, size=(300, 77)).astype(np.int32),
+                          device=device)
+    out_size = torch_coder.stream_out_size(77)
+    _single_row_pair_matches_plain(table, sym, (out_size, out_size + 1))
+    if precision == 12:
+        cdf, meta = table.indexed_arrays()
+        dead = sym.clone()
+        dead[:, ::5] = 1
+        buf, lens = cuda_coder.encode_single_row(dead, cdf, meta, out_size)
+        ref_buf, ref_lens = torch.empty_like(buf), torch.empty_like(lens)
+        cuda_coder.encode_single_row_plain(dead, cdf, meta, ref_buf, ref_lens)
+        assert torch.equal(buf, ref_buf) and torch.equal(lens, ref_lens)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 17, 40])
+def test_single_row_pair_short_streams(device, n):
+    """Streams of 0 to 40 symbols (no full window, a partial period), rows
+    at odd addresses."""
+    rng = np.random.RandomState(n)
+    pmf = 1.0 / (1 + np.arange(40)) ** 1.2
+    pmf /= pmf.sum()
+    table = _single_row_table(tables.pmf_to_quantized_cdf(pmf, 11), 11,
+                              device)
+    sym = torch.as_tensor(rng.choice(40, size=(37, n), p=pmf).astype(
+        np.int32), device=device)
+    out_size = torch_coder.stream_out_size(n)
+    _single_row_pair_matches_plain(table, sym, (out_size, out_size + 3))
+
+
 def test_gamma_kernels_match_plain(device):
     """K6' and K3' against their plain versions on escapes of every size,
     the INT32 extremes included."""
