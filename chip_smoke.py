@@ -83,7 +83,24 @@ Phases, one JSON line each (any failure exits non-zero):
      tests/golden/synth_weights.py) decode on the card to their uint8
      images, code their golden latents to the reference's strings, and the
      tables built here equal theirs;
-  6. times: kernels and plain versions at the main paths' shapes (CUDA
+  6. host_coder: the port's host C coder (codec/host.py) encodes the
+     classic streams (bls2017's 1 x 131072, bmshj2018's y 1 x 196608 and
+     z 1 x 12288), the native 256 x 512 (indexed mode) and the micro-bench
+     32768 x 512 (channel mode, one row) to the bytes of the
+     reference-format wrappers on the card (torch_coder.encode_streams)
+     and decodes them to the card's symbols and sanity flags; its median
+     ms of 5 (the host's CPU model and thread count beside it) and the
+     card wrappers' ms;
+  7. train: bls2017 at 128 filters and bmshj2018 at 192 filters / 64
+     scales, batch 8 of 256x256, one fixed seeded batch: one step on the
+     card and one on the CPU from the same parameters, batch and noise
+     with TF32 off (loss, bpp, mse and every gradient's largest error over
+     its largest magnitude, at most 1e-3, with the CPU taking the card's
+     relu decisions; the error with its own decisions, and how many
+     elements it decides otherwise, beside it), then 30 Adam steps at 1e-3
+     on the card, whose loss must fall, with the median step ms of steps
+     4-30 by CUDA events around a synchronized step;
+  8. times: kernels and plain versions at the main paths' shapes (CUDA
      events), their bounds, and end-to-end ms per image of both containers
      of both models; both kernels of K3' at the classic containers' three
      stream shapes beside the byte bound and the serial chain's floor, and
@@ -143,6 +160,9 @@ PAIR_LOOKUP_SHAPE = (512, 32768)
 # Stream counts of the dispatch sweeps (K3', the micro-op scan, K1 and K6').
 SWEEP_STREAMS = (1, 2, 32, 256, 1024, 4096, 8192, 12288, 16384, 16896, 24576,
                  32768, 65536)
+# The train phase's batch: 8 patches of 256x256 (tests/test_bls2017.py's
+# step at the models' published widths).
+TRAIN_BATCH = (8, 256, 256, 3)
 # compress_device's default budget: 64 escapes of 2 * 16 + 3 slots each.
 ESCAPE_BUDGET = 64
 MICRO_SLOTS = 2 * 16 + 3
@@ -895,6 +915,201 @@ def golden_bmshj(fixture, weights, device, fails):
             and result["strings_from_image_equal"] and unexplained == 0
             and result["latents_max_abs_err"] < 3e-4):
         fails.append(f"golden_bmshj/{fixture}")
+
+
+def host_coder_phase(cases, fails):
+    """codec.host against torch_coder.encode_streams / decode_streams on
+    the card: identical bytes, symbols and sanity flags; the host's median
+    ms of 5 and the card wrappers' ms (CUDA events)."""
+    from compression_tpu_torch.codec import host, torch_coder
+    # The first processor's entries (a sandbox may say "unknown" for the
+    # model name; family and model still name the part).
+    info = {}
+    for line in open("/proc/cpuinfo"):
+        key, _, value = line.partition(":")
+        if not key.strip():
+            break
+        info.setdefault(key.strip(), value.strip())
+    cpu_model = {k: info.get(k) for k in ("vendor_id", "cpu family", "model",
+                                          "model name", "cpu MHz")}
+    for label, (sym, idx, tab) in cases.items():
+        s, n = sym.shape
+        buf, lens = torch_coder.encode_streams(sym, tab, idx)
+        out, sane = torch_coder.decode_streams(buf, lens, n, tab, idx)
+        routes = {k: torch_coder.DISPATCH_LOG.get(k)
+                  for k in ("encode", "decode")}
+        sym_np = sym.cpu().numpy()
+        idx_np = None if idx is None else idx.cpu().numpy()
+        card_strings = torch_coder.to_bytes_list(buf.cpu().numpy(),
+                                                 lens.cpu().numpy())
+        enc_ms, dec_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            strings = host.encode_streams(sym_np, tab.host, idx_np)
+            t1 = time.perf_counter()
+            h_out, h_sane = host.decode_streams(strings, n, tab.host, idx_np)
+            dec_ms.append((time.perf_counter() - t1) * 1e3)
+            enc_ms.append((t1 - t0) * 1e3)
+        same = {
+            "bytes_identical": strings == card_strings,
+            "symbols_identical": bool(np.array_equal(h_out,
+                                                     out.cpu().numpy())),
+            "sanity_identical": bool(np.array_equal(h_sane,
+                                                    sane.cpu().numpy())),
+            "round_trip": bool(np.array_equal(h_out, sym_np)
+                               and h_sane.all())}
+        log("host_coder", case=label, shape=[s, n],
+            mode="channel" if idx is None else "indexed",
+            coded_bytes=int(sum(map(len, strings))),
+            host_encode_ms_median=float(np.median(enc_ms)),
+            host_decode_ms_median=float(np.median(dec_ms)),
+            host_encode_ms=enc_ms, host_decode_ms=dec_ms,
+            host_threads=host._num_threads(s), host_cpu=cpu_model,
+            host_cpu_count=os.cpu_count(),
+            card_encode_ms=cuda_ms(
+                lambda: torch_coder.encode_streams(sym, tab, idx), 5),
+            card_decode_ms=cuda_ms(
+                lambda: torch_coder.decode_streams(buf, lens, n, tab, idx), 5),
+            card_routes=routes, **same)
+        if not all(same.values()):
+            fails.append(f"host_coder/{label}")
+
+
+class SharedKinks:
+    """Stands in for torch.nn.functional in the bmshj2018 module while a
+    step runs: on the card it records each relu's decisions (x > 0), and
+    on the CPU it replays them in the same order.  A pre-activation within
+    float32 error of zero may fall on either side of the kink on the two
+    devices, and one such element moves a kernel's gradient by ~1e-3 of
+    its largest magnitude; with the decisions shared, what is left is the
+    arithmetic.  ``flips`` counts the decisions the CPU would have taken
+    the other way."""
+
+    def __init__(self, functional):
+        self.functional = functional
+        self.masks = []
+        self.replay = None
+        self.flips = 0
+
+    def __getattr__(self, name):
+        return getattr(self.functional, name)
+
+    def relu(self, x):
+        if self.replay is None:
+            self.masks.append((x > 0).detach())
+            return self.functional.relu(x)
+        mask = self.replay.pop(0).to(x.device)
+        self.flips += int((mask != (x > 0)).sum())
+        return x * mask
+
+
+def train_phase(device, fails, steps=30):
+    """One step of each model on the card against the CPU (same
+    parameters, batch and noise, TF32 off; the CPU once on its own and once
+    with the card's relu decisions, SharedKinks), then ``steps`` Adam steps
+    on the card, timed by CUDA events around each synchronized step."""
+    import torch
+    from compression_tpu_torch.models import bls2017, bmshj2018
+    makers = {
+        "bls2017": lambda: bls2017.BLS2017Model(num_filters=NUM_FILTERS,
+                                                seed=0),
+        "bmshj2018": lambda: bmshj2018.BMSHJ2018Model(
+            num_filters=BMSHJ_FILTERS, num_scales=64, seed=0)}
+    batch = np.random.RandomState(1).randint(
+        0, 256, TRAIN_BATCH).astype(np.float32)
+    x_cpu = torch.as_tensor(batch)
+    x_card = x_cpu.to(device)
+
+    def one_step(model, x, u):
+        model.zero_grad()
+        t0 = time.perf_counter()
+        loss, bpp, mse = model(x, training=True,
+                               u=u[0] if len(u) == 1 else tuple(u))
+        loss.backward()
+        if x.device.type == "cuda":
+            torch.cuda.synchronize()
+        return {"metrics": [t.item() for t in (loss, bpp, mse)],
+                "grads": {k: p.grad.detach().cpu()
+                          for k, p in model.named_parameters()},
+                "ms": (time.perf_counter() - t0) * 1e3}
+
+    def max_grad_err(found):
+        """The largest error of a gradient over its largest magnitude (the
+        error itself where the CPU's gradient is all zero), and where."""
+        err = {}
+        for k, g in found["grads"].items():
+            scale = float(g.abs().max())
+            err[k] = float((card_step["grads"][k] - g).abs().max()) / (
+                scale if scale > 0 else 1.0)
+        worst = max(err, key=err.get)
+        return err[worst], worst
+
+    for name, make in makers.items():
+        cpu = make()
+        card = make().to(device)
+        card.load_state_dict(cpu.state_dict())
+        gen = torch.Generator(device=device).manual_seed(7)
+        with torch.no_grad():
+            if name == "bls2017":
+                shapes = [card.analysis(x_card).shape]
+            else:
+                y, z = card.encode(x_card)
+                shapes = [z.shape, y.shape]
+            u_card = [torch.empty(sh, device=device).uniform_(
+                -0.5, 0.5, generator=gen) for sh in shapes]
+        u_cpu = [t.cpu() for t in u_card]
+        kinks = SharedKinks(bmshj2018.F)
+        bmshj2018.F = kinks
+        try:
+            card_step = one_step(card, x_card, u_card)
+            kinks.replay = list(kinks.masks)
+            shared_step = one_step(cpu, x_cpu, u_cpu)
+        finally:
+            bmshj2018.F = kinks.functional
+        cpu_step = one_step(cpu, x_cpu, u_cpu)
+        err, worst = max_grad_err(shared_step)
+        err_own, worst_own = max_grad_err(cpu_step)
+        metric_err = [abs(a - b) / abs(b) for a, b in zip(
+            card_step["metrics"], cpu_step["metrics"])]
+        # 30 steps on the card from the same start, one fixed batch.
+        step = bls2017.make_train_step(
+            card, torch.optim.Adam(card.parameters(), lr=1e-3))
+        losses, step_ms = [], []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            start.record()
+            metrics = step(x_card, generator=gen)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(metrics["loss"]))
+        ok = {"grads_within_1e-3": err <= 1e-3,
+              "metrics_within_1e-3": max(metric_err) <= 1e-3,
+              "loss_fell": losses[-1] < losses[0],
+              "finite": bool(np.isfinite(losses).all())}
+        log("train", model=name, num_filters=card.num_filters,
+            batch=list(TRAIN_BATCH),
+            tf32_cudnn=torch.backends.cudnn.allow_tf32,
+            tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+            cudnn_deterministic=torch.backends.cudnn.deterministic,
+            cudnn_benchmark=torch.backends.cudnn.benchmark,
+            card_loss_bpp_mse=card_step["metrics"],
+            cpu_loss_bpp_mse=cpu_step["metrics"],
+            metric_rel_err=metric_err, parameters=len(cpu_step["grads"]),
+            max_grad_err=err, max_grad_err_param=worst,
+            relu_decisions_shared=len(kinks.masks),
+            relu_elements_the_cpu_decided_otherwise=kinks.flips,
+            max_grad_err_own_decisions=err_own,
+            max_grad_err_own_decisions_param=worst_own,
+            cpu_step_ms=cpu_step["ms"], first_card_step_ms=card_step["ms"],
+            losses=losses, step_ms=step_ms,
+            step_ms_median_4_to_30=float(np.median(step_ms[3:])), **ok)
+        if not all(ok.values()):
+            fails.append(f"train/{name}")
+        del cpu, card, step
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -1752,7 +1967,22 @@ def main():
     golden_bmshj("golden_bmshj.npz", lambda gold: gold, device, fails)
     golden_bmshj("golden_bmshj_full.npz", synthesized_weights, device, fails)
 
-    # Phase 6: times at the main paths' shapes.
+    # Phase 6: the host C coder against the reference-format wrappers on
+    # the card, on the main paths' streams.
+    host_coder_phase({
+        "bls2017_y_classic": (csym, cidx, table),
+        "bmshj2018_y_classic": (ysym.contiguous(), yidx1.contiguous(),
+                                ytable),
+        "bmshj2018_z_classic": (zsym1.contiguous(), zidx1, htable),
+        "bls2017_native": (main_inputs[first][0], main_inputs[first][1],
+                           table),
+        "micro_bench": (zsym, None, ztable)}, fails)
+
+    # Phase 7: a train step of both models on the card against the CPU,
+    # then 30 steps on the card.
+    train_phase(device, fails)
+
+    # Phase 8: times at the main paths' shapes.
     saved = dict(cc.LAUNCHES)
     symbols, idx, out_size, buf, lens = main_inputs[first]
     out_p = torch.empty_like(buf)

@@ -12,6 +12,7 @@ model codes on.
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
@@ -29,11 +30,12 @@ __all__ = ["ContinuousEntropyModelBase", "compress_budgeted"]
 class ContinuousEntropyModelBase:
     """Shared machinery: table build, serialization, device table."""
 
-    def __init__(self, coding_rank=None, compression=False, tail_mass=2**-8,
-                 device="cuda"):
+    def __init__(self, coding_rank=None, compression=False,
+                 expected_grads=False, tail_mass=2**-8, device="cuda"):
         self._prior = None
         self._coding_rank = int(coding_rank)
         self._compression = bool(compression)
+        self._expected_grads = bool(expected_grads)
         self._tail_mass = float(tail_mass)
         self.device = resolve_device(device)
         self.bottleneck_dtype = torch.float32
@@ -69,6 +71,12 @@ class ContinuousEntropyModelBase:
     def cdf_offset(self):
         self._check_compression()
         return self._cdf_offset
+
+    @property
+    def expected_grads(self):
+        """Training noise with the analytically expected gradient
+        (``ops.math_ops.perturb_and_apply``)."""
+        return self._expected_grads
 
     @property
     def coding_rank(self):
@@ -156,6 +164,11 @@ class ContinuousEntropyModelBase:
         if len(weights) != 2:
             raise ValueError("Expected [cdf, cdf_offset].")
         self._init_compression(weights[0], weights[1])
+
+    def _bits(self, log_probs):
+        """Bits summed over the coding rank."""
+        axes = tuple(range(-self.coding_rank, 0)) if self.coding_rank else ()
+        return torch.sum(log_probs, dim=axes) / -math.log(2.0)
 
 
 def compress_budgeted(symbols, indexes, table, max_gamma_bits,

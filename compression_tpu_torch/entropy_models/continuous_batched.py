@@ -1,19 +1,18 @@
-"""Batched entropy model for continuous random variables (the serving slice
-of compression_tpu/entropy_models/continuous_batched.py).
+"""Batched entropy model for continuous random variables (PyTorch
+counterpart of compression_tpu/entropy_models/continuous_batched.py).
 
 Data-independent prior, one CDF row per prior batch element, innermost
-``coding_rank`` dimensions coded into one stream each.  This slice covers
-eval-mode ``__call__``, ``quantize``, the reference-format ``compress`` /
-``compress_to_strings`` / ``decompress`` (in-stream Elias-gamma escapes,
-the .tfci format), the sidecar pair ``compress_sidecar_device`` /
-``decompress_sidecar_device`` the native container runs on, and the
-budgeted pair ``compress_device`` / ``decompress_device`` that copies
-nothing to the host.
+``coding_rank`` dimensions coded into one stream each.  It covers
+``__call__`` in training mode (additive uniform noise, drawn from a
+generator on the bottleneck's device or given as ``u``) and eval mode,
+``quantize``, the reference-format ``compress`` / ``compress_to_strings``
+/ ``decompress`` (in-stream Elias-gamma escapes, the .tfci format), the
+sidecar pair ``compress_sidecar_device`` / ``decompress_sidecar_device``
+the native container runs on, and the budgeted pair ``compress_device`` /
+``decompress_device`` that copies nothing to the host.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -21,6 +20,7 @@ import torch
 from compression_tpu_torch.codec import torch_coder
 from compression_tpu_torch.distributions import helpers
 from compression_tpu_torch.entropy_models import continuous_base
+from compression_tpu_torch.ops import math_ops
 from compression_tpu_torch.ops import round_ops
 
 __all__ = ["ContinuousBatchedEntropyModel"]
@@ -37,7 +37,8 @@ class ContinuousBatchedEntropyModel(
     """
 
     def __init__(self, prior=None, coding_rank=None, compression=False,
-                 tail_mass=2**-8, range_coder_precision=12,
+                 expected_grads=False, tail_mass=2**-8,
+                 range_coder_precision=12,
                  prior_shape=None, cdf=None, cdf_offset=None,
                  offset_heuristic=True, quantization_offset=None,
                  decode_sanity_check=True, device="cuda"):
@@ -48,7 +49,8 @@ class ContinuousBatchedEntropyModel(
         if not compression and cdf is not None:
             raise ValueError("CDFs can't be provided with `compression=False`")
         super().__init__(coding_rank=coding_rank, compression=compression,
-                         tail_mass=tail_mass, device=device)
+                         expected_grads=expected_grads, tail_mass=tail_mass,
+                         device=device)
         self._prior = prior
         self._offset_heuristic = bool(offset_heuristic)
         self._prior_shape = tuple(
@@ -89,17 +91,32 @@ class ContinuousBatchedEntropyModel(
         """Offset on the model's device (None when there is none)."""
         return self._offset_dev
 
-    def __call__(self, bottleneck, training=False):
-        """Eval mode: (quantized bottleneck, bits summed over the coding
-        rank).  Training-mode noise is not part of this slice."""
+    def __call__(self, bottleneck, training=False, generator=None, u=None):
+        """Perturbs or quantizes the bottleneck and estimates the bitrate.
+
+        Args:
+          bottleneck: data to compress; innermost dims broadcastable to
+            prior_shape, at least coding_rank dims.
+          training: True gives the differentiable noisy upper bound
+            (``perturb_and_apply`` over the prior's log_prob); False the
+            Shannon information of the quantized tensor.
+          generator: ``torch.Generator`` on the bottleneck's device that
+            draws the training noise.
+          u: the training noise itself, U(-.5, .5) of the bottleneck's
+            shape (instead of ``generator``).
+
+        Returns:
+          (bottleneck_perturbed, bits); bits sums over the coding_rank
+          innermost dimensions.
+        """
         if training:
-            raise NotImplementedError(
-                "training-mode noise is not ported yet; pass training=False")
-        bottleneck_perturbed = self.quantize(bottleneck)
-        log_probs = self.prior.log_prob(bottleneck_perturbed)
-        axes = tuple(range(-self.coding_rank, 0)) if self.coding_rank else ()
-        bits = torch.sum(log_probs, dim=axes) / -math.log(2.0)
-        return bottleneck_perturbed, bits
+            log_probs, bottleneck_perturbed = math_ops.perturb_and_apply(
+                self.prior.log_prob, bottleneck, generator=generator, u=u,
+                expected_grads=self.expected_grads)
+        else:
+            bottleneck_perturbed = self.quantize(bottleneck)
+            log_probs = self.prior.log_prob(bottleneck_perturbed)
+        return bottleneck_perturbed, self._bits(log_probs)
 
     def quantize(self, bottleneck):
         """Rounds to integers shifted by the quantization offset;

@@ -1,5 +1,6 @@
-"""Indexed entropy models: data-dependent priors selected per element (the
-serving slice of compression_tpu/entropy_models/continuous_indexed.py).
+"""Indexed entropy models: data-dependent priors selected per element
+(PyTorch counterpart of
+compression_tpu/entropy_models/continuous_indexed.py).
 
 A parameterized family of priors is sampled over a meshgrid of
 ``index_ranges`` at init to build one CDF row per parameter combination; at
@@ -8,20 +9,20 @@ run time an ``indexes`` tensor picks the row per element
 ``LocationScaleIndexedEntropyModel`` is the scale-table special case with
 the location parameter subtracted before coding.
 
-This slice covers eval-mode ``__call__``, ``quantize``, the reference-format
-``compress`` / ``compress_to_strings`` / ``decompress`` (in-stream
-Elias-gamma escapes, the .tfci format), the sidecar pair the native
-container runs on, and the budgeted pair ``compress_device`` /
-``decompress_device`` that copies nothing to the host.  Every method takes
+It covers ``__call__`` in training mode (uniform noise from a generator
+on the bottleneck's device, or given as ``u``) and eval mode, ``quantize``,
+the reference-format ``compress`` / ``compress_to_strings`` /
+``decompress`` (in-stream Elias-gamma escapes, the .tfci format), the
+sidecar pair the native container runs on, and the budgeted pair
+``compress_device`` / ``decompress_device`` that copies nothing to the
+host.  Every method takes
 and returns tensors on the model's device.  The JAX package has each sidecar
 method twice, an untraced host wrapper and a ``_device`` one that runs
 inside jit; here one pair serves, under the ``_device`` names, as in
-``continuous_batched``.  Training-mode ``__call__`` is not ported.
+``continuous_batched``.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -56,9 +57,9 @@ class ContinuousIndexedEntropyModel(
     """
 
     def __init__(self, prior_fn, index_ranges, parameter_fns, coding_rank,
-                 channel_axis=-1, compression=False, tail_mass=2**-8,
-                 range_coder_precision=12, cdf=None, cdf_offset=None,
-                 decode_sanity_check=True, device="cuda"):
+                 channel_axis=-1, compression=False, expected_grads=False,
+                 tail_mass=2**-8, range_coder_precision=12, cdf=None,
+                 cdf_offset=None, decode_sanity_check=True, device="cuda"):
         if not callable(prior_fn):
             raise TypeError("`prior_fn` must be a class or factory function.")
         for name, fn in parameter_fns.items():
@@ -67,7 +68,8 @@ class ContinuousIndexedEntropyModel(
             if not callable(fn):
                 raise TypeError(f"`parameter_fns['{name}']` must be callable.")
         super().__init__(coding_rank=coding_rank, compression=compression,
-                         tail_mass=tail_mass, device=device)
+                         expected_grads=expected_grads, tail_mass=tail_mass,
+                         device=device)
         self._index_ranges = tuple(int(r) for r in index_ranges)
         if not self.index_ranges:
             raise ValueError("`index_ranges` must have at least one element.")
@@ -175,19 +177,29 @@ class ContinuousIndexedEntropyModel(
         symbols = symbols + self._row_offsets()[idx2.long()]
         return symbols.reshape(out_shape).to(self.bottleneck_dtype)
 
-    def __call__(self, bottleneck, indexes, training=False):
-        """Eval mode: (quantized bottleneck, bits summed over the coding
-        rank).  Training-mode noise is not ported."""
-        if training:
-            raise NotImplementedError(
-                "training-mode noise is not ported yet; pass training=False")
+    def __call__(self, bottleneck, indexes, training=False, generator=None,
+                 u=None):
+        """Perturbs or quantizes the bottleneck and estimates the bitrate.
+
+        In training mode the noise comes from ``generator`` (on the
+        bottleneck's device) or is given as ``u``; the gradient reaches the
+        indexes through the prior they pick (``_make_prior``).  Returns
+        (bottleneck_perturbed, bits summed over the coding rank).
+        """
         indexes = self._normalize_indexes(indexes.to(self.prior_dtype))
-        prior = self._make_prior(indexes)
-        bottleneck_perturbed = self.quantize(bottleneck)
-        log_probs = prior.log_prob(bottleneck_perturbed)
-        axes = tuple(range(-self.coding_rank, 0)) if self.coding_rank else ()
-        bits = torch.sum(log_probs, dim=axes) / -math.log(2.0)
-        return bottleneck_perturbed, bits
+        if training:
+
+            def log_prob_fn(bottleneck_perturbed, idx):
+                return self._make_prior(idx).log_prob(bottleneck_perturbed)
+
+            log_probs, bottleneck_perturbed = math_ops.perturb_and_apply(
+                log_prob_fn, bottleneck, indexes, generator=generator, u=u,
+                expected_grads=self.expected_grads)
+        else:
+            prior = self._make_prior(indexes)
+            bottleneck_perturbed = self.quantize(bottleneck)
+            log_probs = prior.log_prob(bottleneck_perturbed)
+        return bottleneck_perturbed, self._bits(log_probs)
 
     def quantize(self, bottleneck):
         return round_ops.round_st(bottleneck)
@@ -316,24 +328,28 @@ class LocationScaleIndexedEntropyModel(ContinuousIndexedEntropyModel):
     """Indexed entropy model over a table of scales, with loc shifted out."""
 
     def __init__(self, prior_fn, num_scales, scale_fn, coding_rank,
-                 compression=False, tail_mass=2**-8, range_coder_precision=12,
-                 cdf=None, cdf_offset=None, decode_sanity_check=True,
-                 device="cuda"):
+                 compression=False, expected_grads=False, tail_mass=2**-8,
+                 range_coder_precision=12, cdf=None, cdf_offset=None,
+                 decode_sanity_check=True, device="cuda"):
         super().__init__(
             prior_fn=prior_fn, index_ranges=(int(num_scales),),
             parameter_fns=dict(loc=lambda _: 0.0, scale=scale_fn),
             coding_rank=coding_rank, channel_axis=None,
-            compression=compression, tail_mass=tail_mass,
+            compression=compression, expected_grads=expected_grads,
+            tail_mass=tail_mass,
             range_coder_precision=range_coder_precision, cdf=cdf,
             cdf_offset=cdf_offset, decode_sanity_check=decode_sanity_check,
             device=device)
 
-    def __call__(self, bottleneck, scale_indexes, loc=None, training=False):
+    def __call__(self, bottleneck, scale_indexes, loc=None, training=False,
+                 generator=None, u=None):
         if loc is None:
             return super().__call__(bottleneck, scale_indexes,
-                                    training=training)
+                                    training=training, generator=generator,
+                                    u=u)
         bottleneck, bits = super().__call__(
-            bottleneck - loc, scale_indexes, training=training)
+            bottleneck - loc, scale_indexes, training=training,
+            generator=generator, u=u)
         return bottleneck + loc, bits
 
     def quantize(self, bottleneck, loc=None):

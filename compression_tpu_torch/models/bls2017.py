@@ -1,5 +1,6 @@
-"""Factorized-prior image codec (Ballé, Laparra, Simoncelli 2017), the
-serving path (PyTorch counterpart of compression_tpu/models/bls2017.py).
+"""Factorized-prior image codec (Ballé, Laparra, Simoncelli 2017): its
+training and serving paths (PyTorch counterpart of
+compression_tpu/models/bls2017.py).
 
 A 3-layer SignalConv2D analysis transform with GDN (downsampling 4,2,2), a
 mirrored synthesis transform with IGDN, a NoisyDeepFactorized prior over the
@@ -9,8 +10,10 @@ the reference (``compress``: one stream per image, escapes in-stream) and
 the native one (``compress_native``, ``compress_native_many``: one stream
 per latent row block plus the escape sidecar); ``decompress`` and
 ``decompress_native_many`` read both, and ``reconstruct`` skips the coder.
-Weights come from a seeded init, from the JAX package (``params_from_jax``)
-or from the reference's TF variables (``params_from_tf``).  Images are
+``BLS2017Model.forward(training=True)``, ``make_train_step`` and ``train``
+train the model (uniform noise on the latent, Adam).  Weights come from a
+seeded init, from the JAX package (``params_from_jax``) or from the
+reference's TF variables (``params_from_tf``).  Images are
 uint8 [H, W, 3] (numpy or torch) and latents [1, H, W, C], the JAX
 package's NHWC layout.
 
@@ -39,6 +42,8 @@ __all__ = [
     "SynthesisTransform",
     "BLS2017Model",
     "BLS2017Codec",
+    "make_train_step",
+    "train",
     "params_from_jax",
     "params_from_tf",
 ]
@@ -89,8 +94,9 @@ class SynthesisTransform(nn.Module):
 
 
 class BLS2017Model(nn.Module):
-    """Rate-distortion model (eval forward); weights from a seeded init
-    (``seed``) or carried from the JAX package with ``params_from_jax``."""
+    """Rate-distortion model (training and eval forward); weights from a
+    seeded init (``seed``) or carried from the JAX package with
+    ``params_from_jax``."""
 
     def __init__(self, lmbda=0.01, num_filters=128, seed=0):
         super().__init__()
@@ -114,28 +120,90 @@ class BLS2017Model(nn.Module):
                 "factors": get(self.prior_factors)}
 
     def prior(self, device=None):
-        """NoisyDeepFactorized prior (parameters copied to ``device`` when
-        given)."""
+        """NoisyDeepFactorized prior over the parameters themselves (what
+        training differentiates), or over detached copies on ``device``
+        when it is given (the codec's tables)."""
         return deep_factorized.NoisyDeepFactorized(
             params=self.prior_params(device),
             batch_shape=(self.num_filters,))
 
-    def forward(self, x, training=False):
-        """Returns (loss, bpp, mse) for a uint8/float NHWC batch."""
-        if training:
-            raise NotImplementedError(
-                "the train step is not ported yet; pass training=False")
+    def forward(self, x, training=False, generator=None, u=None):
+        """Returns (loss, bpp, mse) for a uint8/float NHWC batch.
+
+        In training mode the latent is perturbed with U(-.5, .5) noise from
+        ``generator`` (a ``torch.Generator`` on ``x``'s device) or given as
+        ``u`` (the latent's shape), and every result is differentiable in
+        the model's parameters; in eval mode the latent is rounded.
+        """
         x = torch.as_tensor(x).to(torch.float32)
         em = ContinuousBatchedEntropyModel(
             prior=self.prior(), coding_rank=3, compression=False,
             offset_heuristic=False, device=x.device)
         y = self.analysis(x)
-        y_hat, bits = em(y, training=False)
+        y_hat, bits = em(y, training=training, generator=generator, u=u)
         x_hat = self.synthesis(y_hat)[:, : x.shape[1], : x.shape[2], :]
         num_pixels = int(np.prod(x.shape[:-1]))
         bpp = torch.sum(bits) / num_pixels
         mse = torch.mean(torch.square(x - x_hat))
         return bpp + self.lmbda * mse, bpp, mse
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """Returns ``step(batch, generator=None, u=None)``: one rate-distortion
+    step of ``model`` (a BLS2017Model or BMSHJ2018Model) on a uint8/float
+    NHWC batch, which it moves to the model's device.  ``generator`` or
+    ``u`` is the training noise (``model.forward``).  The step returns
+    {"loss", "bpp", "mse"} as 0-d tensors on the model's device, so that it
+    never waits for the card.  With ``torch.optim.Adam`` the update is
+    optax.adam's (m_hat / (sqrt(v_hat) + eps)).
+    """
+    device = next(model.parameters()).device
+
+    def step(batch, generator=None, u=None):
+        batch = torch.as_tensor(batch, device=device).to(torch.float32)
+        optimizer.zero_grad(set_to_none=True)
+        loss, bpp, mse = model(batch, training=True, generator=generator,
+                               u=u)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach(), "bpp": bpp.detach(),
+                "mse": mse.detach()}
+
+    return step
+
+
+def train(lmbda=0.01, num_filters=128, batch_size=8, patchsize=256,
+          steps=1000, learning_rate=1e-4, data_iter=None, seed=0,
+          log_every=100, device="cuda"):
+    """Trains a BLS2017Model with Adam; returns the model.
+
+    ``data_iter`` yields uint8/float NHWC batches; if None, random noise
+    patches from ``np.random.RandomState(seed)`` are used (the JAX
+    package's batches; smoke training only, nothing is downloaded).  The
+    weights come from ``seed`` and the noise from a generator on
+    ``device`` seeded with it.  Runs on the card unless the caller passes
+    device="cpu"; convolutions follow torch.backends' TF32 flags.
+    """
+    device = resolve_device(device)
+    model = BLS2017Model(lmbda=lmbda, num_filters=num_filters,
+                         seed=seed).to(device)
+    step_fn = make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=learning_rate))
+    generator = torch.Generator(device=device).manual_seed(int(seed))
+
+    def default_iter():
+        rng = np.random.RandomState(seed)
+        while True:
+            yield rng.randint(
+                0, 256, (batch_size, patchsize, patchsize, 3)).astype(
+                    np.float32)
+
+    it = data_iter if data_iter is not None else default_iter()
+    for step, batch in zip(range(steps), it):
+        metrics = step_fn(batch, generator=generator)
+        if log_every and step % log_every == 0:
+            print({k: float(v) for k, v in metrics.items()}, flush=True)
+    return model
 
 
 def params_from_jax(tree) -> dict:

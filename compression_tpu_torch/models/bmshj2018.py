@@ -1,5 +1,5 @@
-"""Scale-hyperprior image codec (Ballé et al. 2018), the serving path
-(PyTorch counterpart of compression_tpu/models/bmshj2018.py).
+"""Scale-hyperprior image codec (Ballé et al. 2018): its training and
+serving paths (PyTorch counterpart of compression_tpu/models/bmshj2018.py).
 
 Four-layer analysis / synthesis transforms (stride 2 each) with GDN, a
 hyper-analysis / hyper-synthesis pair that turns the latent ``y`` into a
@@ -12,8 +12,9 @@ LocationScaleIndexedEntropyModel over ``y`` with a log-spaced scale table.
 in-stream; 5 tensors) and the native one (``compress_native``,
 ``compress_native_many``: one stream per latent row block plus an escape
 sidecar, for both latents; 9 tensors).  ``decompress`` and
-``decompress_native_many`` read both, ``reconstruct`` skips the coder.  The
-JAX package's fetch budgets and compacted transfers, and the fallback that
+``decompress_native_many`` read both, ``reconstruct`` skips the coder.
+``BMSHJ2018Model.forward(training=True)`` and ``make_train_step`` train
+the model (uniform noise on both latents).  The JAX package's fetch budgets and compacted transfers, and the fallback that
 goes with them, have no counterpart: the escape list here is exact, so
 ``compress_native`` has no budget to overflow.  Weights come from a seeded
 init, from the JAX package (``params_from_jax``) or from the reference's TF
@@ -43,6 +44,8 @@ from compression_tpu_torch.entropy_models.continuous_indexed import (
 from compression_tpu_torch.layers.gdn import GDN
 from compression_tpu_torch.layers.signal_conv import SignalConv2D
 from compression_tpu_torch.models import native_format
+# One train step serves both models (JAX: models/bmshj2018.py:193).
+from compression_tpu_torch.models.bls2017 import make_train_step
 from compression_tpu_torch.util.device import resolve_device
 from compression_tpu_torch.util.packed_tensors import PackedTensors
 
@@ -54,6 +57,7 @@ __all__ = [
     "BMSHJ2018Model",
     "BMSHJ2018Codec",
     "make_scale_fn",
+    "make_train_step",
     "params_from_jax",
     "params_from_tf",
 ]
@@ -155,8 +159,8 @@ class HyperSynthesisTransform(nn.Module):
 
 
 class BMSHJ2018Model(nn.Module):
-    """Rate-distortion model (eval forward); weights from a seeded init
-    (``seed``) or carried over with ``params_from_jax`` /
+    """Rate-distortion model (training and eval forward); weights from a
+    seeded init (``seed``) or carried over with ``params_from_jax`` /
     ``params_from_tf``."""
 
     def __init__(self, lmbda=0.01, num_filters=128, num_scales=64,
@@ -184,8 +188,9 @@ class BMSHJ2018Model(nn.Module):
         return make_scale_fn(self.scale_min, self.scale_max, self.num_scales)
 
     def hyperprior(self, device=None):
-        """NoisyDeepFactorized hyperprior over z (parameters copied to
-        ``device`` when given)."""
+        """NoisyDeepFactorized hyperprior over z, over the parameters
+        themselves (what training differentiates), or over detached copies
+        on ``device`` when it is given (the codec's tables)."""
         def get(plist):
             return [p if device is None else p.detach().to(device)
                     for p in plist]
@@ -195,12 +200,17 @@ class BMSHJ2018Model(nn.Module):
                     "factors": get(self.hyperprior_factors)},
             batch_shape=(self.num_filters,))
 
-    def forward(self, x, training=False):
-        """Returns (loss, bpp, mse) for a uint8/float NHWC batch."""
-        if training:
-            raise NotImplementedError(
-                "the train step is not ported yet; pass training=False")
+    def forward(self, x, training=False, generator=None, u=None):
+        """Returns (loss, bpp, mse) for a uint8/float NHWC batch.
+
+        In training mode both latents are perturbed with U(-.5, .5) noise:
+        from ``generator`` (a ``torch.Generator`` on ``x``'s device, which
+        draws z's noise first, then y's) or given as ``u = (u_z, u_y)``
+        (the latents' shapes; the JAX package splits its key into k1 for z
+        and k2 for y).  In eval mode both latents are rounded.
+        """
         x = torch.as_tensor(x).to(torch.float32)
+        u_z, u_y = (None, None) if u is None else u
         em = LocationScaleIndexedEntropyModel(
             uniform_noise.NoisyNormal, self.num_scales, self.scale_fn(),
             coding_rank=3, compression=False, device=x.device)
@@ -208,9 +218,11 @@ class BMSHJ2018Model(nn.Module):
             prior=self.hyperprior(), coding_rank=3, compression=False,
             offset_heuristic=False, device=x.device)
         y, z = self.encode(x)
-        z_hat, side_bits = side_em(z, training=False)
+        z_hat, side_bits = side_em(z, training=training, generator=generator,
+                                   u=u_z)
         indexes = self.hyper_decode(z_hat)[:, : y.shape[1], : y.shape[2], :]
-        y_hat, bits = em(y, indexes, training=False)
+        y_hat, bits = em(y, indexes, training=training, generator=generator,
+                         u=u_y)
         x_hat = self.decode(y_hat)[:, : x.shape[1], : x.shape[2], :]
         num_pixels = int(np.prod(x.shape[:-1]))
         bpp = (torch.sum(bits) + torch.sum(side_bits)) / num_pixels

@@ -1,4 +1,5 @@
-"""On-demand native builds: the C++ PMF quantizer and the CUDA kernels.
+"""On-demand native builds: the C++ PMF quantizer, the host range coder
+and the CUDA kernels.
 
 Every shared object is compiled from the sources in this package at first
 use into ``compression_tpu_torch/_build/`` (git-ignored) and loaded with
@@ -20,6 +21,7 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 
 _LOCK = threading.Lock()
 _PMF_LIB = None
+_RC_LIB = None
 
 
 def stale(out: str, src: str) -> bool:
@@ -49,20 +51,26 @@ def finish_build(build, timeout: float = 600) -> None:
     os.replace(tmp, out)
 
 
-def _build_pmf() -> ctypes.CDLL:
-    src = os.path.join(os.path.dirname(__file__), "pmf_quantizer.cc")
-    out = os.path.join(BUILD_DIR, "pmf_quantizer.so")
+def _build_cxx(name: str, what: str, flags=()) -> str:
+    """Builds native/<name>.cc into _build/<name>.so with g++ when the
+    library is missing or older than its source; returns its path."""
+    src = os.path.join(os.path.dirname(__file__), f"{name}.cc")
+    out = os.path.join(BUILD_DIR, f"{name}.so")
     if stale(out, src):
-        # Must be libstdc++'s std::sort: equal-key order is the contract.
         cxx = shutil.which("g++")
         if cxx is None:
             raise RuntimeError(
-                "g++ not found: the PMF quantizer (native/pmf_quantizer.cc) "
-                "cannot be built, and table construction has no fallback.")
+                f"g++ not found: {what} (native/{name}.cc) cannot be built, "
+                "and it has no fallback.")
         finish_build(start_build(
-            [cxx, "-O2", "-std=c++17", "-shared", "-fPIC", src], out),
-            timeout=120)
-    lib = ctypes.CDLL(out)
+            [cxx, "-O2", "-std=c++17", "-shared", "-fPIC", *flags, src],
+            out), timeout=120)
+    return out
+
+
+def _build_pmf() -> ctypes.CDLL:
+    # Must be libstdc++'s std::sort: equal-key order is the contract.
+    lib = ctypes.CDLL(_build_cxx("pmf_quantizer", "the PMF quantizer"))
     lib.pmf_to_quantized_cdf.restype = ctypes.c_int
     lib.pmf_to_quantized_cdf.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_int,
@@ -77,3 +85,32 @@ def get_pmf_lib() -> ctypes.CDLL:
         if _PMF_LIB is None:
             _PMF_LIB = _build_pmf()
     return _PMF_LIB
+
+
+def _build_range_coder() -> ctypes.CDLL:
+    lib = ctypes.CDLL(_build_cxx("range_coder", "the host range coder",
+                                 flags=("-pthread",)))
+    c_i32p = ctypes.POINTER(ctypes.c_int32)
+    c_u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.ctpu_encode_streams.restype = ctypes.c_int
+    lib.ctpu_encode_streams.argtypes = [
+        c_i32p, c_i32p, ctypes.c_int64, ctypes.c_int64,
+        c_i32p, c_i32p, c_i32p, c_u8p, ctypes.c_int64, ctypes.c_int64,
+        c_u8p, ctypes.c_int64, c_i32p, ctypes.c_int]
+    lib.ctpu_decode_streams.restype = ctypes.c_int
+    lib.ctpu_decode_streams.argtypes = [
+        c_u8p, c_i32p, ctypes.c_int64, c_i32p,
+        ctypes.c_int64, ctypes.c_int64,
+        c_i32p, c_i32p, c_i32p, c_u8p, ctypes.c_int64, ctypes.c_int64,
+        c_i32p, c_u8p, ctypes.c_int]
+    return lib
+
+
+def get_range_coder_lib() -> ctypes.CDLL:
+    """Returns the host range coder (native/range_coder.cc), building it on
+    first use; raises when it cannot be built."""
+    global _RC_LIB
+    with _LOCK:
+        if _RC_LIB is None:
+            _RC_LIB = _build_range_coder()
+    return _RC_LIB

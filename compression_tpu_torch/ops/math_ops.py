@@ -1,11 +1,15 @@
-"""Lower and upper bounds with compression-friendly gradients (PyTorch
-counterpart of compression_tpu/ops/math_ops.py:lower_bound / upper_bound)."""
+"""Math operations with compression-specific gradients (PyTorch
+counterpart of compression_tpu/ops/math_ops.py): ``lower_bound`` /
+``upper_bound`` (max / min with 'identity', 'identity_if_towards' or
+'disconnected' gradients) and ``perturb_and_apply`` (additive U(-.5, .5)
+noise with the analytically expected gradient, Agustsson & Theis 2020
+§4.2)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["lower_bound", "upper_bound"]
+__all__ = ["lower_bound", "upper_bound", "perturb_and_apply"]
 
 _GRADIENTS = ("disconnected", "identity", "identity_if_towards")
 
@@ -74,3 +78,59 @@ def upper_bound(inputs, bound, gradient="identity_if_towards"):
         raise ValueError(f"Invalid value for `gradient`: '{gradient}'.")
     bound = _as_bound(bound, inputs)
     return _UpperBound.apply(inputs, bound, gradient)
+
+
+class _ExpectedGrads(torch.autograd.Function):
+    """Passes ``y`` on unchanged and gives ``x`` the gradient
+    ``grad * dydx`` (``dydx`` a constant, like the JAX package's residual)."""
+
+    @staticmethod
+    def forward(ctx, y, x, dydx):
+        ctx.save_for_backward(dydx)
+        return y.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dydx,) = ctx.saved_tensors
+        return grad, grad * dydx, None
+
+
+def perturb_and_apply(f, x, *args, generator=None, u=None, x_plus_u=None,
+                      expected_grads=True):
+    """Perturbs ``x`` with U(-.5, .5) noise and applies the pointwise ``f``.
+
+    Returns ``(f(x + u, *args), x + u)``.  With ``expected_grads=True`` the
+    gradient of the first result with respect to ``x`` is the analytically
+    expected derivative over the noise, ``f(x + .5) - f(x - .5)`` (taken as
+    a constant: it is not differentiated with respect to ``args``), and
+    ``args`` (and whatever ``f`` closes over) get their ordinary gradient
+    at ``x + u``.  Without it every gradient is the ordinary one.  The
+    returned ``x + u`` carries the identity gradient to ``x``.
+
+    Exactly one noise source: ``generator`` (a ``torch.Generator`` on
+    ``x``'s device, which draws the noise there), ``u`` or ``x_plus_u``.
+    """
+    if x_plus_u is None:
+        if u is None:
+            if generator is None:
+                raise ValueError(
+                    "Provide one of `generator`, `u`, or `x_plus_u`.")
+            if generator.device.type != x.device.type or (
+                    x.device.index is not None
+                    and generator.device.index not in (None, x.device.index)):
+                raise ValueError(
+                    f"the generator lies on {generator.device}, the tensor "
+                    f"on {x.device}: the noise is drawn where the tensor "
+                    "lies")
+            u = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            u.uniform_(-0.5, 0.5, generator=generator)
+        x_plus_u = x + u
+    elif u is not None or generator is not None:
+        raise ValueError("Cannot provide both `x_plus_u` and `u`/`generator`.")
+
+    if not expected_grads:
+        return f(x_plus_u, *args), x_plus_u
+    y = f(x_plus_u.detach(), *args)
+    with torch.no_grad():
+        dydx = f(x + 0.5, *args) - f(x - 0.5, *args)
+    return _ExpectedGrads.apply(y, x, dydx), x_plus_u

@@ -153,7 +153,8 @@ def test_model_eval_forward_matches_jax(codecs):
         mine = own.model(torch.as_tensor(x)[None])
     for a, b in zip(mine, ref):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-5)
-    with pytest.raises(NotImplementedError):
+    # Training mode needs a noise source (a generator or u).
+    with pytest.raises(ValueError):
         own.model(torch.as_tensor(x)[None], training=True)
 
 

@@ -795,3 +795,99 @@ def test_indexed_decode_variant_follows_the_stream_count(device):
                 cuda_coder.LAUNCHES_WARP["decode_indexed"]) == (
                     before[0] + 1, before[1] + warp)
         assert torch.equal(out, sym[:streams]) and bool(ok.all())
+
+
+# -- the host C coder against the reference-format kernels -------------------
+@pytest.mark.parametrize("mode", ["indexed", "single_row"])
+def test_host_coder_bytes_equal_kernels(device, mode):
+    """codec.host's bytes equal torch_coder.encode_streams' on the card
+    (K6' / K1 in indexed mode with escapes, K4' on one row), and its decode
+    gives the card's symbols and sanity flags."""
+    from compression_tpu_torch.codec import host
+    gen = torch.Generator(device=device).manual_seed(5)
+    if mode == "indexed":
+        table = _table(1, True, device)
+        idx = torch.randint(0, 8, (300, 77), generator=gen, device=device,
+                            dtype=torch.int32)
+        sym = torch.randint(-3, 45, (300, 77), generator=gen, device=device,
+                            dtype=torch.int32)
+    else:
+        table = _table(2, False, device)
+        table = torch_coder.DeviceCdfTable(tables.parse_ragged_cdf(
+            tables.build_ragged_cdf([table.host.cdf[0][:table.host.length[0]]],
+                                    [int(table.host.precision[0])], [False])),
+            device)
+        idx = None
+        sym = torch.randint(0, int(table.host.length[0]) - 1, (300, 77),
+                            generator=gen, device=device, dtype=torch.int32)
+    buf, lens = torch_coder.encode_streams(sym, table, idx)
+    idx_np = None if idx is None else idx.cpu().numpy()
+    strings = host.encode_streams(sym.cpu().numpy(), table.host, idx_np)
+    assert strings == torch_coder.to_bytes_list(buf.cpu().numpy(),
+                                                lens.cpu().numpy())
+    dec, ok = torch_coder.decode_streams(buf, lens, 77, table, idx)
+    h_dec, h_ok = host.decode_streams(strings, 77, table.host, idx_np)
+    np.testing.assert_array_equal(h_dec, dec.cpu().numpy())
+    np.testing.assert_array_equal(h_ok, ok.cpu().numpy())
+
+
+# -- a train step on the card against the CPU --------------------------------
+@pytest.fixture()
+def no_tf32():
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@pytest.mark.parametrize("name", ["bls2017", "bmshj2018"])
+def test_train_step_card_matches_cpu(device, no_tf32, name):
+    """One step of each model at 16 filters, batch 2 of 64x64, on the card
+    and on the CPU from the same parameters, batch and noise, TF32 off:
+    metrics within rtol 1e-4, every gradient within 1e-3 of its largest
+    magnitude.  A generator on the card draws there; one on the CPU
+    raises."""
+    from compression_tpu_torch.models import bls2017, bmshj2018
+    if name == "bls2017":
+        models = [bls2017.BLS2017Model(num_filters=16, seed=3)
+                  for _ in range(2)]
+    else:
+        models = [bmshj2018.BMSHJ2018Model(num_filters=16, num_scales=16,
+                                           seed=3) for _ in range(2)]
+    card = models[1].to(device)
+    cpu = models[0]
+    x = torch.as_tensor(np.random.RandomState(1).randint(
+        0, 256, (2, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        shapes = [tuple(t.shape) for t in (
+            [cpu.analysis(x)] if name == "bls2017" else cpu.encode(x)[::-1])]
+    rng = np.random.RandomState(2)
+    u = [torch.as_tensor(rng.uniform(-.5, .5, s).astype(np.float32))
+         for s in shapes]
+    u_cpu = u[0] if name == "bls2017" else tuple(u)
+    u_card = u[0].to(device) if name == "bls2017" else tuple(
+        t.to(device) for t in u)
+    results = []
+    for model, batch, noise in ((cpu, x, u_cpu), (card, x.to(device),
+                                                  u_card)):
+        model.zero_grad()
+        loss, bpp, mse = model(batch, training=True, u=noise)
+        loss.backward()
+        results.append(([t.item() for t in (loss, bpp, mse)],
+                        {k: p.grad.cpu() for k, p in
+                         model.named_parameters()}))
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-4)
+    for k, want in results[0][1].items():
+        err = float((results[1][1][k] - want).abs().max()
+                    / want.abs().max())
+        assert err <= 1e-3, (k, err)
+    step = bls2017.make_train_step(
+        card, torch.optim.Adam(card.parameters(), lr=1e-3))
+    metrics = step(x, generator=torch.Generator(device=device).manual_seed(0))
+    assert all(v.device.type == "cuda" and v.shape == ()
+               for v in metrics.values())
+    with pytest.raises(ValueError):
+        step(x, generator=torch.Generator().manual_seed(0))

@@ -29,7 +29,8 @@ def _imported(path):
 
 
 MODULES = [
-    "codec/cuda_coder.py", "codec/tables.py", "codec/torch_coder.py",
+    "codec/cuda_coder.py", "codec/host.py", "codec/reference.py",
+    "codec/stream.py", "codec/tables.py", "codec/torch_coder.py",
     "distributions/base.py", "distributions/deep_factorized.py",
     "distributions/helpers.py", "distributions/uniform_noise.py",
     "entropy_models/continuous_base.py",

@@ -238,7 +238,8 @@ def test_general_indexed_model_matches_jax(name):
     q, bits = tem(torch.tensor(y), torch.tensor(idx))
     np.testing.assert_array_equal(q.numpy(), y)
     _close(bits, ref_bits, rtol=1e-5)
-    with pytest.raises(NotImplementedError):
+    # Training mode needs a noise source (a generator or u).
+    with pytest.raises(ValueError):
         tem(torch.tensor(y), torch.tensor(idx), training=True)
 
 
