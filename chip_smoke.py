@@ -58,7 +58,7 @@ Phases, one JSON line each (any failure exits non-zero):
      K8' (bucketed single-row decode) against its plain version and against
      K5' at 32768 x 512, on every golden case and on corrupted streams;
   4. main paths, each with the launch counts reset just before it and read
-     just after, every K1, K2, K3' and K6' launch of (a), (b) and (d)
+     just after, every K1, K2, K3' and K6' launch of (a), (b), (d) and (f)
      expected on the warp-per-stream kernel: (a) bls2017 at num_filters=128 (seeded
      init, its own tables) on a 512x512 and a 768x512 image through
      compress_native / decompress / reconstruct / compress_native_many /
@@ -75,7 +75,22 @@ Phases, one JSON line each (any failure exits non-zero):
      gives it; shrunk free of escapes with 40 large ones planted; and the
      seeded one with 200 large ones on top, which the budget must report
      as too many), with no copy to the host before the result is asked
-     for;
+     for; (f) ms2020 at its published width (192 filters, latent 320, 10
+     slices, 64 scales; seeded init, its own tables, nothing cut) on the
+     same images through both containers, the *_many calls and
+     reconstruct: one K1 launch for z and one for the ten slices stacked
+     per native compress, one K2 launch for z and one a slice per native
+     decompress, the classic container's eleven one-stream calls on the
+     warp kernels of K1 / K6' and K3'; then K1 at the stacked slices' launch (640 x 512 at
+     512x512) and on z, and K2 at one slice's (64 x 512, on the
+     container's own bytes), against their plain versions and timed
+     beside the byte bound and the chain's floor; both ms2020 goldens on
+     the card (golden_ms2020_full.npz also against the CPU: native
+     container and reconstruction of its 128x128 image), and e2e ms of
+     both containers; (g) the classic containers of the three models on
+     the card, with e2e ms, and the host C coder against the card's
+     reference-format wrappers on 1, 16, 64 and 255 streams of 8192
+     symbols of bmshj2018's y stream, in both directions;
   5. reference: the CPU codecs write the same containers on a small image;
      the reference's golden_model.npz .tfci container decodes on the card to
      its exact uint8 image; golden_bmshj.npz (24 filters) and
@@ -101,8 +116,9 @@ Phases, one JSON line each (any failure exits non-zero):
      on the card, whose loss must fall, with the median step ms of steps
      4-30 by CUDA events around a synchronized step;
   8. times: kernels and plain versions at the main paths' shapes (CUDA
-     events), their bounds, and end-to-end ms per image of both containers
-     of both models; both kernels of K3' at the classic containers' three
+     events), their bounds, and end-to-end ms per image of the native
+     containers of both models (the classic ones' are phase 4g's); both
+     kernels of K3' at the classic containers' three
      stream shapes beside the byte bound and the serial chain's floor, and
      from 1 to 65536 streams of 512 symbols (what the dispatch constant
      rests on); both kernels of the micro-op mode on compress_device's y
@@ -174,6 +190,15 @@ PIXEL_BOUNDARY = 2e-4
 # micro-op scan's, which K1's and K6''s warp kernels share) takes from one
 # size - 1 to the next in the compiled kernel (scan_floor_ms).
 SCAN_CHAIN_OPS = 6
+# ms2020 at the reference CLI's widths (compression_tpu/models/ms2020.py
+# main()), nothing cut: ~100M parameters.
+MS2020_CONFIG = dict(num_filters=192, latent_depth=320, hyperprior_depth=192,
+                     num_slices=10, max_support_slices=5, num_scales=64)
+# Stream counts at which the host C coder is timed against the card's
+# reference-format wrappers (below the JAX package's host-route cap of 256),
+# and symbols a stream (cut from bmshj2018's y stream).
+CAP_STREAMS = (1, 16, 64, 255)
+CAP_SYMBOLS = 8192
 # (kernel name, source, TPU kernel it replaces)
 KERNELS = [
     ("encode_indexed", "encode_indexed.cu", "pallas_coder.py:1819"),
@@ -802,6 +827,21 @@ def scan_floor_ms(coded_steps, clock_mhz):
     return coded_steps * SCAN_CHAIN_OPS * 4 / (clock_mhz * 1e3)
 
 
+def host_ms(fn, runs=5):
+    """Median ms of fn (host clock around the call and a synchronize),
+    after one warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def e2e_times(compress, decompress, img, runs=10):
     """Median and max ms of compress and decompress (host clock around work
     that ends in a synchronize), after one warm-up."""
@@ -1110,6 +1150,342 @@ def train_phase(device, fails, steps=30):
             fails.append(f"train/{name}")
         del cpu, card, step
         torch.cuda.empty_cache()
+
+
+def classic_phase(codecs, images, sweep, fails):
+    """Phase 4g: each codec's classic compress / decompress on each image
+    on the card: the container decodes to reconstruct(x), every call takes
+    a kernel's route ("cuda-gamma" or "cuda-indexed"), and e2e ms.  Then
+    the host C coder against the card's reference-format wrappers at a few
+    streams: ``sweep`` = (symbols [1, N], indexes, table) of one classic
+    stream, cut into streams of CAP_SYMBOLS symbols and tiled to
+    CAP_STREAMS streams, encoded and decoded by both: identical bytes,
+    symbols and flags, and the median ms of each (host clock, the copies
+    included)."""
+    import torch
+    from compression_tpu_torch.codec import host, torch_coder
+    for model, codec in codecs.items():
+        for name, img in images.items():
+            with torch.no_grad():
+                container = codec.compress(img)
+                routes = [torch_coder.DISPATCH_LOG.get("encode")]
+                x_hat = codec.decompress(container)
+                routes.append(torch_coder.DISPATCH_LOG.get("decode"))
+                exact = bool(np.array_equal(x_hat, codec.reconstruct(img)))
+                times = e2e_times(codec.compress, codec.decompress, img)
+            log("classic", model=model, image=name,
+                decompress_equals_reconstruct=exact, routes=routes,
+                e2e=times)
+            if not (exact and all(r in ("cuda-gamma", "cuda-indexed")
+                                  for r in routes)):
+                fails.append(f"classic/{model}/{name}")
+    sym, idx, table = sweep
+    n = CAP_SYMBOLS
+    base_sym = sym.reshape(-1, n)
+    base_idx = idx.reshape(-1, n)
+    for streams in CAP_STREAMS:
+        reps = -(-streams // base_sym.shape[0])
+        s_sym = base_sym.repeat(reps, 1)[:streams].contiguous()
+        s_idx = base_idx.repeat(reps, 1)[:streams].contiguous()
+        buf, lens = torch_coder.encode_streams(s_sym, table, s_idx)
+        routes = [torch_coder.DISPATCH_LOG["encode"]]
+        dec, ok = torch_coder.decode_streams(buf, lens, n, table, s_idx)
+        routes.append(torch_coder.DISPATCH_LOG["decode"])
+        strings = torch_coder.to_bytes_list(buf.cpu().numpy(),
+                                            lens.cpu().numpy())
+
+        def host_encode():
+            return host.encode_streams(s_sym.cpu().numpy(), table.host,
+                                       s_idx.cpu().numpy())
+
+        def host_decode():
+            return host.decode_streams(strings, n, table.host,
+                                       s_idx.cpu().numpy())
+
+        h_dec, h_ok = host_decode()
+        same = (host_encode() == strings
+                and np.array_equal(h_dec, dec.cpu().numpy())
+                and np.array_equal(h_ok, ok.cpu().numpy())
+                and torch.equal(dec, s_sym) and bool(ok.all()))
+        log("host_vs_card", streams=streams, symbols=n,
+            coded_bytes=int(lens.sum()), identical=same, card_routes=routes,
+            host_encode_ms=host_ms(host_encode),
+            card_encode_ms=host_ms(lambda: torch_coder.encode_streams(
+                s_sym, table, s_idx)),
+            host_decode_ms=host_ms(host_decode),
+            card_decode_ms=host_ms(lambda: torch_coder.decode_streams(
+                buf, lens, n, table, s_idx)))
+        if not (same and all(r.startswith("cuda-") for r in routes)):
+            fails.append(f"host_vs_card/{streams}")
+
+
+def ms2020_inputs(codec, img):
+    """What ms2020's native compress hands the coder for one image: the
+    stacked slices' (symbols, indexes) [10 * h * k, n] and z's, from the
+    codec's own slice loop."""
+    import torch
+    from compression_tpu_torch.models import native_format
+    with torch.no_grad():
+        y, z = codec._encode(codec._upload(img))
+        y_slices = codec._slices(y)
+        mus, sigmas = [], []
+
+        def code(i, mu, sigma):
+            mus.append(mu)
+            sigmas.append(sigma)
+            return codec.em_y.quantize(y_slices[i], mu)
+
+        codec._slice_loop(codec.em_z.quantize(z), tuple(y.shape[1:3]), code)
+
+        def stacked(parts):
+            return torch.cat([native_format.to_streams(t) for t in parts])
+
+        sym, idx, _ = codec.em_y._symbols(stacked(y_slices) - stacked(mus),
+                                          stacked(sigmas))
+        zsym, _, zrow = codec.em_z._symbols_from_bottleneck(
+            native_format.to_streams(z))
+    zidx = zrow.to(torch.int32)[None].expand_as(zsym).contiguous()
+    return sym.contiguous(), idx.contiguous(), zsym, zidx
+
+
+def golden_ms2020(fixture, weights, device, fails, cpu_check=False):
+    """An ms2020 golden fixture on the card: tables built here equal the
+    reference's, compress writes its z and slice strings, its container
+    and the native one decode to its uint8 image (a pixel may differ only
+    within PIXEL_BOUNDARY of a rounding boundary).  With ``cpu_check`` the
+    same model on the CPU writes the same native container and the same
+    reconstruction of the fixture's image."""
+    import torch
+    from compression_tpu_torch.models import ms2020
+    from compression_tpu_torch.util.packed_tensors import PackedTensors
+    gold = dict(np.load(os.path.join(REPO, "tests", "golden", fixture)))
+    state = ms2020.params_from_tf(weights(gold))
+
+    def build(dev):
+        model = ms2020.MS2020Model(
+            num_filters=int(gold["num_filters"]),
+            latent_depth=int(gold["latent_depth"]),
+            hyperprior_depth=int(gold["hyperprior_depth"]),
+            num_slices=int(gold["num_slices"]),
+            max_support_slices=int(gold["max_support_slices"]),
+            num_scales=int(gold["num_scales"]),
+            ha_widths=tuple(int(w) for w in gold["ha_widths"]),
+            hs_widths=tuple(int(w) for w in gold["hs_widths"]),
+            slice_widths=tuple(int(w) for w in gold["slice_widths"]))
+        model.load_state_dict(state)
+        return ms2020.MS2020Codec(model, device=dev)
+
+    codec = build(device)
+    ns = int(gold["num_slices"])
+    with torch.no_grad():
+        my, mz = codec._encode(codec._upload(gold["x_test"]))
+    fields = PackedTensors(codec.compress(gold["x_test"])).unpack(
+        [np.int32] * 3 + ["bytes"] * (1 + ns))
+    native = codec.compress_native(gold["x_test"])
+    off, unexplained, margin = pixels_off(
+        codec, gold["container"].tobytes(), gold["x_hat_uint8"])
+    n_off, n_unexplained, _ = pixels_off(codec, native, gold["x_hat_uint8"])
+    result = {
+        "tables_equal": bool(
+            np.array_equal(codec.em_y.cdf, gold["cdf_y"])
+            and np.array_equal(codec.em_y.cdf_offset, gold["cdf_offset_y"])
+            and np.array_equal(codec.em_z.cdf, gold["cdf_z"])
+            and np.array_equal(codec.em_z.cdf_offset, gold["cdf_offset_z"])),
+        "latents_max_abs_err": max(
+            float((my.cpu() - torch.as_tensor(gold["y"])).abs().max()),
+            float((mz.cpu() - torch.as_tensor(gold["z"])).abs().max())),
+        "z_string_equal": fields[3] == golden_strings(gold, "z"),
+        "slice_strings_equal": [f[0] for f in fields[4:]]
+        == golden_strings(gold, "y"),
+        "pixels_off": off, "pixels_off_unexplained": unexplained,
+        "native_pixels_off": n_off,
+        "native_pixels_off_unexplained": n_unexplained,
+        "least_distance_from_boundary": margin}
+    ok = (result["tables_equal"] and result["z_string_equal"]
+          and result["slice_strings_equal"] and unexplained == 0
+          and n_unexplained == 0 and result["latents_max_abs_err"] < 3e-4)
+    if cpu_check:
+        cpu = build("cpu")
+        t0 = time.time()
+        cpu_native = cpu.compress_native(gold["x_test"])
+        cpu_recon = cpu.reconstruct(gold["x_test"])
+        c_off, c_unexplained, _ = pixels_off(codec, cpu_native, cpu_recon)
+        result.update(
+            cpu_seconds=round(time.time() - t0, 3),
+            cpu_native_container_identical=cpu_native == native,
+            card_decodes_cpu_container_pixels_off=c_off,
+            card_decodes_cpu_container_pixels_off_unexplained=c_unexplained,
+            reconstruct_pixels_off=int((cpu_recon != codec.reconstruct(
+                gold["x_test"])).sum()))
+        ok &= c_unexplained == 0
+    log("golden_ms2020", fixture=fixture,
+        num_filters=int(gold["num_filters"]), num_slices=ns, **result)
+    if not ok:
+        fails.append(f"golden_ms2020/{fixture}")
+
+
+def ms2020_phase(device, images, batch, smi, fails):
+    """Phase 4f: ms2020 at its published width (seeded init, its own
+    tables, nothing cut) through both containers, the *_many calls and
+    reconstruct on the card, with the launch counts reset just before and
+    read just after; then K1 at the stacked slices' launch and K2 at one
+    slice's against their plain versions on what the codec gives them,
+    their times beside the byte bound and the chain's floor, the goldens,
+    and e2e ms.  Returns the main path's launch counts."""
+    import torch
+    from compression_tpu_torch.codec import cuda_coder as cc
+    from compression_tpu_torch.codec import torch_coder
+    from compression_tpu_torch.models import ms2020
+    from compression_tpu_torch.util.packed_tensors import PackedTensors
+    t0 = time.time()
+    codec = ms2020.MS2020Codec(ms2020.MS2020Model(**MS2020_CONFIG, seed=0),
+                               device=device)
+    m = codec.model
+    ytab, ztab = codec.em_y.device_table, codec.em_z.device_table
+    log("codec", model="ms2020", seconds=round(time.time() - t0, 3),
+        parameters=sum(p.numel() for p in m.parameters()),
+        num_filters=m.num_filters, latent_depth=m.latent_depth,
+        hyperprior_depth=m.hyperprior_depth, num_slices=m.num_slices,
+        max_support_slices=m.max_support_slices,
+        y_table=[ytab.num_rows, ytab.max_len],
+        z_table=[ztab.num_rows, ztab.max_len])
+    ns = m.num_slices
+
+    # The main path.  Predicted launches: native compress 2 x K1 (z, then
+    # the 10 slices stacked), native decompress 1 + 10 x K2; the classic
+    # container's 11 one-stream calls each launch K1 (no escape) or K6' on
+    # compress and K3' on decompress, all on the warp kernels.
+    reset_counts()
+    calls = {"native_compress": 0, "native_decompress": 0,
+             "classic_compress": 0, "classic_decompress": 0}
+    path_ok, routes = True, {}
+    with torch.no_grad():
+        for name, img in images.items():
+            native = codec.compress_native(img)
+            routes["native_encode"] = torch_coder.DISPATCH_LOG["encode"]
+            classic = codec.compress(img)
+            routes["classic_encode"] = torch_coder.DISPATCH_LOG["encode"]
+            recon = codec.reconstruct(img)
+            from_native = codec.decompress(native)
+            routes["native_decode"] = torch_coder.DISPATCH_LOG[
+                "decode_sidecar"]
+            from_classic = codec.decompress(classic)
+            routes["classic_decode"] = torch_coder.DISPATCH_LOG["decode"]
+            for key in calls:
+                calls[key] += 1
+            exact = bool(np.array_equal(from_native, recon)
+                         and np.array_equal(from_classic, recon))
+            path_ok &= exact and recon.shape == img.shape and (
+                PackedTensors(native).num_tensors == 6 + 3 * ns) and (
+                    PackedTensors(classic).num_tensors == 4 + ns)
+            pixels = img.shape[0] * img.shape[1]
+            log("ms2020_path", image=name, native_bytes=len(native),
+                classic_bytes=len(classic),
+                native_bits_per_pixel=8 * len(native) / pixels,
+                classic_bits_per_pixel=8 * len(classic) / pixels,
+                decompress_equals_reconstruct=exact, shape=list(recon.shape))
+        many = codec.compress_native_many(batch)
+        single = [codec.compress_native(x) for x in batch]
+        calls["native_compress"] += 2 * len(batch)
+        mixed = many + [codec.compress(batch[1])]
+        calls["classic_compress"] += 1
+        outs = codec.decompress_native_many(mixed)
+        many_ok = many == single and all(
+            np.array_equal(a, codec.decompress(c))
+            for a, c in zip(outs, mixed))
+        calls["native_decompress"] += 2 * len(many)
+        calls["classic_decompress"] += 2
+    launches, _ = read_counts(())
+    expect = {"encode": 2 * calls["native_compress"]
+              + (1 + ns) * calls["classic_compress"],
+              "decode_indexed": (1 + ns) * calls["native_decompress"],
+              "decode_gamma": (1 + ns) * calls["classic_decompress"]}
+    got = {"encode": launches["encode_indexed"] + launches["encode_gamma"],
+           "decode_indexed": launches["decode_indexed"],
+           "decode_gamma": launches["decode_gamma"]}
+    warp_ok = all(launches[f"{k}/warp"] == launches[k]
+                  for k in ("encode_indexed", "encode_gamma",
+                            "decode_indexed", "decode_gamma")) and (
+        launches["encode_indexed"] >= 2 * calls["native_compress"])
+    log("ms2020_many", images=len(batch), containers_equal=many_ok,
+        calls=calls, launches=launches, expected=expect, routes=routes)
+    if not (path_ok and many_ok and got == expect and warp_ok
+            and routes["native_encode"] == "cuda-indexed"
+            and routes["classic_encode"] in ("cuda-gamma", "cuda-indexed")
+            and routes["native_decode"] == "cuda-indexed"
+            and routes["classic_decode"] == "cuda-gamma"):
+        fails.append("ms2020_path")
+
+    # K1 at the stacked slices' launch and on z, K2 at one slice's launch,
+    # against their plain versions on what the codec gives them; K1's
+    # bytes are the container's.
+    clock = sm_clock_mhz()
+    ycdf, ymeta = ytab.indexed_arrays()
+    kernel_ms = {}
+    for name, img in images.items():
+        sym, idx, zsym, zidx = ms2020_inputs(codec, img)
+        out_size = torch_coder.stream_out_size(sym.shape[1])
+        buf, lens = compare_kernels(f"ms2020/y_slices/{name}", ytab, sym, idx,
+                                    out_size, fails, expect_warp=True)
+        compare_kernels(f"ms2020/z/{name}", ztab, zsym, zidx,
+                        torch_coder.stream_out_size(zsym.shape[1]), fails,
+                        expect_warp=True)
+        native = codec.compress_native(img)
+        fields = PackedTensors(native).unpack(
+            [np.int32] * 3 + ["bytes", np.int32, np.int32] * (1 + ns))
+        slice_strings = [fields[6 + 3 * i] for i in range(ns)]
+        container_ok = sum(slice_strings, []) == torch_coder.to_bytes_list(
+            buf.cpu().numpy(), lens.cpu().numpy())
+        s_y = len(slice_strings[0])
+        c_buf, c_lens = (torch.as_tensor(a, device=device)
+                         for a in torch_coder.from_bytes_list(
+                             slice_strings[0]))
+        idx0 = idx[:s_y].contiguous()
+        took = []
+        chosen, both = decode_variants("decode_indexed", ytab, took)
+        _, san, dec_ok, k2_plain = check_decode(
+            "decode_indexed", chosen, cc.decode_indexed_plain,
+            (c_buf, c_lens, idx0, ycdf, ymeta), both)
+        log("kernels", case=f"ms2020/one_slice/{name}", streams=s_y,
+            symbols=int(sym.shape[1]), container_width=int(c_buf.shape[1]),
+            k1_bytes_equal_container=container_ok,
+            decode_identical_wrapper_and_both_kernels=dec_ok,
+            decode_wrapper_took=took[0], sanity_all=bool(san.all()))
+        if not (container_ok and dec_ok and bool(san.all())
+                and took[0] == "warp"):
+            fails.append(f"ms2020/one_slice/{name}")
+        n = int(sym.shape[1])
+        out_p, len_p = torch.empty_like(buf), torch.empty_like(lens)
+        k1 = lambda: cc.encode_indexed(sym, idx, ycdf, ymeta, out_size)
+        k2 = lambda: cc.decode_indexed(c_buf, c_lens, idx0, ycdf, ymeta,
+                                       ytab.warp_arrays())
+        kernel_ms[name] = {
+            f"encode_indexed@{sym.shape[0]}x{n}": {
+                "ms_events": [cuda_ms(k1, 20) for _ in range(2)],
+                "ms_graph": [graph_ms(k1) for _ in range(2)],
+                "plain_ms": cuda_ms(lambda: cc.encode_indexed_plain(
+                    sym, idx, ycdf, ymeta, out_p, len_p), 1, warm=False),
+                "bound_ms": encode_bound(*sym.shape, ycdf, ymeta,
+                                         out_size)[0],
+                "chain_floor_ms": scan_floor_ms(n, clock)},
+            f"decode_indexed@{s_y}x{n}": {
+                "ms_events": [cuda_ms(k2, 20) for _ in range(2)],
+                "ms_graph": [graph_ms(k2) for _ in range(2)],
+                "plain_ms": k2_plain,
+                "bound_ms": decode_bound(c_lens, n, ycdf, ymeta)[0],
+                "chain_floor_ms": warp_floor_ms(n, ytab.max_len, clock)}}
+    golden_ms2020("golden_ms2020.npz", lambda gold: gold, device, fails)
+    golden_ms2020("golden_ms2020_full.npz", synthesized_weights, device,
+                  fails, cpu_check=True)
+    e2e = {}
+    for name, img in images.items():
+        e2e[f"ms2020/native/{name}"] = e2e_times(codec.compress_native,
+                                                 codec.decompress, img)
+        e2e[f"ms2020/classic/{name}"] = e2e_times(codec.compress,
+                                                  codec.decompress, img)
+    log("ms2020_times", kernel_ms=kernel_ms, end_to_end=e2e,
+        sm_clock_mhz=clock, card=smi)
+    return launches, codec
 
 
 def main():
@@ -1892,6 +2268,17 @@ def main():
             and device_launches["encode_gamma"] == 0):
         fails.append("compress_device")
 
+    # Phase 4f: ms2020 at its published width (launch counts of its own,
+    # kernel checks and times at its shapes, its goldens, e2e ms).
+    ms_launches, mcodec = ms2020_phase(device, images, batch, smi, fails)
+
+    # Phase 4g: the classic containers of the three models, and the host C
+    # coder against the card's wrappers at a few streams.
+    classic_phase({"bls2017": codec, "bmshj2018": hcodec, "ms2020": mcodec},
+                images, (ysym.contiguous(), yidx1.contiguous(), ytable),
+                fails)
+    del mcodec
+
     # Phase 5: reference on a small input -- the CPU codec (plain coder)
     # given the same latent and tables writes the same containers.
     small = rng.randint(0, 256, (64, 96, 3)).astype(np.uint8)
@@ -2395,14 +2782,11 @@ def main():
     }
     e2e_ms = {}
     for name, img in images.items():
+        # The classic containers' e2e ms are phase 4g's.
         e2e_ms[f"native/{name}"] = e2e_times(codec.compress_native,
                                              codec.decompress, img)
-        e2e_ms[f"classic/{name}"] = e2e_times(codec.compress,
-                                              codec.decompress, img)
         e2e_ms[f"bmshj2018/native/{name}"] = e2e_times(
             hcodec.compress_native, hcodec.decompress, img)
-        e2e_ms[f"bmshj2018/classic/{name}"] = e2e_times(
-            hcodec.compress, hcodec.decompress, img)
     # compress_device / decompress_device of the y model (host clock around
     # work that ends in a synchronize): the seeded latent, and the shrunk
     # one with 40 planted escapes.
@@ -2450,7 +2834,7 @@ def main():
 
     launches = {k: native_launches[k] + classic_launches[k]
                 + front_launches[k] + hyper_launches[k] + device_launches[k]
-                for k in cc.LAUNCHES}
+                + ms_launches[k] for k in cc.LAUNCHES}
     for name, count in launches.items():
         if count == 0:
             fails.append(f"no_launch_on_a_main_path/{name}")

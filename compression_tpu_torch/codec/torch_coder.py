@@ -34,9 +34,12 @@ of ``cuda_coder`` there (its plain version on the CPU):
   pair is copied to the host as it is, and the containers stay
   byte-identical.
 
-The JAX package's route to the host C coder for a handful of long streams
-(``jax_coder._host_route``) is not ported: on a CUDA device every call
-reaches a kernel.
+The JAX package's route of reference-format calls with few streams to
+the host C coder (``jax_coder._host_route``) is not taken: a call on CUDA
+tensors launches its kernel whatever its stream count, and the classic
+containers' one-stream calls run on one warp.  The host C coder is an
+entry point of its own (``codec/host.py``, numpy in and out), which writes
+and reads the same streams.
 """
 
 from __future__ import annotations

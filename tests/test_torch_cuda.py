@@ -891,3 +891,168 @@ def test_train_step_card_matches_cpu(device, no_tf32, name):
                for v in metrics.values())
     with pytest.raises(ValueError):
         step(x, generator=torch.Generator().manual_seed(0))
+
+
+# -- the classic containers on the kernels, and ms2020 ----------------------
+def _small_codecs(device):
+    from compression_tpu_torch.models import bls2017, bmshj2018, ms2020
+    return {
+        "bls2017": bls2017.BLS2017Codec(
+            bls2017.BLS2017Model(num_filters=16, seed=2), device=device),
+        "bmshj2018": bmshj2018.BMSHJ2018Codec(
+            bmshj2018.BMSHJ2018Model(num_filters=16, seed=2),
+            device=device),
+        "ms2020": ms2020.MS2020Codec(ms2020.MS2020Model(
+            num_filters=16, latent_depth=20, hyperprior_depth=8,
+            num_slices=5, max_support_slices=3, num_scales=16,
+            ha_widths=(24, 16), hs_widths=(12, 16, 20),
+            slice_widths=(16, 12), seed=2), device=device),
+    }
+
+
+@pytest.mark.parametrize("name", ["bls2017", "bmshj2018", "ms2020"])
+def test_classic_container_launches_the_kernels(device, monkeypatch, name):
+    """On the card a classic container's one-stream calls launch the
+    kernels (no host route, whatever the JAX package's
+    CTPU_HOST_ROUTE_MAX_STREAMS says), and the container decodes to
+    reconstruct(x)."""
+    codec = _small_codecs(device)[name]
+    x = np.random.RandomState(4).randint(0, 256, (80, 72, 3)).astype(
+        np.uint8)
+    expect = codec.reconstruct(x)
+    container = codec.compress(x)
+    for limit in ("256", "100000"):
+        monkeypatch.setenv("CTPU_HOST_ROUTE_MAX_STREAMS", limit)
+        assert codec.compress(x) == container
+        assert torch_coder.DISPATCH_LOG["encode"] in ("cuda-gamma",
+                                                      "cuda-indexed")
+        np.testing.assert_array_equal(codec.decompress(container), expect)
+        assert torch_coder.DISPATCH_LOG["decode"] == "cuda-gamma"
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_entropy_model_calls_launch_the_kernels(device, batch):
+    """The entropy models' compress / compress_to_strings / decompress
+    give one stream per batch element and launch the kernels at one
+    stream and at a few; each element's stream equals its own call's."""
+    codec = _small_codecs(device)["bmshj2018"]
+    rng = np.random.RandomState(7)
+    xs = [rng.randint(0, 256, (64, 64, 3)).astype(np.uint8)
+          for _ in range(batch)]
+    with torch.no_grad():
+        parts = [codec._encode(codec._upload(x)) for x in xs]
+        y = torch.cat([p[0] for p in parts])
+        z = torch.cat([p[1] for p in parts])
+        indexes = torch.cat([p[2] for p in parts])
+        for em, latent, args, shape_arg in (
+                (codec.em, y, (indexes,), indexes),
+                (codec.side_em, z, (), tuple(z.shape[1:3]))):
+            strings = em.compress_to_strings(latent, *args)
+            assert torch_coder.DISPATCH_LOG["encode"] in ("cuda-gamma",
+                                                          "cuda-indexed")
+            assert len(strings) == batch
+            assert strings == sum((em.compress_to_strings(
+                latent[i:i + 1], *(a[i:i + 1] for a in args))
+                for i in range(batch)), [])
+            buf, lens = em.compress(latent, *args)
+            assert torch_coder.DISPATCH_LOG["encode"] in ("cuda-gamma",
+                                                          "cuda-indexed")
+            out = em.decompress(strings, shape_arg)
+            assert torch_coder.DISPATCH_LOG["decode"] == "cuda-gamma"
+            assert torch.equal(out, em.quantize(latent))
+            out = em.decompress(buf, shape_arg, lengths=lens)
+            assert torch.equal(out, em.quantize(latent))
+
+
+def test_device_only_pair_launches_on_one_stream(device):
+    """compress_device / decompress_device launch their kernels on one
+    stream."""
+    codec = _small_codecs(device)["bmshj2018"]
+    x = np.random.RandomState(5).randint(0, 256, (64, 64, 3)).astype(
+        np.uint8)
+    with torch.no_grad():
+        y, _, indexes = codec._encode(codec._upload(x))
+        buf, lens, ok = codec.em.compress_device(y, indexes)
+        assert torch_coder.DISPATCH_LOG["encode"].startswith("cuda-")
+        back, sane = codec.em.decompress_device(buf.reshape(1, -1),
+                                                lens.reshape(1), indexes)
+    assert torch_coder.DISPATCH_LOG["decode"] == "cuda-gamma"
+    assert bool(ok) and bool(sane.all())
+    assert torch.equal(back, codec.em.quantize(y))
+
+
+def test_ms2020_native_path_on_the_card(device):
+    """ms2020's native container runs K1 (one launch for z, one for the
+    stacked slices) and K2 (z, then one launch a slice), and both
+    containers decode to reconstruct(x)."""
+    codec = _small_codecs(device)["ms2020"]
+    x = np.random.RandomState(6).randint(0, 256, (64, 64, 3)).astype(
+        np.uint8)
+    expect = codec.reconstruct(x)
+    before = (cuda_coder.LAUNCHES["encode_indexed"],
+              cuda_coder.LAUNCHES["decode_indexed"])
+    native = codec.compress_native(x)
+    assert torch_coder.DISPATCH_LOG["encode"] == "cuda-indexed"
+    np.testing.assert_array_equal(codec.decompress(native), expect)
+    assert torch_coder.DISPATCH_LOG["decode_sidecar"] == "cuda-indexed"
+    assert (cuda_coder.LAUNCHES["encode_indexed"],
+            cuda_coder.LAUNCHES["decode_indexed"]) == (
+                before[0] + 2, before[1] + 1 + codec.model.num_slices)
+    np.testing.assert_array_equal(codec.decompress(codec.compress(x)),
+                                  expect)
+    assert codec.compress_native_many([x, x[:48]]) == [
+        native, codec.compress_native(x[:48])]
+
+
+@pytest.mark.parametrize("fixture", ["golden_ms2020.npz",
+                                     "golden_ms2020_full.npz"])
+def test_ms2020_goldens_on_the_card(device, fixture):
+    """Both ms2020 goldens on the card: the tables, the reference's z and
+    slice strings from compress, its container decoding to its image, and
+    the native container decoding to it too."""
+    import importlib.util
+    import json
+    from compression_tpu_torch.models import ms2020
+    from compression_tpu_torch.util.packed_tensors import PackedTensors
+    gold_dir = os.path.join(os.path.dirname(__file__), "golden")
+    gold = dict(np.load(os.path.join(gold_dir, fixture)))
+    tf_vars = gold
+    if "manifest" in gold:
+        spec = importlib.util.spec_from_file_location(
+            "synth_weights", os.path.join(gold_dir, "synth_weights.py"))
+        synth = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(synth)
+        manifest = json.loads(gold["manifest"].tobytes().decode())
+        tf_vars = {k: synth.synth(k, s) for k, (s, _) in manifest.items()}
+    model = ms2020.MS2020Model(
+        num_filters=int(gold["num_filters"]),
+        latent_depth=int(gold["latent_depth"]),
+        hyperprior_depth=int(gold["hyperprior_depth"]),
+        num_slices=int(gold["num_slices"]),
+        max_support_slices=int(gold["max_support_slices"]),
+        num_scales=int(gold["num_scales"]),
+        ha_widths=tuple(int(w) for w in gold["ha_widths"]),
+        hs_widths=tuple(int(w) for w in gold["hs_widths"]),
+        slice_widths=tuple(int(w) for w in gold["slice_widths"]))
+    model.load_state_dict(ms2020.params_from_tf(tf_vars))
+    codec = ms2020.MS2020Codec(model, device=device)
+    np.testing.assert_array_equal(codec.em_y.cdf, gold["cdf_y"])
+    np.testing.assert_array_equal(codec.em_z.cdf, gold["cdf_z"])
+
+    def strings(prefix):
+        out, off, buf = [], 0, gold[f"{prefix}_bytes"].tobytes()
+        for n in gold[f"{prefix}_nbytes"]:
+            out.append(buf[off:off + int(n)])
+            off += int(n)
+        return out
+
+    ns = int(gold["num_slices"])
+    fields = PackedTensors(codec.compress(gold["x_test"])).unpack(
+        [np.int32] * 3 + ["bytes"] * (1 + ns))
+    assert fields[3] == strings("z")
+    assert [f[0] for f in fields[4:]] == strings("y")
+    np.testing.assert_array_equal(
+        codec.decompress(gold["container"].tobytes()), gold["x_hat_uint8"])
+    np.testing.assert_array_equal(
+        codec.decompress(codec.compress_native(gold["x_test"])),
+        gold["x_hat_uint8"])
