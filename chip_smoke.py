@@ -58,9 +58,10 @@ Phases, one JSON line each (any failure exits non-zero):
      K8' (bucketed single-row decode) against its plain version and against
      K5' at 32768 x 512, on every golden case and on corrupted streams;
   4. main paths, each with the launch counts reset just before it and read
-     just after, every K1, K2, K3' and K6' launch of (a), (b), (d) and (f)
-     expected on the warp-per-stream kernel: (a) bls2017 at num_filters=128 (seeded
-     init, its own tables) on a 512x512 and a 768x512 image through
+     just after, every K1, K2, K3' and K6' launch of (a), (b), (d), (f) and
+     (h) expected on the warp-per-stream kernel: (a) bls2017 at
+     num_filters=128 (seeded init, its own tables) on a 512x512 and a
+     768x512 image through
      compress_native / decompress / reconstruct / compress_native_many /
      decompress_native_many; (b) the same images through the classic
      .tfci container, compress / decompress, and a latent scaled past the
@@ -90,7 +91,20 @@ Phases, one JSON line each (any failure exits non-zero):
      both containers; (g) the classic containers of the three models on
      the card, with e2e ms, and the host C coder against the card's
      reference-format wrappers on 1, 16, 64 and 255 streams of 8192
-     symbols of bmshj2018's y stream, in both directions;
+     symbols of bmshj2018's y stream, in both directions; (h) HiFiC at
+     get_config("hific") (4 downsamplings, base 60, bottleneck 220, 9
+     residual blocks, hyper 320; seeded init, its own tables, nothing
+     cut: ~182.7M parameters) on the same images through both
+     containers, the *_many calls and reconstruct: two K1 launches per
+     native compress (y, z) and two K2 per native decompress, two encodes
+     per classic compress (K1 or K6') and two K3' per classic decompress,
+     all on the warp kernels; then K1 and K2 at the native launches (y
+     512 x 440 and z 64 x 320 at 512x512) against their plain versions on
+     the codec's inputs and the container's bytes, timed from a CUDA
+     graph beside the byte bound and the chain's floor; the classic y
+     (1 x 225280 at 512x512) and z streams against the host C coder in
+     both directions; e2e ms of both containers, with K3''s share of the
+     classic decompress;
   5. reference: the CPU codecs write the same containers on a small image;
      the reference's golden_model.npz .tfci container decodes on the card to
      its exact uint8 image; golden_bmshj.npz (24 filters) and
@@ -106,14 +120,16 @@ Phases, one JSON line each (any failure exits non-zero):
      and decodes them to the card's symbols and sanity flags; its median
      ms of 5 (the host's CPU model and thread count beside it) and the
      card wrappers' ms;
-  7. train: bls2017 at 128 filters and bmshj2018 at 192 filters / 64
-     scales, batch 8 of 256x256, one fixed seeded batch: one step on the
+  7. train: bls2017 at 128 filters, bmshj2018 at 192 filters / 64
+     scales and ms2020 at MS2020_CONFIG, batch 8 of 256x256, one fixed
+     seeded batch: one step on the
      card and one on the CPU from the same parameters, batch and noise
      with TF32 off (loss, bpp, mse and every gradient's largest error over
      its largest magnitude, at most 1e-3, with the CPU taking the card's
      relu decisions; the error with its own decisions, and how many
      elements it decides otherwise, beside it), then 30 Adam steps at 1e-3
-     on the card, whose loss must fall, with the median step ms of steps
+     (ms2020 at 1e-4, the reference CLI's default) on the card, whose loss
+     must fall, with the median step ms of steps
      4-30 by CUDA events around a synchronized step;
   8. times: kernels and plain versions at the main paths' shapes (CUDA
      events), their bounds, and end-to-end ms per image of the native
@@ -926,10 +942,10 @@ def golden_bmshj(fixture, weights, device, fails):
     with torch.no_grad():
         z = torch.as_tensor(gold["z"], device=device)
         y = torch.as_tensor(gold["y"], device=device)
-        indexes = codec._indexes(codec.side_em.quantize(z), y.shape[1:3])
+        indexes, _ = codec._y_params(codec.side_em.quantize(z), y.shape[1:3])
         from_latents = (codec.em.compress_to_strings(y, indexes),
                         codec.side_em.compress_to_strings(z))
-        my, mz, _ = codec._encode(codec._upload(gold["x_test"]))
+        my, mz, _, _ = codec._encode(codec._upload(gold["x_test"]))
     own = PackedTensors(codec.compress(gold["x_test"])).unpack(
         ["bytes", "bytes", np.int32, np.int32, np.int32])[:2]
     ref = (golden_strings(gold, "y"), golden_strings(gold, "z"))
@@ -1016,14 +1032,14 @@ def host_coder_phase(cases, fails):
 
 
 class SharedKinks:
-    """Stands in for torch.nn.functional in the bmshj2018 module while a
-    step runs: on the card it records each relu's decisions (x > 0), and
-    on the CPU it replays them in the same order.  A pre-activation within
-    float32 error of zero may fall on either side of the kink on the two
-    devices, and one such element moves a kernel's gradient by ~1e-3 of
-    its largest magnitude; with the decisions shared, what is left is the
-    arithmetic.  ``flips`` counts the decisions the CPU would have taken
-    the other way."""
+    """Stands in for torch.nn.functional in a model's module (bmshj2018,
+    ms2020) while a step runs: on the card it records each relu's
+    decisions (x > 0), and on the CPU it replays them in the same order.
+    A pre-activation within float32 error of zero may fall on either side
+    of the kink on the two devices, and one such element moves a kernel's
+    gradient by ~1e-3 of its largest magnitude; with the decisions shared,
+    what is left is the arithmetic.  ``flips`` counts the decisions the
+    CPU would have taken the other way."""
 
     def __init__(self, functional):
         self.functional = functional
@@ -1049,12 +1065,20 @@ def train_phase(device, fails, steps=30):
     with the card's relu decisions, SharedKinks), then ``steps`` Adam steps
     on the card, timed by CUDA events around each synchronized step."""
     import torch
-    from compression_tpu_torch.models import bls2017, bmshj2018
+    from compression_tpu_torch.models import bls2017, bmshj2018, ms2020
     makers = {
         "bls2017": lambda: bls2017.BLS2017Model(num_filters=NUM_FILTERS,
                                                 seed=0),
         "bmshj2018": lambda: bmshj2018.BMSHJ2018Model(
-            num_filters=BMSHJ_FILTERS, num_scales=64, seed=0)}
+            num_filters=BMSHJ_FILTERS, num_scales=64, seed=0),
+        "ms2020": lambda: ms2020.MS2020Model(**MS2020_CONFIG, seed=0)}
+    # The module whose relus SharedKinks shares (bls2017 has none).
+    kink_modules = {"bls2017": bmshj2018, "bmshj2018": bmshj2018,
+                    "ms2020": ms2020}
+    # Adam's rate for the card steps: ms2020 at the reference CLI's
+    # default; at 1e-3 its loss spikes on this init and batch and need not
+    # fall in 30 steps (PERF.md §6).
+    rates = {"bls2017": 1e-3, "bmshj2018": 1e-3, "ms2020": 1e-4}
     batch = np.random.RandomState(1).randint(
         0, 256, TRAIN_BATCH).astype(np.float32)
     x_cpu = torch.as_tensor(batch)
@@ -1095,17 +1119,21 @@ def train_phase(device, fails, steps=30):
             else:
                 y, z = card.encode(x_card)
                 shapes = [z.shape, y.shape]
+                if name == "ms2020":  # z, then each slice
+                    shapes = shapes[:1] + [y.shape[:-1] + (
+                        card.slice_depth,)] * card.num_slices
             u_card = [torch.empty(sh, device=device).uniform_(
                 -0.5, 0.5, generator=gen) for sh in shapes]
         u_cpu = [t.cpu() for t in u_card]
-        kinks = SharedKinks(bmshj2018.F)
-        bmshj2018.F = kinks
+        module = kink_modules[name]
+        kinks = SharedKinks(module.F)
+        module.F = kinks
         try:
             card_step = one_step(card, x_card, u_card)
             kinks.replay = list(kinks.masks)
             shared_step = one_step(cpu, x_cpu, u_cpu)
         finally:
-            bmshj2018.F = kinks.functional
+            module.F = kinks.functional
         cpu_step = one_step(cpu, x_cpu, u_cpu)
         err, worst = max_grad_err(shared_step)
         err_own, worst_own = max_grad_err(cpu_step)
@@ -1113,7 +1141,7 @@ def train_phase(device, fails, steps=30):
             card_step["metrics"], cpu_step["metrics"])]
         # 30 steps on the card from the same start, one fixed batch.
         step = bls2017.make_train_step(
-            card, torch.optim.Adam(card.parameters(), lr=1e-3))
+            card, torch.optim.Adam(card.parameters(), lr=rates[name]))
         losses, step_ms = [], []
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1130,7 +1158,7 @@ def train_phase(device, fails, steps=30):
               "loss_fell": losses[-1] < losses[0],
               "finite": bool(np.isfinite(losses).all())}
         log("train", model=name, num_filters=card.num_filters,
-            batch=list(TRAIN_BATCH),
+            batch=list(TRAIN_BATCH), learning_rate=rates[name],
             tf32_cudnn=torch.backends.cudnn.allow_tf32,
             tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
             cudnn_deterministic=torch.backends.cudnn.deterministic,
@@ -1235,7 +1263,8 @@ def ms2020_inputs(codec, img):
             sigmas.append(sigma)
             return codec.em_y.quantize(y_slices[i], mu)
 
-        codec._slice_loop(codec.em_z.quantize(z), tuple(y.shape[1:3]), code)
+        codec.model.slice_loop(codec.em_z.quantize(z), tuple(y.shape[1:3]),
+                               code)
 
         def stacked(parts):
             return torch.cat([native_format.to_streams(t) for t in parts])
@@ -1486,6 +1515,262 @@ def ms2020_phase(device, images, batch, smi, fails):
     log("ms2020_times", kernel_ms=kernel_ms, end_to_end=e2e,
         sm_clock_mhz=clock, card=smi)
     return launches, codec
+
+
+def hific_inputs(codec, img):
+    """What HiFiC's codec hands the coder for one image, y about the
+    means: the native launches' (symbols, indexes) of y [h * k, n] and of
+    z, and the classic streams' [1, N]."""
+    import torch
+    from compression_tpu_torch.models import native_format
+    with torch.no_grad():
+        y, z, idx, means = codec._encode(codec._upload(img))
+        out = {}
+        for kind, to in (("native", native_format.to_streams),
+                         ("classic", lambda t: t)):
+            ysym, yidx, _ = codec.em._symbols(to(y - means), to(idx))
+            zsym, _, zrow = codec.side_em._symbols_from_bottleneck(to(z))
+            zidx = zrow.to(torch.int32)[None].expand_as(zsym)
+            out[kind] = tuple(t.contiguous() for t in (ysym, yidx, zsym,
+                                                       zidx))
+    return out
+
+
+def hific_phase(device, images, batch, smi, fails):
+    """Phase 4h: HiFiC at get_config("hific") (seeded init, its own
+    tables, nothing cut) through both containers, the *_many calls and
+    reconstruct on the card, with the launch counts reset just before and
+    read just after; then K1 and K2 at the native launches of y and z
+    against their plain versions on what the codec gives them (K1's bytes
+    the container's, K2 on the container's own bytes), timed from a CUDA
+    graph beside the byte bound and the chain's floor; the classic y and z
+    streams against the host C coder in both directions; e2e ms of both
+    containers with K3''s share of the classic decompress.  Returns the
+    main path's launch counts."""
+    import torch
+    from compression_tpu_torch.codec import cuda_coder as cc
+    from compression_tpu_torch.codec import host, torch_coder
+    from compression_tpu_torch.models import hific
+    from compression_tpu_torch.util.packed_tensors import PackedTensors
+    t0 = time.time()
+    codec = hific.HiFiCCodec(hific.HiFiCModel(hific.get_config("hific"),
+                                              seed=0), device=device)
+    m = codec.model
+    ytab, ztab = codec.em.device_table, codec.side_em.device_table
+    log("codec", model="hific", seconds=round(time.time() - t0, 3),
+        parameters=sum(p.numel() for p in m.parameters()),
+        config={k: getattr(m.cfg, k) for k in (
+            "num_down", "num_filters_base", "num_filters_bottleneck",
+            "num_residual_blocks", "hyper_filters")},
+        y_table=[ytab.num_rows, ytab.max_len],
+        z_table=[ztab.num_rows, ztab.max_len])
+
+    # The main path.  Predicted launches: native compress 2 x K1 (y, z),
+    # native decompress 2 x K2 (z, then y); classic compress 2 encodes (K1
+    # or K6'), classic decompress 2 x K3'; all on the warp kernels.
+    reset_counts()
+    calls = {"native_compress": 0, "native_decompress": 0,
+             "classic_compress": 0, "classic_decompress": 0}
+    path_ok, routes = True, {}
+    with torch.no_grad():
+        for name, img in images.items():
+            native = codec.compress_native(img)
+            routes["native_encode"] = torch_coder.DISPATCH_LOG["encode"]
+            classic = codec.compress(img)
+            routes["classic_encode"] = torch_coder.DISPATCH_LOG["encode"]
+            recon = codec.reconstruct(img)
+            from_native = codec.decompress(native)
+            routes["native_decode"] = torch_coder.DISPATCH_LOG[
+                "decode_sidecar"]
+            from_classic = codec.decompress(classic)
+            routes["classic_decode"] = torch_coder.DISPATCH_LOG["decode"]
+            for key in calls:
+                calls[key] += 1
+            exact = bool(np.array_equal(from_native, recon)
+                         and np.array_equal(from_classic, recon))
+            path_ok &= exact and recon.shape == img.shape and (
+                PackedTensors(native).num_tensors == 9) and (
+                    PackedTensors(classic).num_tensors == 5)
+            pixels = img.shape[0] * img.shape[1]
+            log("hific_path", image=name, native_bytes=len(native),
+                classic_bytes=len(classic),
+                native_bits_per_pixel=8 * len(native) / pixels,
+                classic_bits_per_pixel=8 * len(classic) / pixels,
+                decompress_equals_reconstruct=exact, shape=list(recon.shape))
+        many = codec.compress_native_many(batch)
+        single = [codec.compress_native(x) for x in batch]
+        calls["native_compress"] += 2 * len(batch)
+        mixed = many + [codec.compress(batch[1])]
+        calls["classic_compress"] += 1
+        outs = codec.decompress_native_many(mixed)
+        many_ok = many == single and all(
+            np.array_equal(a, codec.decompress(c))
+            for a, c in zip(outs, mixed))
+        calls["native_decompress"] += 2 * len(many)
+        calls["classic_decompress"] += 2
+    launches, _ = read_counts(())
+    expect = {"encode": 2 * (calls["native_compress"]
+                             + calls["classic_compress"]),
+              "decode_indexed": 2 * calls["native_decompress"],
+              "decode_gamma": 2 * calls["classic_decompress"]}
+    got = {"encode": launches["encode_indexed"] + launches["encode_gamma"],
+           "decode_indexed": launches["decode_indexed"],
+           "decode_gamma": launches["decode_gamma"]}
+    warp_ok = all(launches[f"{k}/warp"] == launches[k]
+                  for k in ("encode_indexed", "encode_gamma",
+                            "decode_indexed", "decode_gamma")) and (
+        launches["encode_indexed"] >= 2 * calls["native_compress"])
+    log("hific_many", images=len(batch), containers_equal=many_ok,
+        calls=calls, launches=launches, expected=expect, routes=routes)
+    if not (path_ok and many_ok and got == expect and warp_ok
+            and routes["native_encode"] == "cuda-indexed"
+            and routes["classic_encode"] in ("cuda-gamma", "cuda-indexed")
+            and routes["native_decode"] == "cuda-indexed"
+            and routes["classic_decode"] == "cuda-gamma"):
+        fails.append("hific_path")
+
+    # K1 and K2 at the native launches against their plain versions; the
+    # classic streams against the host C coder.
+    clock = sm_clock_mhz()
+    kernel_ms, host_check, k3_ms = {}, {}, {}
+    for name, img in images.items():
+        inputs = hific_inputs(codec, img)
+        native = PackedTensors(codec.compress_native(img)).unpack(
+            ["bytes", "bytes", np.int32, np.int32, np.int32,
+             np.int32, np.int32, np.int32, np.int32])
+        classic = PackedTensors(codec.compress(img)).unpack(
+            ["bytes", "bytes", np.int32, np.int32, np.int32])
+        ysym, yidx, zsym, zidx = inputs["native"]
+        for part, tab, sym, idx, strings in (
+                ("y", ytab, ysym, yidx, native[0]),
+                ("z", ztab, zsym, zidx, native[1])):
+            cdf, meta = tab.indexed_arrays()
+            n = int(sym.shape[1])
+            out_size = torch_coder.stream_out_size(n)
+            buf, lens = compare_kernels(f"hific/{part}_native/{name}", tab,
+                                        sym, idx, out_size, fails,
+                                        expect_warp=True)
+            container_ok = strings == torch_coder.to_bytes_list(
+                buf.cpu().numpy(), lens.cpu().numpy())
+            c_buf, c_lens = (torch.as_tensor(a, device=device)
+                             for a in torch_coder.from_bytes_list(strings))
+            took = []
+            chosen, both = decode_variants("decode_indexed", tab, took)
+            _, san, dec_ok, k2_plain = check_decode(
+                "decode_indexed", chosen, cc.decode_indexed_plain,
+                (c_buf, c_lens, idx, cdf, meta), both)
+            log("kernels", case=f"hific/{part}_container/{name}",
+                streams=int(sym.shape[0]), symbols=n,
+                container_width=int(c_buf.shape[1]),
+                k1_bytes_equal_container=container_ok,
+                decode_identical_wrapper_and_both_kernels=dec_ok,
+                decode_wrapper_took=took[0], sanity_all=bool(san.all()))
+            if not (container_ok and dec_ok and bool(san.all())
+                    and took[0] == "warp"):
+                fails.append(f"hific/{part}_container/{name}")
+            out_p, len_p = torch.empty_like(buf), torch.empty_like(lens)
+            k1 = lambda: cc.encode_indexed(sym, idx, cdf, meta, out_size)
+            k2 = lambda: cc.decode_indexed(c_buf, c_lens, idx, cdf, meta,
+                                           tab.warp_arrays())
+            kernel_ms[f"{part}/{name}"] = {
+                f"encode_indexed@{sym.shape[0]}x{n}": {
+                    "ms_graph": [graph_ms(k1) for _ in range(2)],
+                    "plain_ms": cuda_ms(lambda: cc.encode_indexed_plain(
+                        sym, idx, cdf, meta, out_p, len_p), 1, warm=False),
+                    "bound_ms": encode_bound(*sym.shape, cdf, meta,
+                                             out_size)[0],
+                    "chain_floor_ms": scan_floor_ms(n, clock)},
+                f"decode_indexed@{sym.shape[0]}x{n}": {
+                    "ms_graph": [graph_ms(k2) for _ in range(2)],
+                    "plain_ms": k2_plain,
+                    "bound_ms": decode_bound(c_lens, n, cdf, meta)[0],
+                    "chain_floor_ms": warp_floor_ms(n, tab.max_len, clock)}}
+        # The classic streams: the host C coder writes the container's
+        # bytes from the same symbols and indexes and decodes them to the
+        # card's symbols; K3' on them, timed by events.  y scaled by 6
+        # escapes the table: the card's encode (K6') against the host's.
+        csym, cidx, czsym, czidx = inputs["classic"]
+        with torch.no_grad():
+            y, _, idx_c, means = codec._encode(codec._upload(img))
+            ssym, sidx, _ = codec.em._symbols(6.0 * (y - means), idx_c)
+            buf6, lens6 = torch_coder.encode_streams(ssym, ytab, sidx)
+            scaled = torch_coder.to_bytes_list(buf6.cpu().numpy(),
+                                               lens6.cpu().numpy())
+            scaled_route = torch_coder.DISPATCH_LOG["encode"]
+        for part, tab, sym, idx, strings in (
+                ("y", ytab, csym, cidx, classic[0]),
+                ("z", ztab, czsym, czidx, classic[1]),
+                ("y_scaled", ytab, ssym, sidx, scaled)):
+            n = int(sym.shape[1])
+            c_buf, c_lens = (torch.as_tensor(a, device=device)
+                             for a in torch_coder.from_bytes_list(strings))
+            card_out, card_ok = torch_coder.decode_streams(c_buf, c_lens, n,
+                                                           tab, idx)
+            route = torch_coder.DISPATCH_LOG["decode"]
+            sym_np, idx_np = sym.cpu().numpy(), idx.cpu().numpy()
+            t0 = time.perf_counter()
+            h_strings = host.encode_streams(sym_np, tab.host, idx_np)
+            t1 = time.perf_counter()
+            h_out, h_ok = host.decode_streams(strings, n, tab.host, idx_np)
+            t2 = time.perf_counter()
+            escapes = int(cc.interval_counts(sym, idx, tab.indexed_arrays()[1]
+                                             )[1].sum())
+            same = {"host_bytes_equal_container": h_strings == strings,
+                    "host_symbols_equal_card": bool(np.array_equal(
+                        h_out, card_out.cpu().numpy())),
+                    "host_sanity_equal_card": bool(np.array_equal(
+                        h_ok, card_ok.cpu().numpy())),
+                    "round_trip": bool(np.array_equal(h_out, sym_np)
+                                       and h_ok.all())}
+            if part == "y_scaled":  # K6' on the card
+                same["escapes_encoded_by_k6"] = escapes > 0 and (
+                    scaled_route == "cuda-gamma")
+            cdf, meta = tab.indexed_arrays()
+            k3_ms[f"{part}/{name}"] = cuda_ms(lambda: cc.decode_gamma(
+                c_buf, c_lens, idx, cdf, meta, tab.warp_arrays()), 3)
+            host_check[f"{part}/{name}"] = dict(
+                symbols=n, escapes=escapes, coded_bytes=len(strings[0]),
+                card_decode_route=route,
+                host_encode_ms=(t1 - t0) * 1e3,
+                host_decode_ms=(t2 - t1) * 1e3,
+                k3_ms=k3_ms[f"{part}/{name}"], **same)
+            if not (all(same.values()) and route == "cuda-gamma"):
+                fails.append(f"hific/{part}_classic_host/{name}")
+    # The transforms alone (CUDA events), with their float operations as
+    # torch's flop counter counts them.
+    from torch.utils.flop_counter import FlopCounterMode
+    transforms = {}
+    for name, img in images.items():
+        with torch.no_grad():
+            x = codec._upload(img).to(torch.float32)[None]
+            y, z, _, means = codec._encode(codec._upload(img))
+            y_hat = codec.em.quantize(y, means)
+            z_hat = codec.side_em.quantize(z)
+            for label, fn in (("encode", lambda: m.encode(x)),
+                              ("hyper_decode", lambda: m.hyper_decode(z_hat)),
+                              ("decode", lambda: m.decode(y_hat))):
+                counter = FlopCounterMode(display=False)
+                with counter:
+                    fn()
+                ms = cuda_ms(fn, 5)
+                flops = counter.get_total_flops()
+                transforms[f"{label}/{name}"] = {
+                    "ms": ms, "gflop": flops / 1e9,
+                    "tflop_per_s": flops / ms / 1e9}
+    e2e = {}
+    for name, img in images.items():
+        e2e[f"hific/native/{name}"] = e2e_times(codec.compress_native,
+                                                codec.decompress, img)
+        classic = e2e_times(codec.compress, codec.decompress, img)
+        classic["k3_share_of_decompress"] = (
+            k3_ms[f"y/{name}"] + k3_ms[f"z/{name}"]) / classic[
+                "decompress_ms_median"]
+        e2e[f"hific/classic/{name}"] = classic
+    log("hific_times", kernel_ms=kernel_ms, classic_host=host_check,
+        transforms=transforms, end_to_end=e2e, sm_clock_mhz=clock, card=smi)
+    del codec
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -1758,7 +2043,7 @@ def main():
     # compress_device expands those streams into.
     ycdf, ymeta = ytable.indexed_arrays()
     with torch.no_grad():
-        hy, hz, hidx = hcodec._encode(hcodec._upload(images[first]))
+        hy, hz, hidx, _ = hcodec._encode(hcodec._upload(images[first]))
         ysym, yidx1, _ = hcodec.em._symbols(hy, hidx)
         zsym1, _, zrow = hcodec.side_em._symbols_from_bottleneck(hz)
         zidx1 = zrow.to(torch.int32)[None].expand_as(zsym1).contiguous()
@@ -2278,6 +2563,12 @@ def main():
                 images, (ysym.contiguous(), yidx1.contiguous(), ytable),
                 fails)
     del mcodec
+    torch.cuda.empty_cache()
+
+    # Phase 4h: HiFiC at the published hific width (launch counts of its
+    # own, K1 and K2 at its native launches, the classic streams against
+    # the host C coder, e2e ms).
+    hific_launches = hific_phase(device, images, batch, smi, fails)
 
     # Phase 5: reference on a small input -- the CPU codec (plain coder)
     # given the same latent and tables writes the same containers.
@@ -2332,7 +2623,7 @@ def main():
         device="cpu",
         tables=(hcodec.em.get_weights(), hcodec.side_em.get_weights()))
     with torch.no_grad():
-        sy, sz, sidx = hcodec._encode(hcodec._upload(small))
+        sy, sz, sidx, _ = hcodec._encode(hcodec._upload(small))
         sy = sy * 3.0  # some escapes
         on_card = (hcodec.em.compress_to_strings(sy, sidx),
                    hcodec.side_em.compress_to_strings(sz),
@@ -2489,7 +2780,7 @@ def main():
                       in main_inputs.items()}
     with torch.no_grad():
         for img_name, img in images.items():
-            iy, iz, iidx = hcodec._encode(hcodec._upload(img))
+            iy, iz, iidx, _ = hcodec._encode(hcodec._upload(img))
             isym, iidx_n, _ = hcodec.em._symbols(
                 native_format.to_streams(iy), native_format.to_streams(iidx))
             zsym_i, _, zrow_i = hcodec.side_em._symbols_from_bottleneck(
@@ -2834,7 +3125,7 @@ def main():
 
     launches = {k: native_launches[k] + classic_launches[k]
                 + front_launches[k] + hyper_launches[k] + device_launches[k]
-                + ms_launches[k] for k in cc.LAUNCHES}
+                + ms_launches[k] + hific_launches[k] for k in cc.LAUNCHES}
     for name, count in launches.items():
         if count == 0:
             fails.append(f"no_launch_on_a_main_path/{name}")

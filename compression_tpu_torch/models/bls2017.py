@@ -150,12 +150,12 @@ class BLS2017Model(nn.Module):
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
     """Returns ``step(batch, generator=None, u=None)``: one rate-distortion
-    step of ``model`` (a BLS2017Model or BMSHJ2018Model) on a uint8/float
-    NHWC batch, which it moves to the model's device.  ``generator`` or
-    ``u`` is the training noise (``model.forward``).  The step returns
-    {"loss", "bpp", "mse"} as 0-d tensors on the model's device, so that it
-    never waits for the card.  With ``torch.optim.Adam`` the update is
-    optax.adam's (m_hat / (sqrt(v_hat) + eps)).
+    step of ``model`` (a BLS2017Model, BMSHJ2018Model or MS2020Model) on a
+    uint8/float NHWC batch, which it moves to the model's device.
+    ``generator`` or ``u`` is the training noise (``model.forward``).  The
+    step returns {"loss", "bpp", "mse"} as 0-d tensors on the model's
+    device, so that it never waits for the card.  With ``torch.optim.Adam``
+    the update is optax.adam's (m_hat / (sqrt(v_hat) + eps)).
     """
     device = next(model.parameters()).device
 

@@ -187,6 +187,12 @@ class BMSHJ2018Model(nn.Module):
     def scale_fn(self):
         return make_scale_fn(self.scale_min, self.scale_max, self.num_scales)
 
+    @property
+    def latent_depth(self):
+        """Depth of y, read off the analysis transform rather than assumed
+        equal to num_filters."""
+        return int(self.analysis.layer_3.filters)
+
     def hyperprior(self, device=None):
         """NoisyDeepFactorized hyperprior over z, over the parameters
         themselves (what training differentiates), or over detached copies
@@ -332,6 +338,13 @@ class BMSHJ2018Codec:
         the y table from the scale function and the z table from the
         model's hyperprior.
 
+    The codec asks the model for ``encode``, ``hyper_decode``, ``decode``,
+    ``hyperprior``, ``scale_fn``, ``num_scales`` and ``latent_depth``;
+    ``_y_params`` turns the decoded hyper-latent into the y model's scale
+    indexes and location (None here: bmshj2018 codes y about zero), which
+    every entry point hands to the y entropy model, so that a model with a
+    mean branch (HiFiC) runs the same code.
+
     The float path runs in full float32: TF32 is switched off for cuDNN and
     matmuls, and cuDNN is made deterministic, so that compress,
     compress_native, decompress and reconstruct share one transform path
@@ -349,7 +362,6 @@ class BMSHJ2018Codec:
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
         self.model = model.to(self.device).eval()
-        nf = model.num_filters
         y_tables, z_tables = tables if tables is not None else (None, None)
         cdf_y, cdf_offset_y = y_tables if y_tables is not None \
             else (None, None)
@@ -364,12 +376,11 @@ class BMSHJ2018Codec:
         else:
             cdf, cdf_offset, *offset = z_tables
             self.side_em = ContinuousBatchedEntropyModel(
-                prior_shape=(nf,), cdf=cdf, cdf_offset=cdf_offset,
+                prior_shape=tuple(model.hyperprior().batch_shape), cdf=cdf,
+                cdf_offset=cdf_offset,
                 quantization_offset=offset[0] if offset else None,
                 coding_rank=3, compression=True, device=self.device)
-        # Depth of y, read off the analysis transform rather than assumed
-        # equal to num_filters.
-        self.latent_depth = int(model.analysis.layer_3.filters)
+        self.latent_depth = model.latent_depth
 
     # -- shared transform path --------------------------------------------
     def _upload(self, x):
@@ -380,13 +391,16 @@ class BMSHJ2018Codec:
         return x.to(self.device)
 
     def _encode(self, x):
-        """Image -> (y, z, scale indexes cropped to y)."""
+        """Image -> (y, z, y's scale indexes and location, cropped to y)."""
         y, z = self.model.encode(x.to(torch.float32)[None])
-        return y, z, self._indexes(self.side_em.quantize(z), y.shape[1:3])
+        return (y, z) + self._y_params(self.side_em.quantize(z),
+                                       y.shape[1:3])
 
-    def _indexes(self, z_hat, y_hw):
+    def _y_params(self, z_hat, y_hw):
+        """(scale indexes, location) of y from the quantized hyper-latent,
+        cropped to y's extent; bmshj2018's location is None."""
         indexes = self.model.hyper_decode(z_hat)
-        return indexes[:, : y_hw[0], : y_hw[1], :]
+        return indexes[:, : y_hw[0], : y_hw[1], :], None
 
     def _synthesis_u8(self, y_hat):
         x_hat = self.model.decode(y_hat)
@@ -399,9 +413,9 @@ class BMSHJ2018Codec:
         each in one reference-format stream, escapes in-stream (the
         reference's format, byte-identical to the JAX package's)."""
         x = self._upload(x)
-        y, z, indexes = self._encode(x)
+        y, z, indexes, loc = self._encode(x)
         side_strings = self.side_em.compress_to_strings(z)
-        strings = self.em.compress_to_strings(y, indexes)
+        strings = self.em.compress_to_strings(y, indexes, loc=loc)
         packed = PackedTensors()
         packed.model = self.MODEL_ID
         packed.pack([strings, side_strings,
@@ -413,9 +427,10 @@ class BMSHJ2018Codec:
     def _encode_latents(self, x):
         """Launches the transforms and both sidecar encodes of an uploaded
         image; returns device results without waiting for them."""
-        y, z, indexes = self._encode(x)
+        y, z, indexes, loc = self._encode(x)
         y_out = self.em.compress_sidecar_device(
-            native_format.to_streams(y), native_format.to_streams(indexes))
+            native_format.to_streams(y), native_format.to_streams(indexes),
+            loc=None if loc is None else native_format.to_streams(loc))
         z_out = self.side_em.compress_sidecar_device(
             native_format.to_streams(z))
         return (y_out, tuple(int(s) for s in y.shape[1:]),
@@ -464,7 +479,8 @@ class BMSHJ2018Codec:
         if packed.model != self.MODEL_ID:
             raise ValueError(f"container is for model {packed.model!r}")
         if packed.num_tensors not in (5, 9):
-            raise ValueError("not a bmshj2018 classic or native container")
+            raise ValueError(
+                f"not a {self.MODEL_ID} classic or native container")
         return packed
 
     def _decode_latent(self, packed):
@@ -502,13 +518,14 @@ class BMSHJ2018Codec:
             strings, hy, wy, cy, y_ep, y_ev)
         z_rows, z_san = self.side_em.decompress_sidecar_device(
             z_buf, z_len, (1, wz // k_z), z_ei, z_evd)
-        indexes = self._indexes(
+        indexes, loc = self._y_params(
             native_format.from_streams(z_rows, hz, wz, cz), (hy, wy))
         if tuple(indexes.shape[1:3]) != (hy, wy):
             raise ValueError("latent shapes of the container disagree")
+        rows = (hy * k_y, 1, wy // k_y, cy)
         y_rows, y_san = self.em.decompress_sidecar_device(
-            y_buf, y_len, indexes[0].reshape(hy * k_y, 1, wy // k_y, cy),
-            y_ei, y_evd)
+            y_buf, y_len, indexes[0].reshape(rows), y_ei, y_evd,
+            loc=None if loc is None else loc[0].reshape(rows))
         return (native_format.from_streams(y_rows, hy, wy, cy),
                 torch.cat([z_san, y_san]),
                 (int(x_shape[0]), int(x_shape[1])))
@@ -518,7 +535,7 @@ class BMSHJ2018Codec:
             ["bytes", "bytes", np.int32, np.int32, np.int32])
         for strs, shape in ((strings, y_shape), (side_strings, z_shape)):
             if len(strs) != 1 or shape.shape != (2,) or (shape < 1).any():
-                raise ValueError("not a bmshj2018 classic container")
+                raise ValueError(f"not a {self.MODEL_ID} classic container")
         dev = self.device
 
         def upload(strs):
@@ -529,10 +546,11 @@ class BMSHJ2018Codec:
         z_hat, z_san = self.side_em.decompress_device(
             *upload(side_strings), tuple(int(s) for s in z_shape))
         hy, wy = int(y_shape[0]), int(y_shape[1])
-        indexes = self._indexes(z_hat, (hy, wy))
+        indexes, loc = self._y_params(z_hat, (hy, wy))
         if tuple(indexes.shape[1:3]) != (hy, wy):
             raise ValueError("latent shapes of the container disagree")
-        y_hat, y_san = self.em.decompress_device(*upload(strings), indexes)
+        y_hat, y_san = self.em.decompress_device(*upload(strings), indexes,
+                                                 loc=loc)
         return (y_hat, torch.cat([z_san, y_san]),
                 (int(x_shape[0]), int(x_shape[1])))
 

@@ -1,5 +1,6 @@
 """Channel-wise autoregressive image codec (Minnen & Singh 2020): its
-serving path (PyTorch counterpart of compression_tpu/models/ms2020.py).
+training and serving paths (PyTorch counterpart of
+compression_tpu/models/ms2020.py).
 
 The latent ``y`` splits into ``num_slices`` channel slices.  Each slice's
 mean and scale index come from the two hyper-synthesis outputs (z's mean
@@ -20,7 +21,9 @@ encoder has no decode dependency between slices, and a stream's bytes do
 not depend on the grouping); the native decompress decodes z, then one
 slice a launch inside the slice loop.  ``decompress`` and
 ``decompress_native_many`` read both containers, ``reconstruct`` skips the
-coder.  Training (the model's forward and a train step) is not ported.
+coder.  ``MS2020Model.forward(training=True)`` and ``make_train_step``
+train the model (uniform noise on z and on each slice, Adam); the codec
+and training run the same slice loop (``MS2020Model.slice_loop``).
 Weights come from a seeded init, from the JAX package (``params_from_jax``)
 or from the reference's TF variables (``params_from_tf``).  Images are
 uint8 [H, W, 3] (numpy or torch) and latents [1, H, W, C], the JAX
@@ -47,6 +50,7 @@ from compression_tpu_torch.entropy_models.continuous_indexed import (
 from compression_tpu_torch.layers.gdn import GDN
 from compression_tpu_torch.layers.signal_conv import SignalConv2D
 from compression_tpu_torch.models import native_format
+from compression_tpu_torch.models.bls2017 import make_train_step
 from compression_tpu_torch.models.bmshj2018 import make_scale_fn
 from compression_tpu_torch.util.device import resolve_device
 from compression_tpu_torch.util.packed_tensors import PackedTensors
@@ -59,6 +63,7 @@ __all__ = [
     "SliceTransform",
     "MS2020Model",
     "MS2020Codec",
+    "make_train_step",
     "params_from_jax",
     "params_from_tf",
 ]
@@ -177,10 +182,11 @@ class SliceTransform(nn.Module):
 
 
 class MS2020Model(nn.Module):
-    """The model's transforms and hyperprior parameters, with the
+    """Rate-distortion model (training and eval forward), with the
     inference sub-graphs the codec runs (encode, hyper_decode,
-    slice_params, lrp, decode); weights from a seeded init (``seed``) or
-    carried over with ``params_from_jax`` / ``params_from_tf``."""
+    slice_params, lrp, slice_loop, decode); weights from a seeded init
+    (``seed``) or carried over with ``params_from_jax`` /
+    ``params_from_tf``."""
 
     def __init__(self, lmbda=0.01, num_filters=192, latent_depth=320,
                  hyperprior_depth=192, num_slices=10, max_support_slices=5,
@@ -239,17 +245,58 @@ class MS2020Model(nn.Module):
         return make_scale_fn(self.scale_min, self.scale_max, self.num_scales)
 
     def hyperprior(self, device=None):
-        """NoisyDeepFactorized hyperprior over z, over detached copies of
-        the parameters on ``device`` (the codec's tables are built on the
-        CPU)."""
+        """NoisyDeepFactorized hyperprior over z, over the parameters
+        themselves (what training differentiates), or over detached copies
+        on ``device`` when it is given (the codec's tables)."""
         def get(plist):
-            return [p.detach() if device is None else p.detach().to(device)
+            return [p if device is None else p.detach().to(device)
                     for p in plist]
         return deep_factorized.NoisyDeepFactorized(
             params={"matrices": get(self.hyperprior_matrices),
                     "biases": get(self.hyperprior_biases),
                     "factors": get(self.hyperprior_factors)},
             batch_shape=(self.hyperprior_depth,))
+
+    def forward(self, x, training=False, generator=None, u=None):
+        """Returns (loss, bpp, mse) for a uint8/float NHWC batch, the JAX
+        package's ``__call__``: z's bits and each slice's, the slice loop
+        with ``em_y.quantize`` as each slice's decoded value, the
+        synthesis.
+
+        In training mode z and every slice are perturbed with U(-.5, .5)
+        noise: from ``generator`` (a ``torch.Generator`` on ``x``'s device,
+        which draws z's noise first, then slice 0's, 1's, ...) or given as
+        ``u = (u_z, u_0, ..., u_{num_slices-1})`` (the latents' shapes; the
+        JAX package splits its key into num_slices + 1 keys in that order).
+        In eval mode the latents are rounded.
+        """
+        x = torch.as_tensor(x).to(torch.float32)
+        u_z, *u_y = (None,) * (1 + self.num_slices) if u is None else u
+        em_z = ContinuousBatchedEntropyModel(
+            prior=self.hyperprior(), coding_rank=3, compression=False,
+            offset_heuristic=False, device=x.device)
+        em_y = LocationScaleIndexedEntropyModel(
+            uniform_noise.NoisyNormal, self.num_scales, self.scale_fn(),
+            coding_rank=3, compression=False, device=x.device)
+        y, z = self.encode(x)
+        num_pixels = int(x.shape[1] * x.shape[2])
+        _, z_bits = em_z(z, training=training, generator=generator, u=u_z)
+        z_bpp = torch.mean(z_bits) / num_pixels
+        y_slices = torch.split(y, self.slice_depth, dim=-1)
+        y_bpps = []
+
+        def code(i, mu, sigma):
+            _, bits = em_y(y_slices[i], sigma, loc=mu, training=training,
+                           generator=generator, u=u_y[i])
+            y_bpps.append(torch.mean(bits) / num_pixels)
+            return em_y.quantize(y_slices[i], mu)
+
+        y_hat = self.slice_loop(em_z.quantize(z),
+                                tuple(int(s) for s in y.shape[1:3]), code)
+        x_hat = self.decode(y_hat)[:, : x.shape[1], : x.shape[2], :]
+        bpp = sum(y_bpps) + z_bpp
+        mse = torch.mean(torch.square(x - x_hat))
+        return bpp + self.lmbda * mse, bpp, mse
 
     # Inference sub-graphs (the JAX package's methods of the same names).
     def encode(self, x):
@@ -286,6 +333,25 @@ class MS2020Model(nn.Module):
         0.5 * tanh(lrp_i([mean_support, y_hat_slice]))."""
         support = torch.cat([mean_support, y_hat_slice], dim=-1)
         return 0.5 * torch.tanh(getattr(self, f"lrp_{i}")(support))
+
+    def slice_loop(self, z_hat, y_hw, code_slice):
+        """The slice loop that training and every codec entry point run:
+        slice i's (mu, sigma) from the hyper-synthesis outputs and the
+        supporting decoded slices, ``code_slice(i, mu, sigma)`` -> the
+        quantized slice, plus its LRP.  Returns y_hat [N, h, w,
+        latent_depth]."""
+        latent_scales, latent_means = self.hyper_decode(z_hat)
+        if latent_means.shape[1] < y_hw[0] or latent_means.shape[2] < y_hw[1]:
+            raise ValueError("latent shapes of the container disagree")
+        y_hat_slices = []
+        for i in range(self.num_slices):
+            mu, sigma, mean_support = self.slice_params(
+                i, latent_means, latent_scales, self.support(y_hat_slices),
+                y_hw)
+            y_hat_slice = code_slice(i, mu, sigma)
+            y_hat_slices.append(y_hat_slice + self.lrp(i, mean_support,
+                                                        y_hat_slice))
+        return torch.cat(y_hat_slices, dim=-1)
 
     def decode(self, y_hat):
         return self.synthesis(y_hat)
@@ -388,9 +454,10 @@ class MS2020Codec:
 
     The float path runs in full float32: TF32 is switched off for cuDNN and
     matmuls, and cuDNN is made deterministic.  compress, compress_native,
-    decompress and reconstruct run one slice loop (``_slice_loop``) over
-    the same transform calls, so ``decompress(compress(x))`` and
-    ``decompress(compress_native(x))`` equal ``reconstruct(x)`` exactly.
+    decompress and reconstruct run one slice loop
+    (``MS2020Model.slice_loop``) over the same transform calls, so
+    ``decompress(compress(x))`` and ``decompress(compress_native(x))``
+    equal ``reconstruct(x)`` exactly.
     """
 
     MODEL_ID = "ms2020"
@@ -436,25 +503,6 @@ class MS2020Codec:
     def _encode(self, x):
         return self.model.encode(x.to(torch.float32)[None])
 
-    def _slice_loop(self, z_hat, y_hw, code_slice):
-        """The slice loop every entry point runs: slice i's (mu, sigma)
-        from the hyper-synthesis outputs and the supporting decoded
-        slices, ``code_slice(i, mu, sigma)`` -> the quantized slice, plus
-        its LRP.  Returns y_hat [1, h, w, latent_depth]."""
-        m = self.model
-        latent_scales, latent_means = m.hyper_decode(z_hat)
-        if latent_means.shape[1] < y_hw[0] or latent_means.shape[2] < y_hw[1]:
-            raise ValueError("latent shapes of the container disagree")
-        y_hat_slices = []
-        for i in range(m.num_slices):
-            mu, sigma, mean_support = m.slice_params(
-                i, latent_means, latent_scales, m.support(y_hat_slices),
-                y_hw)
-            y_hat_slice = code_slice(i, mu, sigma)
-            y_hat_slices.append(y_hat_slice + m.lrp(i, mean_support,
-                                                     y_hat_slice))
-        return torch.cat(y_hat_slices, dim=-1)
-
     def _synthesis_u8(self, y_hat):
         x_hat = self.model.decode(y_hat)
         return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
@@ -482,7 +530,7 @@ class MS2020Codec:
                 y_slices[i], sigma, loc=mu))
             return self.em_y.quantize(y_slices[i], mu)
 
-        self._slice_loop(self.em_z.quantize(z), y_hw, code)
+        self.model.slice_loop(self.em_z.quantize(z), y_hw, code)
         packed = PackedTensors()
         packed.model = self.MODEL_ID
         packed.pack([np.asarray(tuple(x.shape[:2]), np.int32),
@@ -507,7 +555,7 @@ class MS2020Codec:
             sigmas.append(sigma)
             return self.em_y.quantize(y_slices[i], mu)
 
-        self._slice_loop(self.em_z.quantize(z), y_hw, code)
+        self.model.slice_loop(self.em_z.quantize(z), y_hw, code)
 
         def stacked(parts):
             return torch.cat([native_format.to_streams(t) for t in parts])
@@ -607,7 +655,7 @@ class MS2020Codec:
                 sanity.append(san)
                 return y_slice
 
-            y_hat = self._slice_loop(z_hat, y_hw, decode)
+            y_hat = self.model.slice_loop(z_hat, y_hw, decode)
             return y_hat, torch.cat(sanity), x_hw
         fields = packed.unpack(
             [np.int32] * 3 + ["bytes", np.int32, np.int32] * (1 + ns))
@@ -646,7 +694,7 @@ class MS2020Codec:
             sanity.append(san)
             return native_format.from_streams(y_rows, hy, wy, cs)
 
-        y_hat = self._slice_loop(
+        y_hat = self.model.slice_loop(
             native_format.from_streams(z_rows, hz, wz, cz), (hy, wy), code)
         return y_hat, torch.cat(sanity), x_hw
 
@@ -682,7 +730,7 @@ class MS2020Codec:
         x = self._upload(x)
         y, z = self._encode(x)
         y_slices = self._slices(y)
-        y_hat = self._slice_loop(
+        y_hat = self.model.slice_loop(
             self.em_z.quantize(z), tuple(int(s) for s in y.shape[1:3]),
             lambda i, mu, sigma: self.em_y.quantize(y_slices[i], mu))
         return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],

@@ -137,7 +137,7 @@ def test_latents_match_jax(codecs, name):
     x = _image(name)
     y, z, indexes = _jax_latents(jc, x)
     with torch.no_grad():
-        my, mz, mi = own._encode(own._upload(x))
+        my, mz, mi, _ = own._encode(own._upload(x))
     np.testing.assert_allclose(my.numpy(), y, rtol=0, atol=5e-5)
     np.testing.assert_allclose(mz.numpy(), z, rtol=0, atol=5e-5)
     assert tuple(mi.shape) == indexes.shape  # cropped to y
@@ -358,7 +358,7 @@ def test_golden_tables_and_latents(gold_small):
     np.testing.assert_allclose(codec.side_em.quantization_offset.numpy(),
                                gold["qoffset_z"], atol=1e-4)
     with torch.no_grad():
-        y, z, _ = codec._encode(torch.as_tensor(gold["x_test"]))
+        y, z, _, _ = codec._encode(torch.as_tensor(gold["x_test"]))
     np.testing.assert_allclose(y.numpy(), gold["y"], atol=3e-4)
     np.testing.assert_allclose(z.numpy(), gold["z"], atol=3e-4)
 
@@ -378,8 +378,8 @@ def test_golden_strings(gold_small):
     with torch.no_grad():
         z = torch.tensor(gold["z"])
         assert codec.side_em.compress_to_strings(z) == _strings(gold, "z")
-        indexes = codec._indexes(codec.side_em.quantize(z),
-                                 gold["y"].shape[1:3])
+        indexes, _ = codec._y_params(codec.side_em.quantize(z),
+                                     gold["y"].shape[1:3])
         assert codec.em.compress_to_strings(
             torch.tensor(gold["y"]), indexes) == _strings(gold, "y")
 
@@ -433,7 +433,7 @@ def test_full_width_tables_exact(gold_full):
 def test_full_width_latents_strings_and_container(gold_full):
     gold, codec = gold_full
     with torch.no_grad():
-        y, z, _ = codec._encode(torch.as_tensor(gold["x_test"]))
+        y, z, _, _ = codec._encode(torch.as_tensor(gold["x_test"]))
     np.testing.assert_allclose(y.numpy(), gold["y"], atol=3e-4)
     np.testing.assert_allclose(z.numpy(), gold["z"], atol=3e-4)
     strings, side, *_ = PackedTensors(codec.compress(gold["x_test"])).unpack(

@@ -208,7 +208,7 @@ def ems():
     x = np.random.RandomState(5).randint(0, 256, (64, 64, 3)).astype(
         np.uint8)
     with torch.no_grad():
-        y, z, indexes = codec._encode(codec._upload(x))
+        y, z, indexes, _ = codec._encode(codec._upload(x))
     return codec, 40.0 * y, 30.0 * z, indexes
 
 

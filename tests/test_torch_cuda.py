@@ -843,27 +843,39 @@ def no_tf32():
      torch.backends.cuda.matmul.allow_tf32) = flags
 
 
-@pytest.mark.parametrize("name", ["bls2017", "bmshj2018"])
+@pytest.mark.parametrize("name", ["bls2017", "bmshj2018", "ms2020"])
 def test_train_step_card_matches_cpu(device, no_tf32, name):
-    """One step of each model at 16 filters, batch 2 of 64x64, on the card
-    and on the CPU from the same parameters, batch and noise, TF32 off:
-    metrics within rtol 1e-4, every gradient within 1e-3 of its largest
+    """One step of each model at 16 filters (ms2020 at the compact widths
+    of tests/test_torch_ms2020.py), batch 2 of 64x64, on the card and on
+    the CPU from the same parameters, batch and noise, TF32 off: metrics
+    within rtol 1e-4, every gradient within 1e-3 of its largest
     magnitude.  A generator on the card draws there; one on the CPU
     raises."""
-    from compression_tpu_torch.models import bls2017, bmshj2018
+    from compression_tpu_torch.models import bls2017, bmshj2018, ms2020
     if name == "bls2017":
         models = [bls2017.BLS2017Model(num_filters=16, seed=3)
                   for _ in range(2)]
-    else:
+    elif name == "bmshj2018":
         models = [bmshj2018.BMSHJ2018Model(num_filters=16, num_scales=16,
                                            seed=3) for _ in range(2)]
+    else:
+        models = [ms2020.MS2020Model(**MS2020_COMPACT, seed=3)
+                  for _ in range(2)]
     card = models[1].to(device)
     cpu = models[0]
     x = torch.as_tensor(np.random.RandomState(1).randint(
         0, 256, (2, 64, 64, 3)).astype(np.float32))
     with torch.no_grad():
-        shapes = [tuple(t.shape) for t in (
-            [cpu.analysis(x)] if name == "bls2017" else cpu.encode(x)[::-1])]
+        if name == "bls2017":
+            shapes = [tuple(cpu.analysis(x).shape)]
+        else:
+            y, z = cpu.encode(x)
+            shapes = [tuple(z.shape)]
+            if name == "bmshj2018":
+                shapes.append(tuple(y.shape))
+            else:
+                shapes += [y.shape[:-1] + (cpu.slice_depth,)
+                           ] * cpu.num_slices
     rng = np.random.RandomState(2)
     u = [torch.as_tensor(rng.uniform(-.5, .5, s).astype(np.float32))
          for s in shapes]
@@ -881,8 +893,11 @@ def test_train_step_card_matches_cpu(device, no_tf32, name):
                          model.named_parameters()}))
     np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-4)
     for k, want in results[0][1].items():
-        err = float((results[1][1][k] - want).abs().max()
-                    / want.abs().max())
+        # The error itself where the gradient is all zero (ms2020's hyper
+        # synthesis when z rounds to zero).
+        scale = float(want.abs().max())
+        err = float((results[1][1][k] - want).abs().max()) / (
+            scale if scale > 0 else 1.0)
         assert err <= 1e-3, (k, err)
     step = bls2017.make_train_step(
         card, torch.optim.Adam(card.parameters(), lr=1e-3))
@@ -893,9 +908,20 @@ def test_train_step_card_matches_cpu(device, no_tf32, name):
         step(x, generator=torch.Generator().manual_seed(0))
 
 
-# -- the classic containers on the kernels, and ms2020 ----------------------
+# -- the classic containers on the kernels, ms2020 and HiFiC ---------------
+MS2020_COMPACT = dict(num_filters=16, latent_depth=20, hyperprior_depth=8,
+                      num_slices=5, max_support_slices=3, num_scales=16,
+                      ha_widths=(24, 16), hs_widths=(12, 16, 20),
+                      slice_widths=(16, 12))
+# tests/test_torch_hific.py's compact configuration (four downsamplings).
+HIFIC_COMPACT = dict(num_down=4, num_filters_base=4,
+                     num_filters_bottleneck=12, num_residual_blocks=2,
+                     hyper_filters=8)
+
+
 def _small_codecs(device):
-    from compression_tpu_torch.models import bls2017, bmshj2018, ms2020
+    from compression_tpu_torch.models import bls2017, bmshj2018, hific
+    from compression_tpu_torch.models import ms2020
     return {
         "bls2017": bls2017.BLS2017Codec(
             bls2017.BLS2017Model(num_filters=16, seed=2), device=device),
@@ -903,14 +929,13 @@ def _small_codecs(device):
             bmshj2018.BMSHJ2018Model(num_filters=16, seed=2),
             device=device),
         "ms2020": ms2020.MS2020Codec(ms2020.MS2020Model(
-            num_filters=16, latent_depth=20, hyperprior_depth=8,
-            num_slices=5, max_support_slices=3, num_scales=16,
-            ha_widths=(24, 16), hs_widths=(12, 16, 20),
-            slice_widths=(16, 12), seed=2), device=device),
+            **MS2020_COMPACT, seed=2), device=device),
+        "hific": hific.HiFiCCodec(hific.HiFiCModel(
+            hific.HiFiCConfig(**HIFIC_COMPACT), seed=2), device=device),
     }
 
 
-@pytest.mark.parametrize("name", ["bls2017", "bmshj2018", "ms2020"])
+@pytest.mark.parametrize("name", ["bls2017", "bmshj2018", "ms2020", "hific"])
 def test_classic_container_launches_the_kernels(device, monkeypatch, name):
     """On the card a classic container's one-stream calls launch the
     kernels (no host route, whatever the JAX package's
@@ -971,7 +996,7 @@ def test_device_only_pair_launches_on_one_stream(device):
     x = np.random.RandomState(5).randint(0, 256, (64, 64, 3)).astype(
         np.uint8)
     with torch.no_grad():
-        y, _, indexes = codec._encode(codec._upload(x))
+        y, _, indexes, _ = codec._encode(codec._upload(x))
         buf, lens, ok = codec.em.compress_device(y, indexes)
         assert torch_coder.DISPATCH_LOG["encode"].startswith("cuda-")
         back, sane = codec.em.decompress_device(buf.reshape(1, -1),
@@ -1056,3 +1081,51 @@ def test_ms2020_goldens_on_the_card(device, fixture):
     np.testing.assert_array_equal(
         codec.decompress(codec.compress_native(gold["x_test"])),
         gold["x_hat_uint8"])
+
+
+def test_hific_native_path_on_the_card(device):
+    """HiFiC's native container runs two K1 launches (y, z) and two K2
+    launches (z, then y), both on their warp kernels, and both containers
+    and the *_many calls decode to reconstruct(x); then K1 and K2 at the
+    native launch of y, on the codec's own symbols and scale indexes
+    about the means, against their plain versions."""
+    from compression_tpu_torch.models import native_format
+    codec = _small_codecs(device)["hific"]
+    x = np.random.RandomState(8).randint(0, 256, (72, 88, 3)).astype(
+        np.uint8)
+    expect = codec.reconstruct(x)
+    before = {k: (cuda_coder.LAUNCHES[k], cuda_coder.LAUNCHES_WARP[k])
+              for k in ("encode_indexed", "decode_indexed")}
+    native = codec.compress_native(x)
+    assert torch_coder.DISPATCH_LOG["encode"] == "cuda-indexed"
+    np.testing.assert_array_equal(codec.decompress(native), expect)
+    assert torch_coder.DISPATCH_LOG["decode_sidecar"] == "cuda-indexed"
+    for k, (count, warp) in before.items():
+        assert (cuda_coder.LAUNCHES[k], cuda_coder.LAUNCHES_WARP[k]) == (
+            count + 2, warp + 2), k
+    np.testing.assert_array_equal(codec.decompress(codec.compress(x)),
+                                  expect)
+    assert torch_coder.DISPATCH_LOG["decode"] == "cuda-gamma"
+    images = [x, x[:48]]
+    many = codec.compress_native_many(images)
+    assert many == [native, codec.compress_native(x[:48])]
+    for out, c in zip(codec.decompress_native_many(many), many):
+        np.testing.assert_array_equal(out, codec.decompress(c))
+    with torch.no_grad():
+        y, _, indexes, means = codec._encode(codec._upload(x))
+        sym, idx, _ = codec.em._symbols(
+            native_format.to_streams(y - means),
+            native_format.to_streams(indexes))
+    table = codec.em.device_table
+    cdf, meta = table.indexed_arrays()
+    out_size = torch_coder.stream_out_size(sym.shape[1])
+    buf, lens = cuda_coder.encode_indexed(sym, idx, cdf, meta, out_size)
+    out_p, len_p = torch.empty_like(buf), torch.empty_like(lens)
+    cuda_coder.encode_indexed_plain(sym, idx, cdf, meta, out_p, len_p)
+    assert torch.equal(buf, out_p) and torch.equal(lens, len_p)
+    dec, san = cuda_coder.decode_indexed(buf, lens, idx, cdf, meta,
+                                         table.warp_arrays())
+    dec_p, san_p = torch.empty_like(dec), torch.empty_like(san)
+    cuda_coder.decode_indexed_plain(buf, lens, idx, cdf, meta, dec_p, san_p)
+    assert torch.equal(dec, dec_p) and torch.equal(san, san_p)
+    assert bool(san.all())

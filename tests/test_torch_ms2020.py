@@ -265,8 +265,8 @@ def test_reconstruct_matches_jax(pair, name):
             symbols.append(torch.round(y_slices[i] - mu).numpy())
             return pc.em_y.quantize(y_slices[i], mu)
 
-        y_hat = pc._slice_loop(pc.em_z.quantize(mz), tuple(my.shape[1:3]),
-                               code)
+        y_hat = pc.model.slice_loop(pc.em_z.quantize(mz),
+                                    tuple(my.shape[1:3]), code)
         x_float = pc.model.decode(y_hat)[0, : x.shape[0], : x.shape[1]]
     for mine, (y_slice, mu, *_) in zip(symbols, slices):
         np.testing.assert_array_equal(mine, np.round(y_slice - mu))

@@ -52,7 +52,7 @@ def main(device="cuda", num_filters=None, shape=None):
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     with torch.no_grad():
-        y, _, idx = codec._encode(codec._upload(img))
+        y, _, idx, _ = codec._encode(codec._upload(img))
 
         def run():
             codec.em.compress_device(y, idx)

@@ -68,7 +68,7 @@ def main():
     img = np.random.RandomState(0).randint(
         0, 256, chip_smoke.IMAGES[first]).astype(np.uint8)
     with torch.no_grad():
-        y, _, idx = codec._encode(codec._upload(img))
+        y, _, idx, _ = codec._encode(codec._upload(img))
         sym, rows, _ = codec.em._symbols(y, idx)
         port_bytes, port_len = codec.em.compress(y, idx)
     t = codec.em.device_table.host
