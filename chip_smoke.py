@@ -210,6 +210,11 @@ SCAN_CHAIN_OPS = 6
 # main()), nothing cut: ~100M parameters.
 MS2020_CONFIG = dict(num_filters=192, latent_depth=320, hyperprior_depth=192,
                      num_slices=10, max_support_slices=5, num_scales=64)
+# HiFiC's GAN training: the JAX package's train defaults (batch 2 of
+# 256x256, Adam at 1e-4, one d step a g step), 12 steps on the card.
+HIFIC_TRAIN_BATCH = (2, 256, 256, 3)
+HIFIC_TRAIN_STEPS = 12
+HIFIC_TRAIN_LR = 1e-4
 # Stream counts at which the host C coder is timed against the card's
 # reference-format wrappers (below the JAX package's host-route cap of 256),
 # and symbols a stream (cut from bmshj2018's y stream).
@@ -1031,34 +1036,6 @@ def host_coder_phase(cases, fails):
             fails.append(f"host_coder/{label}")
 
 
-class SharedKinks:
-    """Stands in for torch.nn.functional in a model's module (bmshj2018,
-    ms2020) while a step runs: on the card it records each relu's
-    decisions (x > 0), and on the CPU it replays them in the same order.
-    A pre-activation within float32 error of zero may fall on either side
-    of the kink on the two devices, and one such element moves a kernel's
-    gradient by ~1e-3 of its largest magnitude; with the decisions shared,
-    what is left is the arithmetic.  ``flips`` counts the decisions the
-    CPU would have taken the other way."""
-
-    def __init__(self, functional):
-        self.functional = functional
-        self.masks = []
-        self.replay = None
-        self.flips = 0
-
-    def __getattr__(self, name):
-        return getattr(self.functional, name)
-
-    def relu(self, x):
-        if self.replay is None:
-            self.masks.append((x > 0).detach())
-            return self.functional.relu(x)
-        mask = self.replay.pop(0).to(x.device)
-        self.flips += int((mask != (x > 0)).sum())
-        return x * mask
-
-
 def train_phase(device, fails, steps=30):
     """One step of each model on the card against the CPU (same
     parameters, batch and noise, TF32 off; the CPU once on its own and once
@@ -1066,6 +1043,7 @@ def train_phase(device, fails, steps=30):
     on the card, timed by CUDA events around each synchronized step."""
     import torch
     from compression_tpu_torch.models import bls2017, bmshj2018, ms2020
+    from compression_tpu_torch.util.kinks import SharedKinks
     makers = {
         "bls2017": lambda: bls2017.BLS2017Model(num_filters=NUM_FILTERS,
                                                 seed=0),
@@ -1125,15 +1103,11 @@ def train_phase(device, fails, steps=30):
             u_card = [torch.empty(sh, device=device).uniform_(
                 -0.5, 0.5, generator=gen) for sh in shapes]
         u_cpu = [t.cpu() for t in u_card]
-        module = kink_modules[name]
-        kinks = SharedKinks(module.F)
-        module.F = kinks
-        try:
+        kinks = SharedKinks()
+        with kinks.sharing(kink_modules[name]):
             card_step = one_step(card, x_card, u_card)
             kinks.replay = list(kinks.masks)
             shared_step = one_step(cpu, x_cpu, u_cpu)
-        finally:
-            module.F = kinks.functional
         cpu_step = one_step(cpu, x_cpu, u_cpu)
         err, worst = max_grad_err(shared_step)
         err_own, worst_own = max_grad_err(cpu_step)
@@ -1168,7 +1142,7 @@ def train_phase(device, fails, steps=30):
             metric_rel_err=metric_err, parameters=len(cpu_step["grads"]),
             max_grad_err=err, max_grad_err_param=worst,
             relu_decisions_shared=len(kinks.masks),
-            relu_elements_the_cpu_decided_otherwise=kinks.flips,
+            relu_elements_the_cpu_decided_otherwise=kinks.flips["relu"],
             max_grad_err_own_decisions=err_own,
             max_grad_err_own_decisions_param=worst_own,
             cpu_step_ms=cpu_step["ms"], first_card_step_ms=card_step["ms"],
@@ -1178,6 +1152,240 @@ def train_phase(device, fails, steps=30):
             fails.append(f"train/{name}")
         del cpu, card, step
         torch.cuda.empty_cache()
+
+
+def hific_train_phase(device, img, smi, fails, steps=HIFIC_TRAIN_STEPS):
+    """Phase 7h: HiFiC's GAN training at get_config("hific") with the
+    hific-width discriminator and LPIPS on random_lpips_weights(0), batch
+    HIFIC_TRAIN_BATCH.  (a) One g step and one d step on the card against
+    the CPU from the same parameters, batch and noise, TF32 off, the CPU
+    taking the card's decisions at the kinks (SharedKinks over hific, lpips
+    and round_st; its own decisions beside): metrics within 1e-3 relative,
+    every gradient within 1e-3 of its largest magnitude, the
+    discriminator's u and sigma after the d step within 1e-5 (the d step
+    starts on both from the card's generator after its g step).  (b)
+    ``steps`` g+d steps on the card at HIFIC_TRAIN_LR: finite losses, the
+    median g- and d-step ms of steps 3-``steps`` by CUDA events, the flops
+    of a step by torch's flop counter.  (c) The trained generator served:
+    HiFiCCodec's native and classic containers of ``img`` decode to
+    reconstruct(img).  (d) hific.main: train 2 steps at batch 1 of 256x256,
+    then compress and decompress ``img`` as .npy through the checkpoint;
+    the output equals the loaded codec's reconstruct.  Returns the launch
+    counts of (c) and (d)."""
+    import copy
+    import tempfile
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from compression_tpu_torch.models import hific, lpips
+    from compression_tpu_torch.ops import round_ops
+    from compression_tpu_torch.util.kinks import SharedKinks
+    cfg = hific.get_config("hific")
+    t0 = time.time()
+    template = hific.HiFiCModel(cfg, seed=0)
+    disc_template = hific.Discriminator(template.latent_depth, seed=0)
+    batch = np.random.RandomState(1).randint(
+        0, 256, HIFIC_TRAIN_BATCH).astype(np.float32)
+
+    def fresh(dev):
+        model = copy.deepcopy(template).to(dev)
+        disc = copy.deepcopy(disc_template).to(dev)
+        g_step, d_step = hific.make_train_steps(
+            model, disc, torch.optim.Adam(model.parameters(),
+                                          lr=HIFIC_TRAIN_LR),
+            torch.optim.Adam(disc.parameters(), lr=HIFIC_TRAIN_LR))
+        return model, disc, g_step, d_step
+
+    with torch.no_grad():
+        y, z = template.encode(torch.as_tensor(batch[:1]))
+    shapes = [(HIFIC_TRAIN_BATCH[0],) + tuple(t.shape[1:]) for t in (z, y)]
+    gen = torch.Generator(device=device).manual_seed(7)
+    u_card = [tuple(torch.empty(sh, device=device).uniform_(
+        -0.5, 0.5, generator=gen) for sh in shapes) for _ in range(2)]
+    u_cpu = [tuple(t.cpu() for t in u) for u in u_card]
+
+    def sync(dev):
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    def parity_run(dev, u, after_g=None):
+        """One g step, then (from ``after_g``'s generator state when
+        given) one d step; metrics, gradients, the disc's state, the
+        generator's state after the g step and the ms of each step."""
+        model, disc, g_step, d_step = fresh(dev)
+        x = torch.as_tensor(batch, device=dev)
+        t1 = time.perf_counter()
+        g = g_step(x, 0, u=u[0])
+        sync(dev)
+        t2 = time.perf_counter()
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+        state = {k: v.detach().cpu().clone() for k, v in
+                 model.state_dict().items()}
+        if after_g is not None:
+            model.load_state_dict(after_g)
+        t3 = time.perf_counter()
+        d = d_step(x, u=u[1])
+        sync(dev)
+        t4 = time.perf_counter()
+        grads.update({f"disc.{k}": p.grad.detach().cpu()
+                      for k, p in disc.named_parameters()})
+        out = {"metrics": {k: float(v) for k, v in {**g, **d}.items()},
+               "grads": grads, "state_after_g": state,
+               "disc_state": {k: b.cpu() for k, b in disc.named_buffers()},
+               "g_ms": (t2 - t1) * 1e3, "d_ms": (t4 - t3) * 1e3}
+        del model, disc
+        return out
+
+    kinks = SharedKinks()
+    with kinks.sharing(hific, lpips, round_ops=round_ops):
+        card = parity_run(device, u_card)
+        decisions = len(kinks.masks)
+        kinks.replay = list(kinks.masks)
+        shared = parity_run("cpu", u_cpu, card["state_after_g"])
+        left_over = len(kinks.replay)
+    kinks.masks, kinks.replay = [], None
+    own = parity_run("cpu", u_cpu, card["state_after_g"])
+
+    def grad_err(found):
+        err = {}
+        for k, g in found["grads"].items():
+            scale = float(g.abs().max())
+            err[k] = float((card["grads"][k] - g).abs().max()) / (
+                scale if scale > 0 else 1.0)
+        worst = max(err, key=err.get)
+        return err[worst], worst
+
+    def metric_err(found):
+        return {k: abs(card["metrics"][k] - v) / abs(v)
+                for k, v in found["metrics"].items()}
+
+    err, worst = grad_err(shared)
+    err_own, worst_own = grad_err(own)
+    m_err, m_err_own = metric_err(shared), metric_err(own)
+    state_err = max(float((card["disc_state"][k] - v).abs().max())
+                    for k, v in shared["disc_state"].items())
+    parity = {"grads_within_1e-3": err <= 1e-3,
+              "metrics_within_1e-3": max(m_err.values()) <= 1e-3,
+              "disc_state_within_1e-5": state_err <= 1e-5,
+              "every_decision_replayed": left_over == 0}
+    log("hific_train", part="parity", config="hific",
+        parameters=sum(p.numel() for p in template.parameters()),
+        disc_parameters=sum(p.numel() for p in disc_template.parameters()),
+        batch=list(HIFIC_TRAIN_BATCH), lpips="random_lpips_weights(0)",
+        tf32_cudnn=torch.backends.cudnn.allow_tf32,
+        tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+        card_metrics=card["metrics"], cpu_metrics=shared["metrics"],
+        metric_rel_err=m_err, metric_rel_err_own_decisions=m_err_own,
+        max_grad_err=err, max_grad_err_param=worst,
+        max_grad_err_own_decisions=err_own,
+        max_grad_err_own_decisions_param=worst_own,
+        disc_state_max_abs_err=state_err, decisions_shared=decisions,
+        elements_the_cpu_decided_otherwise=kinks.flips,
+        cpu_g_step_ms=shared["g_ms"], cpu_d_step_ms=shared["d_ms"],
+        first_card_g_step_ms=card["g_ms"], first_card_d_step_ms=card["d_ms"],
+        setup_seconds=round(time.time() - t0, 3), **parity)
+    if not all(parity.values()):
+        fails.append("hific_train/parity")
+    del card, shared, own
+
+    # (b) steps g+d steps on the card; the flops of the first.
+    model, disc, g_step, d_step = fresh(device)
+    x = torch.as_tensor(batch, device=device)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    losses, g_ms, d_ms, flops = [], [], [], {}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        if i == 0:  # counted, not timed
+            metrics = {}
+            for name, fn in (("g", lambda: g_step(x, i, generator=gen)),
+                             ("d", lambda: d_step(x, generator=gen))):
+                counter = FlopCounterMode(display=False)
+                with counter:
+                    metrics.update(fn())
+                flops[name] = counter.get_total_flops()
+        else:
+            events[0].record()
+            metrics = g_step(x, i, generator=gen)
+            events[1].record()
+            metrics.update(d_step(x, generator=gen))
+            events[2].record()
+            torch.cuda.synchronize()
+            g_ms.append(events[0].elapsed_time(events[1]))
+            d_ms.append(events[1].elapsed_time(events[2]))
+        losses.append({k: float(v) for k, v in metrics.items()})
+    g_med, d_med = float(np.median(g_ms[1:])), float(np.median(d_ms[1:]))
+    finite = bool(all(np.isfinite(list(m.values())).all() for m in losses))
+    log("hific_train", part="steps", steps=steps,
+        learning_rate=HIFIC_TRAIN_LR, losses=losses, g_step_ms=g_ms,
+        d_step_ms=d_ms, g_step_ms_median_3_to_12=g_med,
+        d_step_ms_median_3_to_12=d_med,
+        g_step_gflop=flops["g"] / 1e9, d_step_gflop=flops["d"] / 1e9,
+        g_step_tflop_per_s=flops["g"] / g_med / 1e9,
+        d_step_tflop_per_s=flops["d"] / d_med / 1e9,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        finite=finite, card=smi)
+    if not finite:
+        fails.append("hific_train/steps")
+    del disc, g_step, d_step
+
+    # (c) and (d): the trained generator served, and the command line.
+    reset_counts()
+    with torch.no_grad():
+        codec = hific.HiFiCCodec(model, device=device)
+        native = codec.compress_native(img)
+        classic = codec.compress(img)
+        recon = codec.reconstruct(img)
+        served = {
+            "native_equals_reconstruct": bool(np.array_equal(
+                codec.decompress(native), recon)),
+            "classic_equals_reconstruct": bool(np.array_equal(
+                codec.decompress(classic), recon))}
+    del codec, model
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        src = os.path.join(tmp, "img.npy")
+        out = os.path.join(tmp, "out.npy")
+        np.save(src, img)
+        hific.main(["train", "--model_path", ckpt, "--num_steps", "2",
+                    "--batchsize", "1", "--patchsize", "256"])
+        hific.main(["compress", "--model_path", ckpt, src])
+        hific.main(["decompress", "--model_path", ckpt, src + ".tfci", out])
+        # Read before the check's own compress, which no path needs.
+        launches, routes = read_counts(("encode", "decode",
+                                        "decode_sidecar"))
+        from compression_tpu_torch.util import checkpoint
+        payload, _ = checkpoint.load_checkpoint(ckpt)
+        loaded = hific.HiFiCModel(cfg)
+        loaded.load_state_dict(payload["params"])
+        codec = hific.HiFiCCodec(loaded, device=device)
+        with open(src + ".tfci", "rb") as f:
+            container = f.read()
+        cli = {"cli_decompress_equals_reconstruct": bool(np.array_equal(
+                   np.load(out), codec.reconstruct(img))),
+               "cli_container_equals_compress":
+                   container == codec.compress(img)}
+        del codec, loaded, payload
+    # Served: native 2 K1 + classic 2 encodes (K1 or K6'), 2 K2, 2 K3';
+    # the command line: 2 encodes and 2 K3'.
+    encodes = launches["encode_indexed"] + launches["encode_gamma"]
+    counted = {"encodes": encodes == 6,
+               "decode_indexed": launches["decode_indexed"] == 2,
+               "decode_gamma": launches["decode_gamma"] == 4,
+               "all_warp": all(launches[f"{k}/warp"] == launches[k] for k in (
+                   "encode_indexed", "encode_gamma", "decode_indexed",
+                   "decode_gamma"))}
+    ok = {**served, **cli, **counted}
+    log("hific_train", part="serve_and_cli", image=list(img.shape),
+        native_bytes=len(native), classic_bytes=len(classic),
+        cli_container_bytes=len(container), launches=launches, routes=routes,
+        cli_seconds=round(time.time() - t1, 3), **ok)
+    if not all(ok.values()):
+        fails.append("hific_train/serve_and_cli")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def classic_phase(codecs, images, sweep, fails):
@@ -2659,6 +2867,10 @@ def main():
     # Phase 7: a train step of both models on the card against the CPU,
     # then 30 steps on the card.
     train_phase(device, fails)
+    # Phase 7h: HiFiC's GAN training, then its weights served and its
+    # command line.
+    hific_train_launches = hific_train_phase(device, images[first], smi,
+                                             fails)
 
     # Phase 8: times at the main paths' shapes.
     saved = dict(cc.LAUNCHES)
@@ -3125,7 +3337,8 @@ def main():
 
     launches = {k: native_launches[k] + classic_launches[k]
                 + front_launches[k] + hyper_launches[k] + device_launches[k]
-                + ms_launches[k] + hific_launches[k] for k in cc.LAUNCHES}
+                + ms_launches[k] + hific_launches[k]
+                + hific_train_launches[k] for k in cc.LAUNCHES}
     for name, count in launches.items():
         if count == 0:
             fails.append(f"no_launch_on_a_main_path/{name}")

@@ -1,5 +1,6 @@
 """HiFiC: High-Fidelity Generative Image Compression (Mentzer et al. 2020):
-its serving path (PyTorch counterpart of compression_tpu/models/hific.py).
+its serving path and its GAN training (PyTorch counterpart of
+compression_tpu/models/hific.py).
 
 An encoder of plain convolutions with ChannelNorm (a 7x7 head, ``num_down``
 3x3 stride-2 convolutions, a 3x3 bottleneck), a generator (ChannelNorm, a
@@ -17,12 +18,23 @@ sidecars, 9 tensors), the same entry points (``compress``,
 ``compress_native(_many)``, ``decompress(_native_many)``,
 ``reconstruct``), one transform path for all of them.  z's quantization
 offset comes from the prior (the entropy model's offset heuristic), as in
-the JAX package's codec.  The GAN training half (discriminator, losses,
-train steps) is not ported.  Weights come from a seeded init or from the
-JAX package (``params_from_jax``).  Images are uint8 [H, W, 3] (numpy or
+the JAX package's codec.  Weights come from a seeded init or from the JAX
+package (``params_from_jax``).  Images are uint8 [H, W, 3] (numpy or
 torch), latents [1, H, W, C], the JAX package's NHWC layout; images enter
 the encoder as x / 255 * 2 - 1 and leave the generator as (x + 1) / 2 *
 255.
+
+Training is the reference's two-optimizer GAN: ``HiFiCModel.forward(
+training=True)`` gives the reconstruction, the rounded latent and the
+noisy and quantized rates; ``rd_loss`` weighs rate against distortion on
+the target-rate schedule; ``make_train_steps`` builds the generator step
+(MSE, rate, ``CP`` x LPIPS (``models/lpips.py``) and ``CP`` x the
+non-saturating adversarial loss) and the discriminator step over a
+``Discriminator``, a latent-conditioned patch discriminator whose
+convolutions carry flax's ``SpectralNorm`` (power-iteration state ``u``
+and ``sigma`` in buffers, as flax keeps them in ``batch_stats``); ``train``
+runs both with Adam and ``main`` is HiFiC's command line (train /
+compress / decompress).
 
 The plain convolutions carry flax's semantics: kernels stored HWIO; "SAME"
 padding split as XLA splits it (the total max((ceil(n / s) - 1) s + k - n,
@@ -38,7 +50,7 @@ https://arxiv.org/abs/2006.09965
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,9 +58,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from compression_tpu_torch.distributions import deep_factorized
+from compression_tpu_torch.distributions import uniform_noise
+from compression_tpu_torch.entropy_models.continuous_batched import (
+    ContinuousBatchedEntropyModel)
+from compression_tpu_torch.entropy_models.continuous_indexed import (
+    LocationScaleIndexedEntropyModel)
 from compression_tpu_torch.layers.signal_conv import SignalConv2D
+from compression_tpu_torch.models import lpips as lpips_lib
 from compression_tpu_torch.models.bmshj2018 import (BMSHJ2018Codec,
                                                     make_scale_fn)
+from compression_tpu_torch.ops import round_ops
+from compression_tpu_torch.util.device import resolve_device
 
 __all__ = [
     "HiFiCConfig",
@@ -64,7 +84,14 @@ __all__ = [
     "HyperSynthesis",
     "HiFiCModel",
     "HiFiCCodec",
+    "SpectralNorm",
+    "Discriminator",
     "params_from_jax",
+    "disc_params_from_jax",
+    "rd_loss",
+    "make_train_steps",
+    "train",
+    "main",
 ]
 
 SCALES_MIN, SCALES_MAX, SCALES_LEVELS = 0.11, 256.0, 64
@@ -78,7 +105,7 @@ class HiFiCConfig(NamedTuple):
     num_filters_bottleneck: int = 220
     num_residual_blocks: int = 9
     hyper_filters: int = 320
-    # Loss schedule (for the GAN training, not ported).
+    # Loss schedule.
     C: float = 0.1 * 2.0**-5
     CD: float = 0.75
     CP: float = 0.1 * 1.5
@@ -137,13 +164,15 @@ class Conv(nn.Module):
             (kernel_size, kernel_size, in_channels, filters), generator))
         self.bias = nn.Parameter(torch.zeros(filters))
 
-    def forward(self, x):
+    def forward(self, x, kernel=None):
+        """``kernel``, when given, stands in for ``self.kernel`` (the
+        spectral norm's normalized one)."""
         k, s = self.kernel_size, self.stride
         top, bottom = same_pads(x.shape[2], k, s)
         left, right = same_pads(x.shape[3], k, s)
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias,
-                        stride=s)
+        kernel = self.kernel if kernel is None else kernel
+        return F.conv2d(x, kernel.permute(3, 2, 0, 1), self.bias, stride=s)
 
 
 class ConvTranspose(nn.Module):
@@ -314,6 +343,91 @@ class HyperSynthesis(nn.Module):
         return self.layer_2(z)
 
 
+class SpectralNorm(nn.Module):
+    """flax ``nn.SpectralNorm`` around one convolution: maps its HWIO
+    kernel, viewed as a matrix W of (kh kw cin, cout), to W / sigma.
+
+    Each call takes one power step from the stored ``u`` (1, cout):
+    v = l2n(u W^T), u' = l2n(v W), with l2n(x) = x rsqrt(sum x^2 + eps);
+    u' and v carry no gradient, sigma = v W u'^T does.  The step runs
+    whether or not ``update_stats`` is set; the flag only decides whether
+    u' and sigma are stored.  The stored sigma is never read (flax keeps it
+    too).  ``u`` starts as a standard normal draw, ``sigma`` as one.
+    """
+
+    def __init__(self, features, generator=None, epsilon=1e-12):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.register_buffer("u", torch.randn((1, features),
+                                              generator=generator))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def _l2n(self, x):
+        return x * torch.rsqrt(torch.sum(x * x) + self.epsilon)
+
+    def forward(self, kernel, update_stats=True):
+        mat = kernel.reshape(-1, kernel.shape[-1])
+        with torch.no_grad():
+            v = self._l2n(self.u @ mat.T)
+            u = self._l2n(v @ mat)
+        sigma = (v @ mat @ u.T)[0, 0]
+        if update_stats:
+            self.u.copy_(u)
+            self.sigma.copy_(sigma.detach())
+        return (mat / torch.where(sigma != 0, sigma, 1.0)).reshape(
+            kernel.shape)
+
+
+class Discriminator(nn.Module):
+    """Latent-conditioned patch discriminator with spectral norm (NHWC in):
+    an SN 3x3 conv of the latent to 12 channels and leaky relu 0.2, a
+    nearest upsampling by 2^num_down cropped to the image, the image and
+    that concatenated, SN 4x4 stride-2 convs of doubling width (capped at
+    512) with leaky relu, an SN 4x4 stride-1 conv and leaky relu, an SN 4x4
+    conv to one logit a patch; returns the logits [-1, 1] in NHWC order.
+
+    Convolution ``i`` is ``Conv_i`` and its power-iteration state
+    ``SpectralNorm_i`` (flax's names; ``disc_params_from_jax``).
+    """
+
+    def __init__(self, latent_channels, num_filters_base=64, num_layers=3,
+                 num_down=4, seed=0):
+        super().__init__()
+        self.num_down = int(num_down)
+        gen = torch.Generator().manual_seed(int(seed))
+        specs = [(latent_channels, 12, 3, 1), (3 + 12, num_filters_base, 4, 2)]
+        filters = num_filters_base
+        for _ in range(num_layers - 1):
+            specs.append((filters, min(filters * 2, 512), 4, 2))
+            filters = min(filters * 2, 512)
+        specs.append((filters, min(filters * 2, 512), 4, 1))
+        specs.append((min(filters * 2, 512), 1, 4, 1))
+        self.num_convs = len(specs)
+        for i, (cin, cout, k, stride) in enumerate(specs):
+            setattr(self, f"Conv_{i}", Conv(cin, cout, k, stride,
+                                            generator=gen))
+            setattr(self, f"SpectralNorm_{i}", SpectralNorm(cout,
+                                                            generator=gen))
+
+    def _sn_conv(self, i, h, update_stats):
+        conv = getattr(self, f"Conv_{i}")
+        kernel = getattr(self, f"SpectralNorm_{i}")(conv.kernel, update_stats)
+        return conv(h, kernel)
+
+    def forward(self, x, latent, update_stats=True):
+        x = x.permute(0, 3, 1, 2)
+        lat = F.leaky_relu(self._sn_conv(0, latent.permute(0, 3, 1, 2),
+                                         update_stats), 0.2)
+        # jax.image.resize "nearest" at an integer factor repeats.
+        factor = 2**self.num_down
+        lat = lat.repeat_interleave(factor, 2).repeat_interleave(factor, 3)
+        h = torch.cat([x, lat[:, :, : x.shape[2], : x.shape[3]]], dim=1)
+        for i in range(1, self.num_convs - 1):
+            h = F.leaky_relu(self._sn_conv(i, h, update_stats), 0.2)
+        logits = self._sn_conv(self.num_convs - 1, h, update_stats)
+        return logits.permute(0, 2, 3, 1).reshape(-1, 1)
+
+
 def _nhwc(module, x):
     return module(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
@@ -378,6 +492,43 @@ class HiFiCModel(nn.Module):
         return (torch.log(s) - float(log_min)) / float(span) * (
             SCALES_LEVELS - 1)
 
+    def forward(self, x, training=True, generator=None, u=None):
+        """Returns (x_hat, y_hat, nbpp, qbpp) for a uint8/float NHWC batch:
+        the generator's image of y_hat (0-255 scale, not cropped), y rounded
+        about the predicted means with a straight-through gradient, and the
+        bits per pixel with y noisy (``training``) and with y quantized.
+
+        In training mode z and y are perturbed with U(-.5, .5) noise: from
+        ``generator`` (on ``x``'s device; z's draw first, then y's) or given
+        as ``u = (u_z, u_y)`` (the JAX package draws z's from
+        ``jax.random.split(key, 1)[0]`` and y's from ``key``).
+        """
+        x = torch.as_tensor(x).to(torch.float32)
+        u_z, u_y = (None, None) if u is None else u
+        em_z = ContinuousBatchedEntropyModel(
+            prior=self.hyperprior(), coding_rank=3, compression=False,
+            offset_heuristic=False, device=x.device)
+        em_y = LocationScaleIndexedEntropyModel(
+            uniform_noise.NoisyNormal, SCALES_LEVELS, self.scale_fn(),
+            coding_rank=3, compression=False, device=x.device)
+        y, z = self.encode(x)
+        _, z_bits = em_z(z, training=training, generator=generator, u=u_z)
+        raw_scales, means = self.hyper_decode(em_z.quantize(z))
+        raw_scales = raw_scales[:, : y.shape[1], : y.shape[2], :]
+        means = means[:, : y.shape[1], : y.shape[2], :]
+        indexes = self.scale_indexes(raw_scales)
+        # The noisy rate (differentiable) and the quantized one (the true
+        # bit count).
+        _, y_bits_noisy = em_y(y, indexes, loc=means, training=training,
+                               generator=generator, u=u_y)
+        _, y_bits_q = em_y(y, indexes, loc=means, training=False)
+        y_hat = round_ops.round_st(y - means) + means
+        x_hat = self.decode(y_hat)
+        num_pixels = x.shape[0] * x.shape[1] * x.shape[2]
+        nbpp = (torch.sum(y_bits_noisy) + torch.sum(z_bits)) / num_pixels
+        qbpp = (torch.sum(y_bits_q) + torch.sum(z_bits)) / num_pixels
+        return x_hat, y_hat, nbpp, qbpp
+
     # Inference sub-graphs (the JAX package's methods of the same names).
     def encode(self, x):
         """uint8/float NHWC image batch -> (y, z)."""
@@ -421,6 +572,174 @@ def params_from_jax(tree) -> dict:
     return state
 
 
+def disc_params_from_jax(variables) -> dict:
+    """Converts a JAX ``Discriminator``'s variables (``params`` and
+    ``batch_stats``, as numpy or jax arrays) to this Discriminator's
+    state_dict: ``params/Conv_i/{kernel,bias}`` to ``Conv_i.*`` and
+    ``batch_stats/SpectralNorm_i/"Conv_i/kernel/{u,sigma}"`` to
+    ``SpectralNorm_i.{u,sigma}``."""
+    state = {}
+    for name, leaves in variables["params"].items():
+        for key, value in leaves.items():
+            state[f"{name}.{key}"] = torch.tensor(np.asarray(value,
+                                                             np.float32))
+    for name, leaves in variables["batch_stats"].items():
+        for key, value in leaves.items():
+            state[f"{name}.{key.rsplit('/', 1)[1]}"] = torch.tensor(
+                np.asarray(value, np.float32))
+    return state
+
+
+def _scheduled(initial, final, step, schedule_steps):
+    """Two-phase schedule: ``initial`` before ``schedule_steps``, then
+    ``final``."""
+    return initial if step < schedule_steps else final
+
+
+def rd_loss(cfg: HiFiCConfig, distortion, nbpp, qbpp, step):
+    """Rate-targeted RD loss (the reference's _LossScaler.get_rd_loss):
+    the rate weighed by 1 / lmbda_a above the scheduled target and by
+    1 / lmbda_b below it.  The constants are float32 products, as in the
+    JAX package; ``step`` is a Python int."""
+    f32 = np.float32
+    target = f32(cfg.target) * f32(_scheduled(
+        cfg.target_factor_initial, 1.0, step, cfg.schedule_steps))
+    factor = f32(_scheduled(2.0, 1.0, step, cfg.schedule_steps))
+    lmbda_a = f32(cfg.lmbda_a) * factor
+    lmbda_b = f32(cfg.lmbda_b) * factor
+    lmbda_inv = torch.where(torch.as_tensor(qbpp) > float(target),
+                            float(f32(1.0) / lmbda_a),
+                            float(f32(1.0) / lmbda_b))
+    weighted_rate = lmbda_inv * nbpp * cfg.C
+    weighted_distortion = distortion * cfg.CD * cfg.C
+    return weighted_rate + weighted_distortion
+
+
+def make_train_steps(model: HiFiCModel, disc: Optional[Discriminator],
+                     g_optimizer, d_optimizer=None,
+                     perceptual_loss_fn: Optional[Callable] = None,
+                     lpips_weights_path: Optional[str] = None):
+    """Returns ``(g_step, d_step)``; ``d_step`` is None without ``disc``.
+
+    ``g_step(batch, step, generator=None, u=None)`` updates the generator
+    (all of ``model``'s parameters) on the MSE (0-255 scale) and
+    ``rd_loss``, plus ``cfg.CP`` times the perceptual loss, plus ``cfg.CP``
+    times mean(softplus(-logits)) of the discriminator's current state on
+    (x_hat / 255, y_hat detached) without storing its power step.
+    ``d_step(batch, generator=None, u=None)`` runs the generator again
+    without a gradient (its own noise), takes the real and the fake
+    logits from the same stored ``u``, keeps the real pass's power step,
+    and updates only the discriminator on mean(softplus(-real)) +
+    mean(softplus(fake)).  ``generator`` or ``u`` is the training noise
+    (``HiFiCModel.forward``).  Batches are uint8/float NHWC, moved to the
+    model's device; the steps return their metrics as 0-d tensors there.
+
+    The perceptual loss defaults, when ``cfg.CP > 0``, to LPIPS of
+    (x / 255, x_hat / 255) (``lpips.make_lpips_loss``: the weights at
+    ``lpips_weights_path`` when that file exists, else the random ones);
+    ``perceptual_loss_fn(x, x_hat) -> scalar`` overrides it.
+    """
+    cfg = model.cfg
+    g_params = list(model.parameters())
+    device = g_params[0].device
+    if perceptual_loss_fn is None and cfg.CP > 0:
+        _lpips = lpips_lib.make_lpips_loss(lpips_weights_path, device=device)
+        perceptual_loss_fn = lambda x, x_hat: _lpips(x / 255.0,
+                                                     x_hat / 255.0)
+
+    def g_step(batch, step, generator=None, u=None):
+        x = torch.as_tensor(batch, device=device).to(torch.float32)
+        x_hat, y_hat, nbpp, qbpp = model(x, training=True,
+                                         generator=generator, u=u)
+        distortion = torch.mean(torch.square(x - x_hat))
+        loss = rd_loss(cfg, distortion, nbpp, qbpp, step)
+        if perceptual_loss_fn is not None:
+            loss = loss + cfg.CP * perceptual_loss_fn(x, x_hat)
+        if disc is not None:
+            logits_fake = disc(x_hat / 255.0, y_hat.detach(),
+                               update_stats=False)
+            # The non-saturating generator loss.
+            loss = loss + cfg.CP * torch.mean(F.softplus(-logits_fake))
+        # The generator's gradient only (the discriminator's is not taken).
+        grads = torch.autograd.grad(loss, g_params)
+        for p, g in zip(g_params, grads):
+            p.grad = g
+        g_optimizer.step()
+        return {"g_loss": loss.detach(), "nbpp": nbpp.detach(),
+                "qbpp": qbpp.detach(), "distortion": distortion.detach()}
+
+    if disc is None:
+        return g_step, None
+
+    def d_step(batch, generator=None, u=None):
+        x = torch.as_tensor(batch, device=device).to(torch.float32)
+        with torch.no_grad():
+            x_hat, y_hat, _, _ = model(x, training=True, generator=generator,
+                                       u=u)
+        d_optimizer.zero_grad(set_to_none=True)
+        # The fake pass first, on the stored u; the real pass then takes
+        # its power step from the same u and stores it.
+        logits_fake = disc(x_hat / 255.0, y_hat, update_stats=False)
+        logits_real = disc(x / 255.0, y_hat, update_stats=True)
+        loss = torch.mean(F.softplus(-logits_real)) + torch.mean(
+            F.softplus(logits_fake))
+        loss.backward()
+        d_optimizer.step()
+        return {"d_loss": loss.detach()}
+
+    return g_step, d_step
+
+
+def train(config: HiFiCConfig = HiFiCConfig(), steps=1000, batch_size=2,
+          patchsize=256, learning_rate=1e-4, data_iter=None, seed=0,
+          num_steps_disc=1, log_every=100, init_params=None,
+          lpips_weights_path=None, device="cuda"):
+    """Two-optimizer GAN training loop (the reference's model.py
+    build_model); returns ``(model, disc)``, disc None without the GAN.
+
+    Each step runs the g step, then ``num_steps_disc`` d steps, each with
+    Adam at ``learning_rate``.  ``init_params`` (a state_dict) warm-starts
+    the generator (the reference's ``--init_autoencoder_from_ckpt_dir``).
+    ``data_iter`` yields uint8/float NHWC batches; if None, random noise
+    patches from ``np.random.RandomState(seed)`` are used (the JAX
+    package's batches).  The weights come from ``seed`` and the noise from
+    a generator on ``device`` seeded with it.  Runs on the card unless the
+    caller passes device="cpu"; convolutions follow torch.backends' TF32
+    flags.
+    """
+    device = resolve_device(device)
+    model = HiFiCModel(config, seed=seed)
+    if init_params is not None:
+        model.load_state_dict(init_params)
+    model.to(device)
+    disc = d_opt = None
+    g_opt = torch.optim.Adam(model.parameters(), lr=learning_rate)
+    if config.use_gan:
+        disc = Discriminator(model.latent_depth, seed=seed).to(device)
+        d_opt = torch.optim.Adam(disc.parameters(), lr=learning_rate)
+    g_step, d_step = make_train_steps(
+        model, disc, g_opt, d_opt, lpips_weights_path=lpips_weights_path)
+    generator = torch.Generator(device=device).manual_seed(int(seed))
+
+    def default_iter():
+        rng = np.random.RandomState(seed)
+        while True:
+            yield rng.randint(
+                0, 256, (batch_size, patchsize, patchsize, 3)).astype(
+                    np.float32)
+
+    it = data_iter if data_iter is not None else default_iter()
+    for step, batch in zip(range(steps), it):
+        metrics = g_step(batch, step, generator=generator)
+        if disc is not None:
+            for _ in range(num_steps_disc):
+                metrics.update(d_step(batch, generator=generator))
+        if log_every and step % log_every == 0:
+            msg = " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items())
+            print(f"step {step}: {msg}", flush=True)
+    return model, disc
+
+
 class HiFiCCodec(BMSHJ2018Codec):
     """Inference codec with frozen tables for both entropy models:
     ``bmshj2018.BMSHJ2018Codec`` with y coded about the mean branch's
@@ -460,3 +779,108 @@ class HiFiCCodec(BMSHJ2018Codec):
         y_hat = self.em.quantize(y, means)
         return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
                                          :].cpu().numpy()
+
+
+def main(argv=None):
+    """HiFiC's command line: train / compress / decompress.
+
+    Mirrors the reference entry points (models/hific/train.py flags
+    --config/--num_steps/--batch_size/--crop_size/--num_steps_disc/
+    --init_autoencoder_from_ckpt_dir/--lpips_weight_path; evaluate.py for
+    the inference side) as subcommands of one tool.  ``train`` saves the
+    generator's state_dict with ``util.checkpoint``; ``compress`` writes
+    the classic container.  Every subcommand runs on the card unless
+    ``--device cpu`` is given.
+    """
+    import argparse
+
+    from compression_tpu_torch.util import checkpoint as ckpt_lib
+    from compression_tpu_torch.util import datasets
+
+    parser = argparse.ArgumentParser(
+        prog="hific", description="HiFiC codec (PyTorch)")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("train", help="Train a HiFiC model.")
+    t.add_argument("--config", default="hific", choices=valid_configs(),
+                   help="'hific' = GAN training, 'mselpips' = no GAN.")
+    t.add_argument("--model_path", default="hific_ckpt")
+    t.add_argument("--train_glob", default=None,
+                   help="Glob/directory of training images; default = "
+                        "synthetic noise (smoke run).")
+    t.add_argument("--num_steps", type=int, default=10000)
+    t.add_argument("--batchsize", type=int, default=2)
+    t.add_argument("--patchsize", type=int, default=256)
+    t.add_argument("--learning_rate", type=float, default=1e-4)
+    t.add_argument("--num_steps_disc", type=int, default=1)
+    t.add_argument("--target", type=float, default=None,
+                   help="Override the config's target bpp.")
+    t.add_argument("--lpips_weights_path", default=None,
+                   help="Local VGG/LPIPS npz (nothing is downloaded).")
+    t.add_argument("--warm_start", default=None,
+                   help="Checkpoint dir to initialize the generator from "
+                        "(reference --init_autoencoder_from_ckpt_dir).")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--device", default="cuda")
+
+    for name in ("compress", "decompress"):
+        c = sub.add_parser(name)
+        c.add_argument("--model_path", default="hific_ckpt")
+        c.add_argument("--device", default="cuda")
+        c.add_argument("input_file")
+        c.add_argument("output_file", nargs="?")
+
+    args = parser.parse_args(argv)
+
+    if args.command == "train":
+        cfg = get_config(args.config)
+        if args.target is not None:
+            cfg = cfg._replace(target=args.target)
+        init_params = None
+        if args.warm_start:
+            payload, _ = ckpt_lib.load_checkpoint(args.warm_start)
+            init_params = payload["params"]
+        data_iter = None
+        if args.train_glob:
+            data_iter = datasets.image_patch_iterator(
+                args.train_glob, args.batchsize, args.patchsize, args.seed)
+        model, _ = train(
+            cfg, steps=args.num_steps, batch_size=args.batchsize,
+            patchsize=args.patchsize, learning_rate=args.learning_rate,
+            data_iter=data_iter, seed=args.seed,
+            num_steps_disc=args.num_steps_disc, init_params=init_params,
+            lpips_weights_path=args.lpips_weights_path, device=args.device)
+        ckpt_lib.save_checkpoint(
+            args.model_path, model.state_dict(),
+            config={"model_name": "hific", "config": args.config,
+                    "target": cfg.target})
+        print(f"saved checkpoint to {args.model_path}")
+        return
+
+    payload, config = ckpt_lib.load_checkpoint(args.model_path)
+    cfg = get_config((config or {}).get("config", "hific"))
+    if config and config.get("target") is not None:
+        cfg = cfg._replace(target=config["target"])
+    model = HiFiCModel(cfg)
+    model.load_state_dict(payload["params"])
+    codec = HiFiCCodec(model, device=args.device)
+
+    if args.command == "compress":
+        img = datasets.load_image(args.input_file)
+        container = codec.compress(img)
+        out = args.output_file or args.input_file + ".tfci"
+        with open(out, "wb") as f:
+            f.write(container)
+        bpp = len(container) * 8 / (img.shape[0] * img.shape[1])
+        print(f"{out}: {len(container)} bytes, {bpp:.4f} bpp")
+    else:
+        with open(args.input_file, "rb") as f:
+            container = f.read()
+        img = codec.decompress(container)
+        out = args.output_file or args.input_file + ".png"
+        datasets.save_image(out, img)
+        print(f"wrote {out} ({img.shape[1]}x{img.shape[0]})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1129,3 +1129,74 @@ def test_hific_native_path_on_the_card(device):
     cuda_coder.decode_indexed_plain(buf, lens, idx, cdf, meta, dec_p, san_p)
     assert torch.equal(dec, dec_p) and torch.equal(san, san_p)
     assert bool(san.all())
+
+
+def test_hific_gan_steps_card_match_cpu(device, no_tf32, tmp_path):
+    """One g step and one d step of HiFiC's compact configuration (four
+    downsamplings) with the tests' tiny discriminator and LPIPS on one npz
+    of random weights, batch 2 of 64x64, on the card and on the CPU from
+    the same parameters, batch and noise, TF32 off, the CPU taking the
+    card's decisions at the kinks (util/kinks.SharedKinks over hific,
+    lpips and round_st: a value within float error of a relu's, a max-pool's
+    or a rounding's kink moves a small kernel's gradient by more than the
+    arithmetic does) and the d step starting on both from the card's
+    generator after its g step: metrics within rtol 1e-4, every gradient
+    within 1e-3 of its largest magnitude, the discriminator's stored u and
+    sigma within 1e-5; the steps' metrics stay on the card."""
+    import copy
+
+    from compression_tpu_torch.models import hific, lpips
+    from compression_tpu_torch.ops import round_ops
+    from compression_tpu_torch.util.kinks import SharedKinks
+    path = str(tmp_path / "lpips.npz")
+    np.savez(path, **{k: v.numpy() for k, v in
+                      lpips.random_lpips_weights(seed=1).items()})
+    cfg = hific.HiFiCConfig(**HIFIC_COMPACT)
+    template = hific.HiFiCModel(cfg, seed=4)
+    disc_template = hific.Discriminator(template.latent_depth,
+                                        num_filters_base=4, num_layers=2,
+                                        num_down=4, seed=4)
+    x = np.random.RandomState(1).randint(0, 256, (2, 64, 64, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        y, z = template.encode(torch.as_tensor(x))
+    rng = np.random.RandomState(2)
+    u = [tuple(torch.as_tensor(rng.uniform(-.5, .5, s).astype(np.float32))
+               for s in (z.shape, y.shape)) for _ in range(2)]
+
+    def run(dev, after_g=None):
+        model = copy.deepcopy(template).to(dev)
+        disc = copy.deepcopy(disc_template).to(dev)
+        g_step, d_step = hific.make_train_steps(
+            model, disc, torch.optim.Adam(model.parameters(), lr=1e-4),
+            torch.optim.Adam(disc.parameters(), lr=1e-4),
+            lpips_weights_path=path)
+        noise = [tuple(t.to(dev) for t in n) for n in u]
+        metrics = g_step(x, 0, u=noise[0])
+        state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+        if after_g is not None:
+            model.load_state_dict(after_g)
+        metrics.update(d_step(x, u=noise[1]))
+        assert all(v.device.type == torch.device(dev).type and v.shape == ()
+                   for v in metrics.values())
+        grads = {**{k: p.grad.cpu() for k, p in model.named_parameters()},
+                 **{f"disc.{k}": p.grad.cpu()
+                    for k, p in disc.named_parameters()}}
+        return ({k: float(v) for k, v in metrics.items()}, grads,
+                {k: b.cpu() for k, b in disc.named_buffers()}, state)
+
+    kinks = SharedKinks()
+    with kinks.sharing(hific, lpips, round_ops=round_ops):
+        m_card, g_card, s_card, after_g = run(device)
+        kinks.replay = list(kinks.masks)
+        m_cpu, g_cpu, s_cpu, _ = run("cpu", after_g)
+        assert not kinks.replay
+    for k, v in m_cpu.items():
+        np.testing.assert_allclose(m_card[k], v, rtol=1e-4, err_msg=k)
+    for k, want in g_cpu.items():
+        scale = float(want.abs().max())
+        err = float((g_card[k] - want).abs().max()) / (
+            scale if scale > 0 else 1.0)
+        assert err <= 1e-3, (k, err)
+    for k, want in s_cpu.items():
+        assert float((s_card[k] - want).abs().max()) <= 1e-5, k

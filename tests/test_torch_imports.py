@@ -37,10 +37,12 @@ MODULES = [
     "entropy_models/continuous_batched.py",
     "entropy_models/continuous_indexed.py", "layers/gdn.py",
     "layers/parameters.py", "layers/signal_conv.py", "models/bls2017.py",
-    "models/bmshj2018.py", "models/hific.py", "models/ms2020.py",
-    "models/native_format.py",
+    "models/bmshj2018.py", "models/hific.py", "models/lpips.py",
+    "models/ms2020.py", "models/native_format.py",
     "ops/math_ops.py",
-    "ops/round_ops.py", "util/device.py", "util/packed_tensors.py",
+    "ops/round_ops.py", "util/checkpoint.py", "util/datasets.py",
+    "util/device.py", "util/kinks.py", "util/metrics.py",
+    "util/packed_tensors.py",
 ]
 
 
