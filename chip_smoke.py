@@ -131,6 +131,19 @@ Phases, one JSON line each (any failure exits non-zero):
      (ms2020 at 1e-4, the reference CLI's default) on the card, whose loss
      must fall, with the median step ms of steps
      4-30 by CUDA events around a synchronized step;
+  7t. tfci: the generic command line at each model's CLI defaults on the
+     512x512 image: bls2017, bmshj2018 and ms2020 trained 2 steps by their
+     own main into a registry, HiFiC through phase 7h's checkpoint; each
+     container of ``tfci compress`` equals the loaded codec's compress and
+     ``tfci decompress`` gives its reconstruct (one encode and one K3' a
+     latent, warp); a --target_bpp search over three bmshj2018 variants
+     picks the one the rule names; ms of each subcommand;
+  7u. universal: UniversalBatchedEntropyModel (2880 table rows) and
+     UniversalIndexedEntropyModel (960 rows) of tests/universal_cases.py
+     at 8 x 32 x 32 x 192 (8 streams of 196608 symbols), without and with
+     escapes (K1, K6'; K3' to decode): bytes equal to the host C coder's,
+     the round trip equal to the dithered quantization; median compress
+     and decompress ms of 10, the tables' rows and bytes;
   8. times: kernels and plain versions at the main paths' shapes (CUDA
      events), their bounds, and end-to-end ms per image of the native
      containers of both models (the classic ones' are phase 4g's); both
@@ -218,6 +231,8 @@ HIFIC_TRAIN_LR = 1e-4
 # Stream counts at which the host C coder is timed against the card's
 # reference-format wrappers (below the JAX package's host-route cap of 256),
 # and symbols a stream (cut from bmshj2018's y stream).
+# Phase 7u: bmshj2018's y for a batch of 8 images of 512x512.
+UNIVERSAL_SHAPE = (8, 32, 32, 192)
 CAP_STREAMS = (1, 16, 64, 255)
 CAP_SYMBOLS = 8192
 # (kernel name, source, TPU kernel it replaces)
@@ -1154,7 +1169,8 @@ def train_phase(device, fails, steps=30):
         torch.cuda.empty_cache()
 
 
-def hific_train_phase(device, img, smi, fails, steps=HIFIC_TRAIN_STEPS):
+def hific_train_phase(device, img, smi, fails, steps=HIFIC_TRAIN_STEPS,
+                      registry_hook=None):
     """Phase 7h: HiFiC's GAN training at get_config("hific") with the
     hific-width discriminator and LPIPS on random_lpips_weights(0), batch
     HIFIC_TRAIN_BATCH.  (a) One g step and one d step on the card against
@@ -1170,8 +1186,10 @@ def hific_train_phase(device, img, smi, fails, steps=HIFIC_TRAIN_STEPS):
     HiFiCCodec's native and classic containers of ``img`` decode to
     reconstruct(img).  (d) hific.main: train 2 steps at batch 1 of 256x256,
     then compress and decompress ``img`` as .npy through the checkpoint;
-    the output equals the loaded codec's reconstruct.  Returns the launch
-    counts of (c) and (d)."""
+    the output equals the loaded codec's reconstruct.  The checkpoint is
+    written as ``<tmp>/hific``, a tfci registry: ``registry_hook(tmp)``
+    runs there, after (d)'s counts are read, before the directory goes.
+    Returns the launch counts of (c) and (d)."""
     import copy
     import tempfile
 
@@ -1345,7 +1363,7 @@ def hific_train_phase(device, img, smi, fails, steps=HIFIC_TRAIN_STEPS):
     torch.cuda.empty_cache()
     t1 = time.time()
     with tempfile.TemporaryDirectory(dir=REPO) as tmp:
-        ckpt = os.path.join(tmp, "ckpt")
+        ckpt = os.path.join(tmp, "hific")
         src = os.path.join(tmp, "img.npy")
         out = os.path.join(tmp, "out.npy")
         np.save(src, img)
@@ -1368,6 +1386,9 @@ def hific_train_phase(device, img, smi, fails, steps=HIFIC_TRAIN_STEPS):
                "cli_container_equals_compress":
                    container == codec.compress(img)}
         del codec, loaded, payload
+        torch.cuda.empty_cache()
+        if registry_hook is not None:
+            registry_hook(tmp)
     # Served: native 2 K1 + classic 2 encodes (K1 or K6'), 2 K2, 2 K3';
     # the command line: 2 encodes and 2 K3'.
     encodes = launches["encode_indexed"] + launches["encode_gamma"]
@@ -1979,6 +2000,259 @@ def hific_phase(device, images, batch, smi, fails):
     del codec
     torch.cuda.empty_cache()
     return launches
+
+
+def tfci_round_trip(root, name, img):
+    """``tfci.main compress`` then ``decompress`` of ``img`` (as .npy)
+    through the registry ``root`` on the card.  The container must equal
+    the loaded codec's compress, the decoded image its reconstruct, with
+    one encode (K1 or K6') and one K3' a latent, all warp.  Returns (the
+    log's fields, the launch counts of the two subcommands)."""
+    import torch
+    from compression_tpu_torch.models import tfci
+    src = os.path.join(root, "img.npy")
+    np.save(src, img)
+    out = os.path.join(root, f"{name}.tfci")
+    dec = os.path.join(root, f"{name}.npy")
+    reset_counts()
+    ms = {}
+    for sub, argv in (("compress", ["compress", name, src, out]),
+                      ("decompress", ["decompress", out, dec])):
+        t0 = time.perf_counter()
+        tfci.main(["--model_path", root, *argv])
+        torch.cuda.synchronize()
+        ms[f"{sub}_ms"] = (time.perf_counter() - t0) * 1e3
+    launches, routes = read_counts(("encode", "decode"))
+    codec = tfci._load_codec(root, name, torch.device(DEVICE))
+    with open(out, "rb") as f:
+        container = f.read()
+    latents = {"bls2017": 1, "bmshj2018": 2, "hific": 2, "ms2020": 11}[name]
+    encodes = launches["encode_indexed"] + launches["encode_gamma"]
+    ok = {"container_equals_compress": container == codec.compress(img),
+          "decoded_equals_reconstruct": bool(np.array_equal(
+              np.load(dec), codec.reconstruct(img))),
+          "launches_ok": encodes == latents
+          and launches["decode_gamma"] == latents,
+          "all_warp": all(launches[f"{k}/warp"] == launches[k] for k in (
+              "encode_indexed", "encode_gamma", "decode_gamma"))}
+    del codec
+    torch.cuda.empty_cache()
+    fields = dict(model=name, container_bytes=len(container),
+                  latents=latents, launches=launches, routes=routes, **ms,
+                  **ok)
+    return fields, launches
+
+
+def tfci_phase(device, img, smi, fails, hific_result):
+    """Phase 7t: the generic command line (models/tfci.py, models/cli.py)
+    at each model's CLI defaults on ``img``.  ``<model>.main(["train",
+    "--steps", "2"])`` writes bls2017 (128 filters), bmshj2018 (128, 64
+    scales) and ms2020 (192, latent 320, hyper 192, 10 slices) into a
+    registry under a temporary directory; each then round-trips through
+    ``tfci.main compress`` / ``decompress`` (``tfci_round_trip``; HiFiC's
+    ran inside phase 7h's directory, ``hific_result``).  A --target_bpp
+    search over three bmshj2018 variants (the trained weights with the
+    last analysis layer scaled by 0.5, 2 and 8) must pick the second,
+    whose rate the target lies just above.  Returns the launch counts of
+    the round trips and the search."""
+    import tempfile
+
+    import torch
+    from compression_tpu_torch.models import bls2017, bmshj2018, ms2020, tfci
+    from compression_tpu_torch.util import checkpoint
+
+    total = {k: hific_result["launch_counts"][k]
+             for k in hific_result["launch_counts"]}
+    results = [hific_result["fields"]]
+    with tempfile.TemporaryDirectory(dir=REPO) as root:
+        for name, module in (("bls2017", bls2017), ("bmshj2018", bmshj2018),
+                             ("ms2020", ms2020)):
+            t0 = time.perf_counter()
+            module.main(["train", "--model_path", os.path.join(root, name),
+                         "--steps", "2"])
+            train_s = time.perf_counter() - t0
+            fields, launches = tfci_round_trip(root, name, img)
+            results.append(dict(fields, train_seconds=train_s))
+            for k in total:
+                total[k] += launches[k]
+        # --target_bpp over three variants of the trained bmshj2018.
+        payload, config = checkpoint.load_checkpoint(
+            os.path.join(root, "bmshj2018"))
+        vroot = os.path.join(root, "variants")
+        containers = []
+        for i, factor in enumerate((0.5, 2.0, 8.0)):
+            params = dict(payload["params"])
+            key = "analysis.layer_3.kernel_rdft"
+            params[key] = params[key] * factor
+            path = os.path.join(vroot, f"bmshj2018-{i + 1}")
+            checkpoint.save_checkpoint(path, params, config=config)
+            codec = tfci._load_codec(vroot, f"bmshj2018-{i + 1}",
+                                     torch.device(DEVICE))
+            containers.append(codec.compress(img))
+            del codec
+        pixels = img.shape[0] * img.shape[1]
+        rates = [len(c) * 8 / pixels for c in containers]
+        target = (rates[1] + rates[2]) / 2
+        src, out = os.path.join(root, "img.npy"), os.path.join(root, "s.tfci")
+        reset_counts()
+        t0 = time.perf_counter()
+        tfci.main(["--model_path", vroot, "compress", "--target_bpp",
+                   str(target), "bmshj2018", src, out])
+        torch.cuda.synchronize()
+        search_ms = (time.perf_counter() - t0) * 1e3
+        launches, _ = read_counts(())
+        for k in total:
+            total[k] += launches[k]
+        with open(out, "rb") as f:
+            picked = f.read()
+        search = {"rates_bpp": rates, "target_bpp": target,
+                  "rates_rise": rates == sorted(rates)
+                  and len(set(rates)) == 3,
+                  "picked_variant": [i + 1 for i, c in enumerate(containers)
+                                     if c == picked],
+                  "search_ms": search_ms, "launches": launches}
+    search["ok"] = search["rates_rise"] and search["picked_variant"] == [2]
+    for fields in results:
+        log("tfci", card=smi, **fields)
+        if not all(fields[k] for k in (
+                "container_equals_compress", "decoded_equals_reconstruct",
+                "launches_ok", "all_warp")):
+            fails.append(f"tfci/{fields['model']}")
+    log("tfci", part="target_bpp", card=smi, **search)
+    if not search["ok"]:
+        fails.append("tfci/target_bpp")
+    torch.cuda.empty_cache()
+    return total
+
+
+def universal_phase(device, smi, fails, shape=UNIVERSAL_SHAPE, runs=10):
+    """Phase 7u: the universal entropy models (entropy_models/universal.py)
+    at the size of bmshj2018's y for a batch of 512x512 images, ``shape``
+    with coding_rank 3 (one stream an image): tests/universal_cases.py's
+    UniversalBatchedEntropyModel over a per-channel NoisyNormal (192
+    channels x 15 dither levels = 2880 rows) and UniversalIndexedEntropyModel
+    over NoisyNormal on bmshj2018's 64 scales (960 rows), each on latents
+    inside the tables' supports (no escape: K1) and past them (K6').  The
+    bytes must equal the host C coder's (codec/host.py) on the same
+    symbols and rows, the host's decode give the symbols back, and
+    decompress(compress(x)) equal the dithered quantization; one encode
+    and one K3' a call, warp.  The median compress and decompress ms of
+    ``runs`` after a warm-up, on the host clock around work that ends in
+    torch.cuda.synchronize().  Returns the launch counts of the first
+    compress and decompress of each case."""
+    import torch
+    from compression_tpu_torch.codec import cuda_coder as cc
+    from compression_tpu_torch.codec import host, torch_coder
+
+    cases = tests_module("universal_cases")
+    total = None
+    models = {"batched": cases.batched_model(device),
+              "indexed": cases.indexed_model(device)}
+    for kind, em in models.items():
+        table = em.device_table
+        cdf, meta = table.indexed_arrays()
+        encode_table = 4 * (cdf.numel() + meta.numel())
+        decode_table = 2 * table.warp_arrays().numel()
+        for escapes in (False, True):
+            y_b, y_i, idx = cases.latents(shape, escapes)
+            if kind == "batched":
+                x = torch.tensor(y_b, device=device)
+                args, bshape = (), shape[1:-1]
+            else:
+                x = torch.tensor(y_i, device=device)
+                args = (torch.tensor(idx, device=device),)
+                bshape = args[0]
+
+            def compress():
+                return em.compress(x, *args)
+
+            def decompress(buf, lens):
+                return em.decompress(buf, bshape, lengths=lens)
+
+            reset_counts()
+            buf, lens = compress()
+            out = decompress(buf, lens)
+            launches, routes = read_counts(("encode", "decode"))
+            # The dithered quantization, by the eval-mode call on the CPU
+            # (the batched model's prior lives there, with its tables).
+            expect = em(x.cpu(), *[a.cpu() for a in args],
+                        training=False)[0]
+            symbols, rows, _ = em._symbols(x, *args)
+            sym_np, rows_np = symbols.cpu().numpy(), rows.cpu().numpy()
+            card = torch_coder.to_bytes_list(buf.cpu().numpy(),
+                                             lens.cpu().numpy())
+            t0 = time.perf_counter()
+            mine = host.encode_streams(sym_np, table.host, rows_np)
+            host_encode_ms = (time.perf_counter() - t0) * 1e3
+            back, sanity = host.decode_streams(mine, sym_np.shape[1],
+                                               table.host, rows_np)
+            times = []
+            for i in range(runs + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                b, ln = compress()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                decompress(b, ln)
+                torch.cuda.synchronize()
+                if i:
+                    times.append((t1 - t0, time.perf_counter() - t1))
+            esc = int(escape_count(symbols, rows, meta))
+            took = "encode_gamma" if escapes else "encode_indexed"
+            # The two kernels alone, by events, on this call's inputs.
+            sym_c, rows_c = symbols.contiguous(), rows.contiguous()
+            kernel_ms = {
+                took: cuda_ms(lambda: getattr(cc, took)(
+                    sym_c, rows_c, cdf, meta, buf.shape[-1]), 3),
+                "decode_gamma": cuda_ms(lambda: cc.decode_gamma(
+                    buf, lens, rows_c, cdf, meta, table.warp_arrays()), 3)}
+            ok = {"bytes_equal_host": card == mine,
+                  "host_decodes_symbols": bool(
+                      np.array_equal(back, sym_np) and sanity.all()),
+                  "round_trip_equals_quantize": bool(torch.equal(
+                      out.cpu(), expect)),
+                  "escapes_as_asked": (esc > 0) == escapes,
+                  "kernels_ok": launches[took] == 1
+                  and launches[f"{took}/warp"] == 1
+                  and launches["decode_gamma"] == 1
+                  and launches["decode_gamma/warp"] == 1
+                  and launches["encode_indexed"] + launches["encode_gamma"]
+                  == 1}
+            log("universal", model=kind, escapes=escapes, card=smi,
+                shape=list(shape), streams=int(symbols.shape[0]),
+                symbols=int(symbols.shape[1]), escaped_symbols=esc,
+                table_rows=table.num_rows, table_max_len=table.max_len,
+                encode_table_bytes=encode_table,
+                encode_table_in_shared_memory=encode_table <= 200 * 1024,
+                decode_table_bytes=decode_table,
+                decode_table_in_shared_memory=decode_table
+                + 8 * 1024 <= 227 * 1024,
+                container_bytes=int(lens.sum()),
+                compress_ms_median=float(np.median([t[0] for t in times]))
+                * 1e3,
+                decompress_ms_median=float(np.median([t[1] for t in times]))
+                * 1e3,
+                host_encode_ms=host_encode_ms, encode_kernel=took,
+                kernel_ms=kernel_ms, launches=launches, routes=routes, **ok)
+            if not all(ok.values()):
+                fails.append(f"universal/{kind}/escapes={escapes}")
+            if total is None:
+                total = dict(launches)
+            else:
+                for k in total:
+                    total[k] += launches[k]
+            del buf, lens, out, expect, symbols, rows
+    del models
+    torch.cuda.empty_cache()
+    return total
+
+
+def escape_count(symbols, rows, meta):
+    """How many symbols fall outside their row's range (escapes)."""
+    from compression_tpu_torch.codec import cuda_coder
+    return cuda_coder.interval_counts(symbols.contiguous(),
+                                      rows.to(symbols.dtype).contiguous(),
+                                      meta)[1].sum()
 
 
 def main():
@@ -2869,8 +3143,18 @@ def main():
     train_phase(device, fails)
     # Phase 7h: HiFiC's GAN training, then its weights served and its
     # command line.
+    hific_tfci = {}
+
+    def hific_registry(root):
+        fields, counts = tfci_round_trip(root, "hific", images[first])
+        hific_tfci.update(fields=fields, launch_counts=counts)
+
     hific_train_launches = hific_train_phase(device, images[first], smi,
-                                             fails)
+                                             fails,
+                                             registry_hook=hific_registry)
+    # Phase 7t: the generic command line; phase 7u: the universal models.
+    tfci_launches = tfci_phase(device, images[first], smi, fails, hific_tfci)
+    universal_launches = universal_phase(device, smi, fails)
 
     # Phase 8: times at the main paths' shapes.
     saved = dict(cc.LAUNCHES)
@@ -3338,7 +3622,8 @@ def main():
     launches = {k: native_launches[k] + classic_launches[k]
                 + front_launches[k] + hyper_launches[k] + device_launches[k]
                 + ms_launches[k] + hific_launches[k]
-                + hific_train_launches[k] for k in cc.LAUNCHES}
+                + hific_train_launches[k] + tfci_launches[k]
+                + universal_launches[k] for k in cc.LAUNCHES}
     for name, count in launches.items():
         if count == 0:
             fails.append(f"no_launch_on_a_main_path/{name}")

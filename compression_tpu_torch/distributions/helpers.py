@@ -84,14 +84,20 @@ def quantization_offset(distribution):
     return offset - torch.round(offset)
 
 
+def _estimate(log_fn, distribution, tail_mass):
+    """Where log_fn(x) = log(tail_mass / 2), by ``estimate_tails``."""
+    target = torch.log(torch.tensor(tail_mass / 2, dtype=distribution.dtype))
+    return estimate_tails(log_fn, target, distribution.batch_shape,
+                          distribution.dtype)
+
+
 def lower_tail(distribution, tail_mass):
     """Approximate lower tail quantile (reference helpers.py:150-183)."""
     tail = _try(lambda: distribution._lower_tail(tail_mass))
     if tail is None:
         tail = _try(lambda: distribution.quantile(tail_mass / 2))
     if tail is None:
-        raise NotImplementedError(
-            "distribution has neither _lower_tail nor quantile")
+        tail = _estimate(distribution.log_cdf, distribution, tail_mass)
     return torch.as_tensor(tail, dtype=distribution.dtype).detach()
 
 
@@ -101,6 +107,6 @@ def upper_tail(distribution, tail_mass):
     if tail is None:
         tail = _try(lambda: distribution.quantile(1 - tail_mass / 2))
     if tail is None:
-        raise NotImplementedError(
-            "distribution has neither _upper_tail nor quantile")
+        tail = _estimate(distribution.log_survival_function, distribution,
+                         tail_mass)
     return torch.as_tensor(tail, dtype=distribution.dtype).detach()

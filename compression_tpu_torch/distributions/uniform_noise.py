@@ -1,5 +1,5 @@
-"""Uniform noise adapter (PyTorch counterpart of
-compression_tpu/distributions/uniform_noise.py:UniformNoiseAdapter).
+"""Uniform noise adapter and the Noisy* distribution family (PyTorch
+counterpart of compression_tpu/distributions/uniform_noise.py).
 
 The adapter convolves a base density with a unit-width box,
 ``(p * u)(x) = c(x+.5) - c(x-.5)``, evaluated stably from log-CDF /
@@ -13,7 +13,15 @@ import torch
 from compression_tpu_torch.distributions import base as base_lib
 from compression_tpu_torch.distributions import helpers
 
-__all__ = ["UniformNoiseAdapter", "NoisyNormal"]
+__all__ = [
+    "UniformNoiseAdapter",
+    "NoisyNormal",
+    "NoisyLogistic",
+    "NoisyLaplace",
+    "NoisyMixtureSameFamily",
+    "NoisyNormalMixture",
+    "NoisyLogisticMixture",
+]
 
 
 def _logsum_expbig_minus_expsmall(big, small):
@@ -92,3 +100,64 @@ class NoisyNormal(UniformNoiseAdapter):
 
     def __init__(self, **kwargs):
         super().__init__(base_lib.Normal(**kwargs))
+
+
+class NoisyLogistic(UniformNoiseAdapter):
+    """Logistic(loc, scale) + U(-.5, .5)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(base_lib.Logistic(**kwargs))
+
+
+class NoisyLaplace(UniformNoiseAdapter):
+    """Laplace(loc, scale) + U(-.5, .5)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(base_lib.Laplace(**kwargs))
+
+
+class NoisyMixtureSameFamily(base_lib.MixtureSameFamily):
+    """Mixture whose components carry additive uniform noise."""
+
+    def __init__(self, mixture_distribution, components_distribution):
+        super().__init__(
+            mixture_distribution=mixture_distribution,
+            components_distribution=UniformNoiseAdapter(
+                components_distribution))
+        self.base = base_lib.MixtureSameFamily(
+            mixture_distribution=mixture_distribution,
+            components_distribution=components_distribution)
+
+    def _quantization_offset(self):
+        # The "peakiest" of the component quantization offsets (reference
+        # uniform_noise.py:237-243): the one where the mixture's density is
+        # largest.
+        offsets = helpers.quantization_offset(self.components)
+        lp = self.log_prob(torch.movedim(offsets, -1, 0))
+        component = torch.argmax(lp, dim=0)
+        return torch.take_along_dim(offsets, component[..., None],
+                                    dim=-1)[..., 0]
+
+    def _lower_tail(self, tail_mass):
+        return helpers.lower_tail(self.base, tail_mass)
+
+    def _upper_tail(self, tail_mass):
+        return helpers.upper_tail(self.base, tail_mass)
+
+
+class NoisyNormalMixture(NoisyMixtureSameFamily):
+    """Mixture of Normals (weights over the last axis) + U(-.5, .5)."""
+
+    def __init__(self, loc, scale, weight):
+        super().__init__(
+            mixture_distribution=base_lib.Categorical(probs=weight),
+            components_distribution=base_lib.Normal(loc=loc, scale=scale))
+
+
+class NoisyLogisticMixture(NoisyMixtureSameFamily):
+    """Mixture of Logistics (weights over the last axis) + U(-.5, .5)."""
+
+    def __init__(self, loc, scale, weight):
+        super().__init__(
+            mixture_distribution=base_lib.Categorical(probs=weight),
+            components_distribution=base_lib.Logistic(loc=loc, scale=scale))

@@ -22,6 +22,7 @@ from compression_tpu_torch.codec import cuda_coder
 from compression_tpu_torch.codec import tables
 from compression_tpu_torch.codec import torch_coder
 from compression_tpu_torch.distributions import helpers
+from compression_tpu_torch.distributions import uniform_noise
 from compression_tpu_torch.util.device import resolve_device
 
 __all__ = ["ContinuousEntropyModelBase", "compress_budgeted"]
@@ -31,17 +32,20 @@ class ContinuousEntropyModelBase:
     """Shared machinery: table build, serialization, device table."""
 
     def __init__(self, coding_rank=None, compression=False,
-                 expected_grads=False, tail_mass=2**-8, device="cuda"):
+                 expected_grads=False, tail_mass=2**-8,
+                 laplace_tail_mass=0.0, device="cuda"):
         self._prior = None
         self._coding_rank = int(coding_rank)
         self._compression = bool(compression)
         self._expected_grads = bool(expected_grads)
         self._tail_mass = float(tail_mass)
+        self._laplace_tail_mass = float(laplace_tail_mass)
         self.device = resolve_device(device)
         self.bottleneck_dtype = torch.float32
         self._cdf = None
         self._cdf_offset = None
         self._device_table = None
+        self._row_offset = None
         if self.coding_rank < 0:
             raise ValueError("`coding_rank` must be at least 0.")
         if not 0 < self.tail_mass < 1:
@@ -91,6 +95,12 @@ class ContinuousEntropyModelBase:
         return self._tail_mass
 
     @property
+    def laplace_tail_mass(self):
+        """Weight of the unit NoisyLaplace mixed into the likelihood
+        (``_log_prob``); 0 leaves the prior's log_prob as it is."""
+        return self._laplace_tail_mass
+
+    @property
     def device_table(self) -> torch_coder.DeviceCdfTable:
         """Dense CDF table on the model's device (built once, cached)."""
         self._check_compression()
@@ -105,6 +115,14 @@ class ContinuousEntropyModelBase:
         self._cdf = np.asarray(cdf, np.int32)
         self._cdf_offset = np.asarray(cdf_offset, np.int32)
         self._device_table = None
+        self._row_offset = None
+
+    def _row_offsets(self):
+        """cdf_offset as an int32 tensor on the model's device (cached)."""
+        if self._row_offset is None:
+            self._row_offset = torch.as_tensor(self.cdf_offset,
+                                               device=self.device)
+        return self._row_offset
 
     def _build_tables(self, prior, precision, offset=None):
         """Computes the ragged CDF table + offsets from the prior.
@@ -156,6 +174,44 @@ class ContinuousEntropyModelBase:
             parts.append(c)
         cdf = np.concatenate(parts) if parts else np.zeros(0, np.int32)
         return cdf, cdf_offset.astype(np.int32)
+
+    def _log_prob(self, prior, bottleneck_perturbed):
+        """prior.log_prob, mixed with a unit NoisyLaplace of weight
+        ``laplace_tail_mass`` when it is set (reference
+        continuous_base.py's laplace_tail_mass): a floor under the
+        likelihood of outliers."""
+        ltm = self.laplace_tail_mass
+        if not ltm:
+            return prior.log_prob(bottleneck_perturbed)
+        kw = dict(dtype=bottleneck_perturbed.dtype,
+                  device=bottleneck_perturbed.device)
+        laplace_prior = uniform_noise.NoisyLaplace(
+            loc=torch.zeros((), **kw), scale=torch.ones((), **kw))
+        probs = prior.prob(bottleneck_perturbed)
+        probs = ((1 - ltm) * probs
+                 + ltm * laplace_prior.prob(bottleneck_perturbed))
+        return torch.where(
+            probs < 1e-10,
+            torch.log(torch.tensor(max(ltm, 1e-30), **kw))
+            + laplace_prior.log_prob(bottleneck_perturbed),
+            torch.log(torch.clamp_min(probs, 1e-10)))
+
+    def get_config(self):
+        """The model's configuration (counterpart of the JAX package's
+        get_config); the tables come with get_weights."""
+        if not self.compression:
+            raise RuntimeError(
+                "Serializing entropy models with `compression=False` is not "
+                "supported.")
+        return dict(
+            coding_rank=self.coding_rank,
+            compression=True,
+            stateless=False,
+            expected_grads=self.expected_grads,
+            tail_mass=self.tail_mass,
+            cdf_shapes=(int(self.cdf.shape[0]),
+                        int(self.cdf_offset.shape[0])),
+            laplace_tail_mass=float(self.laplace_tail_mass))
 
     def get_weights(self):
         return [np.asarray(self.cdf), np.asarray(self.cdf_offset)]

@@ -41,7 +41,8 @@ class ContinuousBatchedEntropyModel(
                  range_coder_precision=12,
                  prior_shape=None, cdf=None, cdf_offset=None,
                  offset_heuristic=True, quantization_offset=None,
-                 decode_sanity_check=True, device="cuda"):
+                 decode_sanity_check=True, laplace_tail_mass=0.0,
+                 device="cuda"):
         if (prior is None) == (prior_shape is None):
             raise ValueError("Either `prior` or `prior_shape` must be provided.")
         if (prior is None) == (cdf is None):
@@ -50,7 +51,7 @@ class ContinuousBatchedEntropyModel(
             raise ValueError("CDFs can't be provided with `compression=False`")
         super().__init__(coding_rank=coding_rank, compression=compression,
                          expected_grads=expected_grads, tail_mass=tail_mass,
-                         device=device)
+                         laplace_tail_mass=laplace_tail_mass, device=device)
         self._prior = prior
         self._offset_heuristic = bool(offset_heuristic)
         self._prior_shape = tuple(
@@ -80,7 +81,6 @@ class ContinuousBatchedEntropyModel(
             self._init_compression(cdf, cdf_offset)
         self._offset_dev = None if self._quantization_offset is None else \
             self._quantization_offset.to(self.device)
-        self._row_offset = None
 
     @property
     def prior_shape(self):
@@ -88,7 +88,13 @@ class ContinuousBatchedEntropyModel(
 
     @property
     def quantization_offset(self):
-        """Offset on the model's device (None when there is none)."""
+        """Offset on the model's device (None when there is none).  A model
+        without tables takes it from its prior, on the prior's device, at
+        each use when the offset heuristic is on (as the JAX package's
+        does)."""
+        if self._offset_dev is None and self._offset_heuristic \
+                and not self.compression:
+            return helpers.quantization_offset(self.prior)
         return self._offset_dev
 
     def __call__(self, bottleneck, training=False, generator=None, u=None):
@@ -109,26 +115,22 @@ class ContinuousBatchedEntropyModel(
           (bottleneck_perturbed, bits); bits sums over the coding_rank
           innermost dimensions.
         """
+        def log_prob_fn(bottleneck_perturbed):
+            return self._log_prob(self.prior, bottleneck_perturbed)
+
         if training:
             log_probs, bottleneck_perturbed = math_ops.perturb_and_apply(
-                self.prior.log_prob, bottleneck, generator=generator, u=u,
+                log_prob_fn, bottleneck, generator=generator, u=u,
                 expected_grads=self.expected_grads)
         else:
             bottleneck_perturbed = self.quantize(bottleneck)
-            log_probs = self.prior.log_prob(bottleneck_perturbed)
+            log_probs = log_prob_fn(bottleneck_perturbed)
         return bottleneck_perturbed, self._bits(log_probs)
 
     def quantize(self, bottleneck):
         """Rounds to integers shifted by the quantization offset;
         straight-through gradient."""
         return round_ops.round_st(bottleneck, self.quantization_offset)
-
-    def _row_offsets(self):
-        """cdf_offset as an int32 device tensor (cached)."""
-        if self._row_offset is None:
-            self._row_offset = torch.as_tensor(
-                self.cdf_offset, device=self.device)
-        return self._row_offset
 
     def _symbols_from_bottleneck(self, bottleneck):
         """[S, N] int32 coder symbols; element j uses CDF row j % rows."""
@@ -318,6 +320,14 @@ class ContinuousBatchedEntropyModel(
             in_stream_gamma=False)
         symbols = torch_coder.sidecar_apply(symbols, esc_idx, esc_val)
         return self._dequantize(symbols, broadcast_shape), sanity
+
+    def get_config(self):
+        config = super().get_config()
+        config.update(
+            prior_shape=self.prior_shape,
+            offset_heuristic=self._offset_heuristic,
+            quantization_offset=self._quantization_offset is not None)
+        return config
 
     def get_weights(self):
         weights = super().get_weights()

@@ -59,7 +59,8 @@ class ContinuousIndexedEntropyModel(
     def __init__(self, prior_fn, index_ranges, parameter_fns, coding_rank,
                  channel_axis=-1, compression=False, expected_grads=False,
                  tail_mass=2**-8, range_coder_precision=12, cdf=None,
-                 cdf_offset=None, decode_sanity_check=True, device="cuda"):
+                 cdf_offset=None, decode_sanity_check=True,
+                 laplace_tail_mass=0.0, device="cuda"):
         if not callable(prior_fn):
             raise TypeError("`prior_fn` must be a class or factory function.")
         for name, fn in parameter_fns.items():
@@ -69,7 +70,7 @@ class ContinuousIndexedEntropyModel(
                 raise TypeError(f"`parameter_fns['{name}']` must be callable.")
         super().__init__(coding_rank=coding_rank, compression=compression,
                          expected_grads=expected_grads, tail_mass=tail_mass,
-                         device=device)
+                         laplace_tail_mass=laplace_tail_mass, device=device)
         self._index_ranges = tuple(int(r) for r in index_ranges)
         if not self.index_ranges:
             raise ValueError("`index_ranges` must have at least one element.")
@@ -82,7 +83,6 @@ class ContinuousIndexedEntropyModel(
         self._parameter_fns = dict(parameter_fns)
         self.prior_dtype = torch.float32
         self.decode_sanity_check = decode_sanity_check
-        self._row_offset = None
 
         if self.compression:
             if cdf is None:
@@ -157,13 +157,6 @@ class ContinuousIndexedEntropyModel(
         num_streams = int(np.prod(batch_shape)) if batch_shape else 1
         return flat.reshape(num_streams, -1), out_shape, batch_shape
 
-    def _row_offsets(self):
-        """cdf_offset as an int32 device tensor (cached)."""
-        if self._row_offset is None:
-            self._row_offset = torch.as_tensor(
-                self.cdf_offset, device=self.device)
-        return self._row_offset
-
     def _symbols(self, bottleneck, indexes):
         """Coder symbols and row ids, both int32 [S, N], plus the batch
         shape."""
@@ -190,15 +183,16 @@ class ContinuousIndexedEntropyModel(
         if training:
 
             def log_prob_fn(bottleneck_perturbed, idx):
-                return self._make_prior(idx).log_prob(bottleneck_perturbed)
+                return self._log_prob(self._make_prior(idx),
+                                      bottleneck_perturbed)
 
             log_probs, bottleneck_perturbed = math_ops.perturb_and_apply(
                 log_prob_fn, bottleneck, indexes, generator=generator, u=u,
                 expected_grads=self.expected_grads)
         else:
-            prior = self._make_prior(indexes)
             bottleneck_perturbed = self.quantize(bottleneck)
-            log_probs = prior.log_prob(bottleneck_perturbed)
+            log_probs = self._log_prob(self._make_prior(indexes),
+                                       bottleneck_perturbed)
         return bottleneck_perturbed, self._bits(log_probs)
 
     def quantize(self, bottleneck):
@@ -330,7 +324,8 @@ class LocationScaleIndexedEntropyModel(ContinuousIndexedEntropyModel):
     def __init__(self, prior_fn, num_scales, scale_fn, coding_rank,
                  compression=False, expected_grads=False, tail_mass=2**-8,
                  range_coder_precision=12, cdf=None, cdf_offset=None,
-                 decode_sanity_check=True, device="cuda"):
+                 decode_sanity_check=True, laplace_tail_mass=0.0,
+                 device="cuda"):
         super().__init__(
             prior_fn=prior_fn, index_ranges=(int(num_scales),),
             parameter_fns=dict(loc=lambda _: 0.0, scale=scale_fn),
@@ -339,7 +334,7 @@ class LocationScaleIndexedEntropyModel(ContinuousIndexedEntropyModel):
             tail_mass=tail_mass,
             range_coder_precision=range_coder_precision, cdf=cdf,
             cdf_offset=cdf_offset, decode_sanity_check=decode_sanity_check,
-            device=device)
+            laplace_tail_mass=laplace_tail_mass, device=device)
 
     def __call__(self, bottleneck, scale_indexes, loc=None, training=False,
                  generator=None, u=None):

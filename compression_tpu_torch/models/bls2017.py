@@ -46,6 +46,9 @@ __all__ = [
     "train",
     "params_from_jax",
     "params_from_tf",
+    "CLI_DEFAULTS",
+    "model_from_config",
+    "main",
 ]
 
 
@@ -465,3 +468,27 @@ class BLS2017Codec:
         y_hat = self.em.quantize(self._analysis(x))
         return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
                                          :].cpu().numpy()
+
+
+# The command line's hyperparameters and their defaults, the JAX package's.
+CLI_DEFAULTS = dict(lmbda=0.01, num_filters=128)
+
+
+def model_from_config(config, seed=0) -> BLS2017Model:
+    """The model a checkpoint's config describes (CLI_DEFAULTS for what it
+    lacks), with weights from ``seed``."""
+    kwargs = {k: config.get(k, v) for k, v in CLI_DEFAULTS.items()}
+    return BLS2017Model(**kwargs, seed=seed)
+
+
+def main(argv=None):
+    """bls2017's command line (train / compress / decompress) at the JAX
+    package's defaults (128 filters); runs on the card unless ``--device
+    cpu`` is given."""
+    from compression_tpu_torch.models import cli
+
+    cli.run("bls2017", CLI_DEFAULTS, model_from_config, BLS2017Codec, argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -60,6 +60,9 @@ __all__ = [
     "make_train_step",
     "params_from_jax",
     "params_from_tf",
+    "CLI_DEFAULTS",
+    "model_from_config",
+    "main",
 ]
 
 _TRANSFORMS = (("analysis", 4, "gdn"), ("synthesis", 4, "igdn"),
@@ -588,3 +591,30 @@ class BMSHJ2018Codec:
         y_hat = self.em.quantize(y)
         return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
                                          :].cpu().numpy()
+
+
+# The command line's hyperparameters and their defaults, the JAX package's.
+CLI_DEFAULTS = dict(
+    lmbda=0.01, num_filters=128, num_scales=64,
+    scale_min=0.11, scale_max=256.0)
+
+
+def model_from_config(config, seed=0) -> BMSHJ2018Model:
+    """The model a checkpoint's config describes (CLI_DEFAULTS for what it
+    lacks), with weights from ``seed``."""
+    kwargs = {k: config.get(k, v) for k, v in CLI_DEFAULTS.items()}
+    return BMSHJ2018Model(**kwargs, seed=seed)
+
+
+def main(argv=None):
+    """bmshj2018's command line (train / compress / decompress) at the JAX
+    package's defaults (128 filters, 64 scales); runs on the card unless
+    ``--device cpu`` is given."""
+    from compression_tpu_torch.models import cli
+
+    cli.run("bmshj2018", CLI_DEFAULTS, model_from_config, BMSHJ2018Codec,
+            argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -91,6 +91,7 @@ __all__ = [
     "rd_loss",
     "make_train_steps",
     "train",
+    "model_from_config",
     "main",
 ]
 
@@ -781,6 +782,15 @@ class HiFiCCodec(BMSHJ2018Codec):
                                          :].cpu().numpy()
 
 
+def model_from_config(config, seed=0) -> HiFiCModel:
+    """The model a checkpoint of ``main`` describes: the named config
+    ("hific" by default) with the saved target, weights from ``seed``."""
+    cfg = get_config(config.get("config", "hific"))
+    if config.get("target") is not None:
+        cfg = cfg._replace(target=config["target"])
+    return HiFiCModel(cfg, seed=seed)
+
+
 def main(argv=None):
     """HiFiC's command line: train / compress / decompress.
 
@@ -858,10 +868,7 @@ def main(argv=None):
         return
 
     payload, config = ckpt_lib.load_checkpoint(args.model_path)
-    cfg = get_config((config or {}).get("config", "hific"))
-    if config and config.get("target") is not None:
-        cfg = cfg._replace(target=config["target"])
-    model = HiFiCModel(cfg)
+    model = model_from_config(config or {})
     model.load_state_dict(payload["params"])
     codec = HiFiCCodec(model, device=args.device)
 

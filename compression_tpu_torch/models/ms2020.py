@@ -66,6 +66,9 @@ __all__ = [
     "make_train_step",
     "params_from_jax",
     "params_from_tf",
+    "CLI_DEFAULTS",
+    "model_from_config",
+    "main",
 ]
 
 
@@ -735,3 +738,31 @@ class MS2020Codec:
             lambda i, mu, sigma: self.em_y.quantize(y_slices[i], mu))
         return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
                                          :].cpu().numpy()
+
+
+# The command line's hyperparameters and their defaults, the JAX package's.
+CLI_DEFAULTS = dict(
+    lmbda=0.01, num_filters=192, latent_depth=320,
+    hyperprior_depth=192, num_slices=10, max_support_slices=5,
+    num_scales=64, scale_min=0.11, scale_max=256.0)
+
+
+def model_from_config(config, seed=0) -> MS2020Model:
+    """The model a checkpoint's config describes (CLI_DEFAULTS for what it
+    lacks), with weights from ``seed``."""
+    kwargs = {k: config.get(k, v) for k, v in CLI_DEFAULTS.items()}
+    return MS2020Model(**kwargs, seed=seed)
+
+
+def main(argv=None):
+    """ms2020's command line (train / compress / decompress) at the JAX
+    package's defaults (192 filters, latent 320, hyperprior 192, 10
+    slices); runs on the card unless
+    ``--device cpu`` is given."""
+    from compression_tpu_torch.models import cli
+
+    cli.run("ms2020", CLI_DEFAULTS, model_from_config, MS2020Codec, argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -1200,3 +1200,71 @@ def test_hific_gan_steps_card_match_cpu(device, no_tf32, tmp_path):
         assert err <= 1e-3, (k, err)
     for k, want in s_cpu.items():
         assert float((s_card[k] - want).abs().max()) <= 1e-5, k
+
+
+@pytest.mark.parametrize("name", ["bls2017", "bmshj2018", "ms2020"])
+def test_tfci_round_trip_on_the_card(device, tmp_path, name):
+    """The command line on the card at tiny widths: ``<model>.main train``
+    (2 steps), ``tfci compress`` / ``decompress``: the container equals
+    the loaded codec's compress, the image its reconstruct, and the
+    classic calls launch K1 or K6' and K3'."""
+    from compression_tpu_torch.models import bls2017, bmshj2018, ms2020, tfci
+    module = {"bls2017": bls2017, "bmshj2018": bmshj2018,
+              "ms2020": ms2020}[name]
+    flags = {"bls2017": ["--num_filters", "8"],
+             "bmshj2018": ["--num_filters", "8"],
+             "ms2020": ["--num_filters", "8", "--latent_depth", "8",
+                        "--hyperprior_depth", "4", "--num_slices", "4",
+                        "--max_support_slices", "2"]}[name]
+    root = str(tmp_path)
+    module.main(["train", "--model_path", os.path.join(root, name),
+                 "--steps", "2", "--batchsize", "2", "--patchsize", "64",
+                 *flags])
+    x = np.random.RandomState(5).randint(0, 256, (64, 80, 3)).astype(
+        np.uint8)
+    src = os.path.join(root, "img.npy")
+    np.save(src, x)
+    tfci.main(["--model_path", root, "compress", name, src])
+    assert torch_coder.DISPATCH_LOG["encode"] in ("cuda-gamma",
+                                                  "cuda-indexed")
+    tfci.main(["--model_path", root, "decompress", src + ".tfci",
+               os.path.join(root, "out.npy")])
+    assert torch_coder.DISPATCH_LOG["decode"] == "cuda-gamma"
+    codec = tfci._load_codec(root, name, device)
+    assert open(src + ".tfci", "rb").read() == codec.compress(x)
+    np.testing.assert_array_equal(np.load(os.path.join(root, "out.npy")),
+                                  codec.reconstruct(x))
+
+
+@pytest.mark.parametrize("escapes", [False, True])
+@pytest.mark.parametrize("kind", ["batched", "indexed"])
+def test_universal_models_on_the_card(device, kind, escapes):
+    """tests/universal_cases.py's models (2880 and 960 table rows, both
+    read from global memory) on CUDA tensors at 2 streams of 4 x 8 x 192:
+    the bytes of the CPU's plain path and of the host C coder, one K1 (no
+    escape) or K6' (escapes) and one K3', the round trip equal to the
+    dithered quantization."""
+    import universal_cases as cases
+    from compression_tpu_torch.codec import host
+    make = {"batched": cases.batched_model, "indexed": cases.indexed_model}
+    card, cpu = make[kind](device), make[kind]("cpu")
+    y_b, y_i, idx = cases.latents((2, 4, 8, cases.CHANNELS), escapes)
+    x = y_b if kind == "batched" else y_i
+    args = () if kind == "batched" else (torch.tensor(idx),)
+    before = dict(cuda_coder.LAUNCHES)
+    strings = card.compress_to_strings(torch.tensor(x, device=device),
+                                       *[a.to(device) for a in args])
+    took = "encode_gamma" if escapes else "encode_indexed"
+    assert _launched(took, before)
+    assert strings == cpu.compress_to_strings(torch.tensor(x), *args)
+    symbols, rows, _ = cpu._symbols(torch.tensor(x), *args)
+    assert strings == host.encode_streams(
+        symbols.numpy(), cpu.device_table.host, rows.numpy())
+    shape = (4, 8) if kind == "batched" else args[0].to(device)
+    before = dict(cuda_coder.LAUNCHES)
+    out = card.decompress(strings, shape)
+    assert _launched("decode_gamma", before)
+    # The dithered quantization, by the eval-mode call on the CPU (the
+    # batched model's prior lives there, with its tables).
+    assert torch.equal(out.cpu(), cpu(torch.tensor(x), *args,
+                                      training=False)[0])

@@ -32,17 +32,20 @@ MODULES = [
     "codec/cuda_coder.py", "codec/host.py", "codec/reference.py",
     "codec/stream.py", "codec/tables.py", "codec/torch_coder.py",
     "distributions/base.py", "distributions/deep_factorized.py",
-    "distributions/helpers.py", "distributions/uniform_noise.py",
+    "distributions/helpers.py", "distributions/round_adapters.py",
+    "distributions/uniform_noise.py",
     "entropy_models/continuous_base.py",
     "entropy_models/continuous_batched.py",
-    "entropy_models/continuous_indexed.py", "layers/gdn.py",
-    "layers/parameters.py", "layers/signal_conv.py", "models/bls2017.py",
-    "models/bmshj2018.py", "models/hific.py", "models/lpips.py",
-    "models/ms2020.py", "models/native_format.py",
+    "entropy_models/continuous_indexed.py", "entropy_models/universal.py",
+    "layers/gdn.py", "layers/parameters.py", "layers/signal_conv.py",
+    "layers/soft_round.py",
+    "models/bls2017.py", "models/bmshj2018.py", "models/cli.py",
+    "models/hific.py", "models/lpips.py", "models/ms2020.py",
+    "models/native_format.py", "models/tfci.py",
     "ops/math_ops.py",
     "ops/round_ops.py", "util/checkpoint.py", "util/datasets.py",
     "util/device.py", "util/kinks.py", "util/metrics.py",
-    "util/packed_tensors.py",
+    "util/packed_tensors.py", "util/philox.py",
 ]
 
 
