@@ -144,6 +144,17 @@ Phases, one JSON line each (any failure exits non-zero):
      escapes (K1, K6'; K3' to decode): bytes equal to the host C coder's,
      the round trip equal to the dithered quantization; median compress
      and decompress ms of 10, the tables' rows and bytes;
+  7s. small models: signal_conv at ranks 1-3 in every padding mode (rational
+     strides, channel-separable) and GDN with general exponents, card
+     against CPU within 1e-4; lvac at 64 filters, batch 8 of 1024 samples,
+     and the toy sources (NTC deep and gmm-3, VECVQ) at batch 512 on the
+     sawbridge: one step's gradients card against CPU within 1e-3, then 30
+     steps on the card (median step ms, the loss finite and falling), NTC's
+     codebook against the CPU's; the stochastic round of 2^20 elements from
+     given bits equal to the CPU's, with its ms; PowerLaw and Laplace
+     penalty and quantization card against CPU, compress of lvac's latent
+     on the host (bytes of the Python plain version, round trip, host ms),
+     compress of the CUDA tensor refused; no coder kernel launched;
   8. times: kernels and plain versions at the main paths' shapes (CUDA
      events), their bounds, and end-to-end ms per image of the native
      containers of both models (the classic ones' are phase 4g's); both
@@ -2247,6 +2258,321 @@ def universal_phase(device, smi, fails, shape=UNIVERSAL_SHAPE, runs=10):
     return total
 
 
+LVAC_FILTERS, LVAC_BATCH, LVAC_FRAME = 64, 8, 1024
+TOY_POINTS, TOY_LATENT, TOY_BATCH, TOY_CODEBOOK = 1024, 10, 512, 64
+STOCHASTIC_ROUND_SIZE = 1 << 20
+
+
+def _grad_errors(card, cpu):
+    """Largest |card - cpu| of each parameter's gradient over the CPU's
+    largest magnitude (the error itself where that is 0): (worst, name)."""
+    errs = {}
+    cpu_grads = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        g_card = p.grad.detach().cpu() if p.grad is not None else None
+        g_cpu = cpu_grads[name].grad
+        if g_card is None and g_cpu is None:
+            continue
+        g_card = g_cpu * 0 if g_card is None else g_card
+        g_cpu = g_card * 0 if g_cpu is None else g_cpu
+        scale = float(g_cpu.abs().max())
+        errs[name] = float((g_card - g_cpu).abs().max()) / (
+            scale if scale > 0 else 1.0)
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _steps_on_card(step, batches, steps):
+    """``steps`` synchronized train steps timed by CUDA events: (losses,
+    step ms)."""
+    import torch
+    losses, step_ms = [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(steps):
+        batch = batches(i)
+        torch.cuda.synchronize()
+        start.record()
+        metrics = step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    return losses, step_ms
+
+
+def small_models_phase(device, smi, fails, steps=30):
+    """Phase 7s: the general layers, lvac, the toy sources, the stochastic
+    round and the table-free entropy models on the card against the CPU
+    (TF32 off):
+
+      * signal_conv at ranks 1-3 in every padding mode, with rational
+        strides and channel-separable kernels, and GDN with general and
+        trainable exponents: the card's outputs within 1e-4 of the CPU's
+        largest output on the same inputs;
+      * lvac at its published width (64 filters, batch 8 of 1024-sample
+        frames): one train step's gradients from the same weights, batch
+        and noise within 1e-3 of the CPU's, then ``steps`` Adam steps at
+        train()'s 1e-4 on fresh sine_batches batches, as train() feeds
+        them, whose loss must be finite and fall (the mean of the last 5
+        below that of the first 5); the median step ms of steps 4-30 by
+        CUDA events;
+      * the toy sources at train_ntc's defaults (batch 512, hidden 100,
+        Adam 1e-3) on the sawbridge at 1024 index points with 10 latent
+        dimensions: NTC with the deep prior and with gmm-3, and VECVQ with
+        64 codewords; one step against the CPU as above, then ``steps`` on
+        the card on fresh batches, the loss finite and falling; NTC's
+        quantize_codebook on the card against the CPU's;
+      * the stochastic round of 1M elements from given 32-bit draws: the
+        card's integers equal the CPU's; its ms by CUDA events;
+      * PowerLaw and Laplace: penalty (within 1e-6 relative: the card sums
+        in another order) and quantization (exactly) on the card against
+        the CPU; compress of lvac's latent on the host round-trips, with
+        the bytes of the Python plain version; its host ms; compress of the
+        CUDA tensor raises.
+
+    No coder kernel lies on these paths: the launch counts are reset
+    before the phase and must read 0 after it."""
+    import torch
+    from compression_tpu_torch.entropy_models.laplace import (
+        LaplaceEntropyModel)
+    from compression_tpu_torch.entropy_models.power_law import (
+        PowerLawEntropyModel)
+    from compression_tpu_torch.layers.gdn import GDN
+    from compression_tpu_torch.layers.signal_conv import signal_conv
+    from compression_tpu_torch.models import lvac
+    from compression_tpu_torch.models import toy_sources as ts
+    from compression_tpu_torch.ops import quantization
+    from compression_tpu_torch.ops import run_length
+
+    reset_counts()
+    flags = dict(card=smi, tf32_cudnn=torch.backends.cudnn.allow_tf32,
+                 tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
+    rng = np.random.RandomState(15)
+
+    # Layers.
+    conv_cases = []
+    shapes = {1: (2, 8, 256), 2: (2, 8, 32, 31), 3: (2, 4, 9, 12, 11)}
+    for rank in (1, 2, 3):
+        for padding in ("valid", "same_zeros", "same_reflect"):
+            for corr, down, up, separable in ((True, 2, 1, False),
+                                              (False, 1, 2, False),
+                                              (True, 2, 3, False),
+                                              (False, 3, 2, True)):
+                conv_cases.append((rank, padding, corr, down, up, separable))
+    conv_err = 0.0
+    for rank, padding, corr, down, up, separable in conv_cases:
+        x = torch.tensor(rng.normal(0, 1, shapes[rank]), dtype=torch.float32)
+        cin = x.shape[1]
+        kshape = (5, 4, 3)[:rank] + ((1, cin * 2) if separable else (cin, 6))
+        k = torch.tensor(rng.normal(0, 1, kshape), dtype=torch.float32)
+        kw = dict(corr=corr, strides_down=down, strides_up=up,
+                  padding=padding, channel_separable=separable)
+        want = signal_conv(x, k, **kw)
+        got = signal_conv(x.to(device), k.to(device), **kw).cpu()
+        conv_err = max(conv_err, float((got - want).abs().max())
+                       / float(want.abs().max()))
+    gdn_err = 0.0
+    gdn_cases = [(alpha, eps, rank)
+                 for alpha, eps in ((1.5, 0.7), (None, None), (2.0, 0.5),
+                                    (1.0, 1.0))
+                 for rank in (1, 2, 3)]
+    for alpha, eps, rank in gdn_cases:
+        layer = GDN(8, inverse=rank == 2, rectify=rank == 3, alpha=alpha,
+                    epsilon=eps)
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.add_(torch.tensor(rng.uniform(0, 0.3, tuple(p.shape)),
+                                    dtype=torch.float32))
+        x = torch.tensor(rng.normal(0, 2, (2, 8) + (17, 9, 5)[:rank]),
+                         dtype=torch.float32)
+        want = layer(x).detach()
+        got = layer.to(device)(x.to(device)).detach().cpu()
+        gdn_err = max(gdn_err, float((got - want).abs().max())
+                      / float(want.abs().max()))
+    ok = {"signal_conv_within_1e-4": conv_err <= 1e-4,
+          "gdn_within_1e-4": gdn_err <= 1e-4}
+    log("layers", signal_conv_cases=len(conv_cases),
+        signal_conv_max_rel_err=conv_err, gdn_cases=len(gdn_cases),
+        gdn_max_rel_err=gdn_err, **flags, **ok)
+    if not all(ok.values()):
+        fails.append("small_models/layers")
+
+    # lvac at its published width.
+    cpu = lvac.LVACModel(num_filters=LVAC_FILTERS, seed=0)
+    card = lvac.LVACModel(num_filters=LVAC_FILTERS, seed=0).to(device)
+    batch = next(lvac.sine_batches(LVAC_BATCH, LVAC_FRAME, 1))
+    gen = torch.Generator(device=device).manual_seed(7)
+    u = torch.empty((LVAC_BATCH, LVAC_FRAME // 16, LVAC_FILTERS),
+                    device=device).uniform_(-0.5, 0.5, generator=gen)
+    x_card = torch.tensor(batch, device=device)
+    card_metrics = [t.item() for t in card(x_card, u=u)]
+    card(x_card, u=u)[0].backward()
+    cpu(torch.tensor(batch), u=u.cpu())[0].backward()
+    cpu_metrics = [t.item() for t in cpu(torch.tensor(batch), u=u.cpu())]
+    grad_err, worst = _grad_errors(card, cpu)
+    card.zero_grad()
+    step = lvac.make_train_step(
+        card, torch.optim.Adam(card.parameters(), lr=1e-4))
+    # train()'s traffic: a fresh sine_batches batch each step, on the card.
+    frames = lvac.sine_batches(LVAC_BATCH, LVAC_FRAME, 2)
+    losses, step_ms = _steps_on_card(
+        lambda batch_: step(batch_, generator=gen),
+        lambda i: torch.as_tensor(next(frames), device=device), steps)
+    metric_err = max(abs(a - b) / abs(b)
+                     for a, b in zip(card_metrics, cpu_metrics))
+    with torch.no_grad():
+        latent = card.analysis(x_card)
+    ok = {"grads_within_1e-3": grad_err <= 1e-3,
+          "metrics_within_1e-3": metric_err <= 1e-3,
+          "finite": bool(np.isfinite(losses).all()),
+          "loss_fell": float(np.mean(losses[-5:]))
+          < float(np.mean(losses[:5]))}
+    log("lvac", num_filters=LVAC_FILTERS, batch=[LVAC_BATCH, LVAC_FRAME, 1],
+        learning_rate=1e-4, parameters=sum(p.numel()
+                                           for p in card.parameters()),
+        card_loss_bps_mse=card_metrics, cpu_loss_bps_mse=cpu_metrics,
+        metric_rel_err=metric_err, max_grad_err=grad_err,
+        max_grad_err_param=worst, losses=losses, step_ms=step_ms,
+        step_ms_median_4_to_30=float(np.median(step_ms[3:])), **flags, **ok)
+    if not all(ok.values()):
+        fails.append("small_models/lvac")
+    del cpu, card, step
+
+    # The toy sources at train_ntc's defaults.
+    points = torch.linspace(0, 1, TOY_POINTS + 1)[:-1]
+    points_card = points.to(device)
+    makers = {
+        "ntc_deep": lambda: ts.NTCModel(TOY_POINTS, TOY_LATENT, seed=0),
+        "ntc_gmm-3": lambda: ts.NTCModel(TOY_POINTS, TOY_LATENT,
+                                         prior_type="gmm-3", seed=0),
+        "vecvq": lambda: ts.VECVQModel(TOY_POINTS, TOY_CODEBOOK, seed=0)}
+    for name, make in makers.items():
+        cpu = make()
+        card = make().to(device)
+        gen = torch.Generator(device=device).manual_seed(3)
+        x_card = ts.sawbridge_sample(TOY_BATCH, points_card, generator=gen)
+        u = (torch.empty((TOY_BATCH, TOY_LATENT), device=device).uniform_(
+            -0.5, 0.5, generator=gen),) * 2
+        card_metrics = [t.item() for t in card(x_card, u=u)]
+        card(x_card, u=u)[0].backward()
+        u_cpu = tuple(t.cpu() for t in u)
+        cpu_metrics = [t.item() for t in cpu(x_card.cpu(), u=u_cpu)]
+        cpu(x_card.cpu(), u=u_cpu)[0].backward()
+        grad_err, worst = _grad_errors(card, cpu)
+        metric_err = max(abs(a - b) / max(abs(b), 1e-30)
+                         for a, b in zip(card_metrics, cpu_metrics))
+        codebook = {}
+        if name != "vecvq":
+            got = card.quantize_codebook(x_card)
+            want = cpu.quantize_codebook(x_card.cpu())
+            codebook = {
+                "codebook_size": int(got[0].shape[0]),
+                "codebook_indexes_equal": bool(torch.equal(
+                    got[2].cpu(), want[2])),
+                "codebook_within_1e-4": got[0].shape == want[0].shape
+                and bool(torch.allclose(got[0].cpu(), want[0], rtol=1e-4,
+                                        atol=1e-4))
+                and bool(torch.allclose(got[1].cpu(), want[1], rtol=1e-4,
+                                        atol=1e-4))}
+        card.zero_grad()
+        step = ts.make_ntc_train_step(
+            card, torch.optim.Adam(card.parameters(), lr=1e-3))
+        losses, step_ms = _steps_on_card(
+            lambda batch_: step(batch_, generator=gen),
+            lambda i: ts.sawbridge_sample(TOY_BATCH, points_card,
+                                          generator=gen), steps)
+        ok = {"grads_within_1e-3": grad_err <= 1e-3,
+              "metrics_within_1e-3": metric_err <= 1e-3,
+              "finite": bool(np.isfinite(losses).all()),
+              "loss_fell": float(np.mean(losses[-5:]))
+              < float(np.mean(losses[:5])),
+              **{k: v for k, v in codebook.items() if k != "codebook_size"}}
+        log("toy_sources", model=name, source="sawbridge",
+            index_points=TOY_POINTS, latent=TOY_LATENT, batch=TOY_BATCH,
+            learning_rate=1e-3,
+            parameters=sum(p.numel() for p in card.parameters()),
+            card_loss_rate_distortion=card_metrics,
+            cpu_loss_rate_distortion=cpu_metrics, metric_rel_err=metric_err,
+            max_grad_err=grad_err, max_grad_err_param=worst, losses=losses,
+            step_ms=step_ms,
+            step_ms_median_4_to_30=float(np.median(step_ms[3:])),
+            codebook_size=codebook.get("codebook_size"), **flags, **ok)
+        if not all(ok.values()):
+            fails.append(f"small_models/{name}")
+        del cpu, card, step
+
+    # The stochastic round from given bits.
+    x = torch.tensor(rng.normal(0, 10, STOCHASTIC_ROUND_SIZE),
+                     dtype=torch.float32)
+    bits = torch.randint(0, 2 ** 32, x.shape,
+                         generator=torch.Generator().manual_seed(5),
+                         dtype=torch.int64)
+    want = quantization._stochastic_round_bits(x, 0.3, bits)
+    x_card, bits_card = x.to(device), bits.to(device)
+    got = quantization._stochastic_round_bits(x_card, 0.3, bits_card)
+    drawn = quantization.stochastic_round(
+        x_card, 0.3, torch.Generator(device=device).manual_seed(5))
+    ok = {"equal_to_cpu": bool(torch.equal(got.cpu(), want)),
+          "drawn_within_one_step": bool(
+              ((drawn.cpu() - torch.floor(x / 0.3)).abs() <= 1).all())}
+    log("stochastic_round", elements=STOCHASTIC_ROUND_SIZE,
+        ms_from_bits=cuda_ms(lambda: quantization._stochastic_round_bits(
+            x_card, 0.3, bits_card), 20),
+        ms_with_draw=cuda_ms(lambda: quantization.stochastic_round(
+            x_card, 0.3, gen), 20), **flags, **ok)
+    if not all(ok.values()):
+        fails.append("small_models/stochastic_round")
+
+    # PowerLaw and Laplace on lvac's latent.
+    latent_cpu = latent.cpu()
+    for em in (PowerLawEntropyModel(coding_rank=2),
+               LaplaceEntropyModel(coding_rank=2, run_length_code=0,
+                                   magnitude_code=1,
+                                   use_run_length_for_non_zeros=True)):
+        name = type(em).__name__
+        q_card, pen_card = em(latent)
+        q_cpu, pen_cpu = em(latent_cpu)
+        strings = em.compress(latent_cpu)
+        if name == "PowerLawEntropyModel":
+            plain = [run_length.plain_run_length_gamma_encode(r)
+                     for r in np.round(latent_cpu.numpy()).astype(
+                         np.int32).reshape(LVAC_BATCH, -1)]
+        else:
+            plain = [run_length.plain_run_length_encode(r, 0, 1, True)
+                     for r in np.round(latent_cpu.numpy()).astype(
+                         np.int32).reshape(LVAC_BATCH, -1)]
+        back = em.decompress(strings, latent.shape[1:], device=device)
+        try:
+            em.compress(latent)
+            refused = False
+        except ValueError:
+            refused = True
+        ok = {"quantize_equal": bool(torch.equal(q_card.cpu(), q_cpu)),
+              "penalty_within_1e-6": bool(torch.allclose(
+                  pen_card.cpu(), pen_cpu, rtol=1e-6, atol=0)),
+              "bytes_equal_plain": strings == plain,
+              "round_trip": bool(torch.equal(back, torch.round(latent))),
+              "refuses_cuda_tensor": refused}
+        log("entropy_models", model=name, latent=list(latent.shape),
+            bytes=sum(len(b) for b in strings),
+            nonzero=int((torch.round(latent_cpu) != 0).sum()),
+            compress_host_ms=host_ms(lambda: em.compress(latent_cpu)),
+            decompress_host_ms=host_ms(lambda: em.decompress(
+                strings, latent.shape[1:], device=device)),
+            penalty_ms=cuda_ms(lambda: em.penalty(latent), 20),
+            **flags, **ok)
+        if not all(ok.values()):
+            fails.append(f"small_models/{name}")
+
+    launches, _ = read_counts(())
+    log("small_models_launches", launches=launches,
+        none_launched=not any(launches.values()))
+    if any(launches.values()):
+        fails.append("small_models/launched_a_coder_kernel")
+    torch.cuda.empty_cache()
+
+
 def escape_count(symbols, rows, meta):
     """How many symbols fall outside their row's range (escapes)."""
     from compression_tpu_torch.codec import cuda_coder
@@ -3155,6 +3481,9 @@ def main():
     # Phase 7t: the generic command line; phase 7u: the universal models.
     tfci_launches = tfci_phase(device, images[first], smi, fails, hific_tfci)
     universal_launches = universal_phase(device, smi, fails)
+    # Phase 7s: the layers, lvac, the toy sources, the stochastic round and
+    # the PowerLaw / Laplace entropy models.
+    small_models_phase(device, smi, fails)
 
     # Phase 8: times at the main paths' shapes.
     saved = dict(cc.LAUNCHES)

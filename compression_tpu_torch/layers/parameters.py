@@ -38,12 +38,26 @@ def _rdft_bases(spatial_shape):
                  for a in (fwd.real, fwd.imag, inv_r, inv_i))
 
 
+def _spatial_last(kernel_rank):
+    """Permutation moving (spatial..., in, out) -> (in, out, spatial...)."""
+    spatial = kernel_rank - 2
+    return (spatial, spatial + 1) + tuple(range(spatial))
+
+
+def _spatial_first(kernel_rank):
+    """Permutation moving (in, out, spatial...) -> (spatial..., in, out)."""
+    return tuple(range(2, kernel_rank)) + (0, 1)
+
+
 def rdft_init(kernel):
-    """(real, imag) RDFT variables [in, out, *rfft] of a 2-D kernel
-    [kh, kw, in, out] (the JAX package's HWIO layout)."""
+    """(real, imag) RDFT variables [in, out, *rfft] of a kernel
+    [spatial..., in, out] of rank 3 to 5 (the JAX package's layout)."""
+    rank = kernel.dim()
+    if rank not in (3, 4, 5):
+        raise ValueError(f"Kernel must have rank 3..5, got {rank}.")
     spatial_shape = tuple(int(s) for s in kernel.shape[:-2])
     rfft_shape = spatial_shape[:-1] + (spatial_shape[-1] // 2 + 1,)
-    moved = kernel.permute(2, 3, 0, 1)
+    moved = kernel.permute(_spatial_last(rank))
     flat = moved.reshape(moved.shape[:2] + (-1,))
     fwd_r, fwd_i, _, _ = _rdft_bases(spatial_shape)
     norm = float(np.prod(spatial_shape)) ** 0.5
@@ -54,7 +68,7 @@ def rdft_init(kernel):
 
 
 def rdft_to_kernel(real, imag, spatial_shape):
-    """Inverse RDFT back to a [kh, kw, in, out] kernel."""
+    """Inverse RDFT back to a [spatial..., in, out] kernel."""
     spatial_shape = tuple(int(s) for s in spatial_shape)
     _, _, inv_r, inv_i = _rdft_bases(spatial_shape)
     norm = float(np.prod(spatial_shape)) ** 0.5
@@ -63,7 +77,7 @@ def rdft_to_kernel(real, imag, spatial_shape):
     kernel = (flat_r @ torch.as_tensor(inv_r, device=real.device)
               + flat_i @ torch.as_tensor(inv_i, device=real.device)) * norm
     kernel = kernel.reshape(kernel.shape[:2] + spatial_shape)
-    return kernel.permute(2, 3, 0, 1)
+    return kernel.permute(_spatial_first(len(spatial_shape) + 2))
 
 
 def gdn_param_init(initial_value, offset=2**-18):

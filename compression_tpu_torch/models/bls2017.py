@@ -59,13 +59,16 @@ class AnalysisTransform(nn.Module):
         super().__init__()
         nf = num_filters
         self.layer_0 = SignalConv2D(3, nf, 9, corr=True, strides_down=4,
-                                    use_bias=True, generator=generator)
+                                    padding="same_zeros", use_bias=True,
+                                    generator=generator)
         self.gdn_0 = GDN(nf)
         self.layer_1 = SignalConv2D(nf, nf, 5, corr=True, strides_down=2,
-                                    use_bias=True, generator=generator)
+                                    padding="same_zeros", use_bias=True,
+                                    generator=generator)
         self.gdn_1 = GDN(nf)
         self.layer_2 = SignalConv2D(nf, nf, 5, corr=True, strides_down=2,
-                                    use_bias=False, generator=generator)
+                                    padding="same_zeros", use_bias=False,
+                                    generator=generator)
 
     def forward(self, x):
         x = (x / 255.0).permute(0, 3, 1, 2)
@@ -81,13 +84,16 @@ class SynthesisTransform(nn.Module):
         super().__init__()
         nf = num_filters
         self.layer_0 = SignalConv2D(nf, nf, 5, corr=False, strides_up=2,
-                                    use_bias=True, generator=generator)
+                                    padding="same_zeros", use_bias=True,
+                                    generator=generator)
         self.igdn_0 = GDN(nf, inverse=True)
         self.layer_1 = SignalConv2D(nf, nf, 5, corr=False, strides_up=2,
-                                    use_bias=True, generator=generator)
+                                    padding="same_zeros", use_bias=True,
+                                    generator=generator)
         self.igdn_1 = GDN(nf, inverse=True)
         self.layer_2 = SignalConv2D(nf, 3, 9, corr=False, strides_up=4,
-                                    use_bias=True, generator=generator)
+                                    padding="same_zeros", use_bias=True,
+                                    generator=generator)
 
     def forward(self, y):
         y = y.permute(0, 3, 1, 2)

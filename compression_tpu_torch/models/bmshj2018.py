@@ -87,7 +87,7 @@ class AnalysisTransform(nn.Module):
         for i in range(4):
             setattr(self, f"layer_{i}", SignalConv2D(
                 3 if i == 0 else nf, nf, 5, corr=True, strides_down=2,
-                use_bias=True, generator=generator))
+                padding="same_zeros", use_bias=True, generator=generator))
             if i < 3:
                 setattr(self, f"gdn_{i}", GDN(nf))
 
@@ -107,7 +107,7 @@ class SynthesisTransform(nn.Module):
         for i in range(4):
             setattr(self, f"layer_{i}", SignalConv2D(
                 nf, 3 if i == 3 else nf, 5, corr=False, strides_up=2,
-                use_bias=True, generator=generator))
+                padding="same_zeros", use_bias=True, generator=generator))
             if i < 3:
                 setattr(self, f"igdn_{i}", GDN(nf, inverse=True))
 
@@ -125,11 +125,14 @@ class HyperAnalysisTransform(nn.Module):
         super().__init__()
         nf = num_filters
         self.layer_0 = SignalConv2D(nf, nf, 3, corr=True, strides_down=1,
-                                    use_bias=True, generator=generator)
+                                    padding="same_zeros", use_bias=True,
+                                    generator=generator)
         self.layer_1 = SignalConv2D(nf, nf, 5, corr=True, strides_down=2,
-                                    use_bias=True, generator=generator)
+                                    padding="same_zeros", use_bias=True,
+                                    generator=generator)
         self.layer_2 = SignalConv2D(nf, nf, 5, corr=True, strides_down=2,
-                                    use_bias=False, generator=generator)
+                                    padding="same_zeros", use_bias=False,
+                                    generator=generator)
 
     def forward(self, y):
         y = y.permute(0, 3, 1, 2)
@@ -145,13 +148,16 @@ class HyperSynthesisTransform(nn.Module):
         super().__init__()
         nf = num_filters
         self.layer_0 = SignalConv2D(
-            nf, nf, 5, corr=False, strides_up=2, use_bias=True,
+            nf, nf, 5, corr=False, strides_up=2,
+            padding="same_zeros", use_bias=True,
             kernel_parameter="variable", generator=generator)
         self.layer_1 = SignalConv2D(
-            nf, nf, 5, corr=False, strides_up=2, use_bias=True,
+            nf, nf, 5, corr=False, strides_up=2,
+            padding="same_zeros", use_bias=True,
             kernel_parameter="variable", generator=generator)
         self.layer_2 = SignalConv2D(
-            nf, nf, 3, corr=False, strides_up=1, use_bias=True,
+            nf, nf, 3, corr=False, strides_up=1,
+            padding="same_zeros", use_bias=True,
             kernel_parameter="variable", generator=generator)
 
     def forward(self, z):

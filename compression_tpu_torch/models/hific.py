@@ -316,7 +316,8 @@ class HyperAnalysis(nn.Module):
         for i, (support, stride) in enumerate(((3, 1), (5, 2), (5, 2))):
             setattr(self, f"layer_{i}", SignalConv2D(
                 in_channels if i == 0 else num_filters, num_filters, support,
-                corr=True, strides_down=stride, use_bias=True,
+                corr=True, strides_down=stride,
+                padding="same_zeros", use_bias=True,
                 generator=generator))
 
     def forward(self, y):
@@ -335,7 +336,8 @@ class HyperSynthesis(nn.Module):
                 (num_filters, 5, 2), (num_filters, 5, 2), (bottleneck, 3, 1))):
             setattr(self, f"layer_{i}", SignalConv2D(
                 num_filters, filters, support, corr=False, strides_up=up,
-                use_bias=True, kernel_parameter="variable",
+                padding="same_zeros", use_bias=True,
+                kernel_parameter="variable",
                 generator=generator))
 
     def forward(self, z):

@@ -82,7 +82,7 @@ class AnalysisTransform(nn.Module):
         for i in range(4):
             setattr(self, f"layer_{i}", SignalConv2D(
                 3 if i == 0 else nf, latent_depth if i == 3 else nf, 5,
-                corr=True, strides_down=2, use_bias=True,
+                corr=True, strides_down=2, padding="same_zeros", use_bias=True,
                 generator=generator))
             if i < 3:
                 setattr(self, f"gdn_{i}", GDN(nf))
@@ -104,7 +104,7 @@ class SynthesisTransform(nn.Module):
         for i in range(4):
             setattr(self, f"layer_{i}", SignalConv2D(
                 latent_depth if i == 0 else nf, 3 if i == 3 else nf, 5,
-                corr=False, strides_up=2, use_bias=True,
+                corr=False, strides_up=2, padding="same_zeros", use_bias=True,
                 generator=generator))
             if i < 3:
                 setattr(self, f"igdn_{i}", GDN(nf, inverse=True))
@@ -124,14 +124,17 @@ class HyperAnalysisTransform(nn.Module):
                  widths=(320, 256), generator=None):
         super().__init__()
         self.layer_0 = SignalConv2D(latent_depth, widths[0], 3, corr=True,
-                                    strides_down=1, use_bias=True,
+                                    strides_down=1,
+                                    padding="same_zeros", use_bias=True,
                                     generator=generator)
         self.layer_1 = SignalConv2D(widths[0], widths[1], 5, corr=True,
-                                    strides_down=2, use_bias=True,
+                                    strides_down=2,
+                                    padding="same_zeros", use_bias=True,
                                     generator=generator)
         self.layer_2 = SignalConv2D(widths[1], hyperprior_depth, 5,
                                     corr=True, strides_down=2,
-                                    use_bias=False, generator=generator)
+                                    padding="same_zeros", use_bias=False,
+                                    generator=generator)
 
     def forward(self, y):
         y = y.permute(0, 3, 1, 2)
@@ -146,7 +149,7 @@ def _plain_stack(module, in_channels, widths, supports, ups, generator):
     for i, (filters, support, up) in enumerate(zip(widths, supports, ups)):
         setattr(module, f"layer_{i}", SignalConv2D(
             in_channels if i == 0 else widths[i - 1], filters, support,
-            corr=False, strides_up=up, use_bias=True,
+            corr=False, strides_up=up, padding="same_zeros", use_bias=True,
             kernel_parameter="variable", generator=generator))
 
 

@@ -1,5 +1,5 @@
-"""On-demand native builds: the C++ PMF quantizer, the host range coder
-and the CUDA kernels.
+"""On-demand native builds: the C++ PMF quantizer, the host range coder,
+the host run-length codecs and the CUDA kernels.
 
 Every shared object is compiled from the sources in this package at first
 use into ``compression_tpu_torch/_build/`` (git-ignored) and loaded with
@@ -22,6 +22,7 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 _LOCK = threading.Lock()
 _PMF_LIB = None
 _RC_LIB = None
+_HOST_CODECS_LIB = None
 
 
 def stale(out: str, src: str) -> bool:
@@ -51,21 +52,28 @@ def finish_build(build, timeout: float = 600) -> None:
     os.replace(tmp, out)
 
 
-def _build_cxx(name: str, what: str, flags=()) -> str:
-    """Builds native/<name>.cc into _build/<name>.so with g++ when the
-    library is missing or older than its source; returns its path."""
-    src = os.path.join(os.path.dirname(__file__), f"{name}.cc")
-    out = os.path.join(BUILD_DIR, f"{name}.so")
+def _build_native(source: str, what: str, compilers, flags) -> str:
+    """Builds native/<source> into _build/<stem>.so with the first of
+    ``compilers`` found, when the library is missing or older than its
+    source; returns its path."""
+    src = os.path.join(os.path.dirname(__file__), source)
+    out = os.path.join(BUILD_DIR, os.path.splitext(source)[0] + ".so")
     if stale(out, src):
-        cxx = shutil.which("g++")
-        if cxx is None:
+        cc = next(filter(None, map(shutil.which, compilers)), None)
+        if cc is None:
             raise RuntimeError(
-                f"g++ not found: {what} (native/{name}.cc) cannot be built, "
-                "and it has no fallback.")
+                f"{' / '.join(compilers)} not found: {what} "
+                f"(native/{source}) cannot be built, and it has no "
+                "fallback.")
         finish_build(start_build(
-            [cxx, "-O2", "-std=c++17", "-shared", "-fPIC", *flags, src],
-            out), timeout=120)
+            [cc, "-O2", "-shared", "-fPIC", *flags, src], out), timeout=120)
     return out
+
+
+def _build_cxx(name: str, what: str, flags=()) -> str:
+    """native/<name>.cc with g++ (C++17)."""
+    return _build_native(f"{name}.cc", what, ("g++",),
+                         ("-std=c++17", *flags))
 
 
 def _build_pmf() -> ctypes.CDLL:
@@ -114,3 +122,34 @@ def get_range_coder_lib() -> ctypes.CDLL:
         if _RC_LIB is None:
             _RC_LIB = _build_range_coder()
     return _RC_LIB
+
+
+def _build_host_codecs() -> ctypes.CDLL:
+    out = _build_native("host_codecs.c", "the run-length codecs",
+                        ("cc", "gcc", "clang"), ())
+    lib = ctypes.CDLL(out)
+    c_i32p = ctypes.POINTER(ctypes.c_int32)
+    c_u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.rlg_encode.restype = ctypes.c_long
+    lib.rlg_encode.argtypes = [c_i32p, ctypes.c_long, c_u8p, ctypes.c_long]
+    lib.rlg_decode.restype = ctypes.c_long
+    lib.rlg_decode.argtypes = [c_u8p, ctypes.c_long, c_i32p, ctypes.c_long]
+    lib.rl_encode.restype = ctypes.c_long
+    lib.rl_encode.argtypes = [
+        c_i32p, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        c_u8p, ctypes.c_long]
+    lib.rl_decode.restype = ctypes.c_long
+    lib.rl_decode.argtypes = [
+        c_u8p, ctypes.c_long, c_i32p, ctypes.c_long, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int]
+    return lib
+
+
+def get_host_codecs_lib() -> ctypes.CDLL:
+    """Returns the run-length codecs (native/host_codecs.c), building them
+    with the C compiler on first use; raises when they cannot be built."""
+    global _HOST_CODECS_LIB
+    with _LOCK:
+        if _HOST_CODECS_LIB is None:
+            _HOST_CODECS_LIB = _build_host_codecs()
+    return _HOST_CODECS_LIB

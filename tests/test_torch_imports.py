@@ -29,23 +29,28 @@ def _imported(path):
 
 
 MODULES = [
-    "codec/cuda_coder.py", "codec/host.py", "codec/reference.py",
+    "codec/cuda_coder.py", "codec/host.py", "codec/legacy.py",
+    "codec/reference.py",
     "codec/stream.py", "codec/tables.py", "codec/torch_coder.py",
+    "datasets/y4m.py",
     "distributions/base.py", "distributions/deep_factorized.py",
     "distributions/helpers.py", "distributions/round_adapters.py",
     "distributions/uniform_noise.py",
     "entropy_models/continuous_base.py",
     "entropy_models/continuous_batched.py",
-    "entropy_models/continuous_indexed.py", "entropy_models/universal.py",
-    "layers/gdn.py", "layers/parameters.py", "layers/signal_conv.py",
-    "layers/soft_round.py",
+    "entropy_models/continuous_indexed.py", "entropy_models/laplace.py",
+    "entropy_models/power_law.py", "entropy_models/universal.py",
+    "layers/gdn.py", "layers/initializers.py", "layers/parameters.py",
+    "layers/signal_conv.py", "layers/soft_round.py",
     "models/bls2017.py", "models/bmshj2018.py", "models/cli.py",
-    "models/hific.py", "models/lpips.py", "models/ms2020.py",
-    "models/native_format.py", "models/tfci.py",
-    "ops/math_ops.py",
-    "ops/round_ops.py", "util/checkpoint.py", "util/datasets.py",
+    "models/hific.py", "models/lpips.py", "models/lvac.py",
+    "models/ms2020.py", "models/native_format.py", "models/tfci.py",
+    "models/toy_sources.py",
+    "ops/math_ops.py", "ops/padding_ops.py", "ops/quantization.py",
+    "ops/round_ops.py", "ops/run_length.py", "util/checkpoint.py",
+    "util/datasets.py",
     "util/device.py", "util/kinks.py", "util/metrics.py",
-    "util/packed_tensors.py", "util/philox.py",
+    "util/packed_tensors.py", "util/philox.py", "util/xoshiro.py",
 ]
 
 
@@ -71,3 +76,37 @@ def test_no_jax_imports(path):
     for name in _imported(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+def _jax_top_level_names():
+    """The names compression_tpu/__init__.py imports, read without
+    importing it."""
+    path = os.path.join(ROOT, "compression_tpu", "__init__.py")
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            yield from (a.asname or a.name for a in node.names)
+
+
+@pytest.mark.parametrize("name", sorted(set(_jax_top_level_names())))
+def test_top_level_names_mirror_jax(name):
+    """Every top-level name of the JAX package has its counterpart here
+    (its jax_coder is torch_coder)."""
+    import compression_tpu_torch
+    name = {"jax_coder": "torch_coder"}.get(name, name)
+    assert name in compression_tpu_torch.__all__
+    assert getattr(compression_tpu_torch, name) is not None
+
+
+def test_package_import_loads_no_coder_module():
+    """``import compression_tpu_torch`` imports its names on first use:
+    nothing of the coder, its kernels or CUDA is loaded."""
+    import subprocess
+    import sys
+    code = ("import sys, compression_tpu_torch as p; "
+            "assert p.__version__; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('compression_tpu_torch.')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]"
