@@ -155,6 +155,17 @@ Phases, one JSON line each (any failure exits non-zero):
      penalty and quantization card against CPU, compress of lvac's latent
      on the host (bytes of the Python plain version, round trip, host ms),
      compress of the CUDA tensor refused; no coder kernel launched;
+  7p. parallel: parallel/ on the card's mesh (every card on the data
+     axis; one here): the sidecar codec on 4 images of 512x512 (1024 x
+     512, 200 escapes planted) and BatchCodec on bench.py's two regimes
+     (K6' / K3' with escapes, K4' / K5' on the zipf row), bytes identical
+     to the unsharded calls and the round trips; sharded_encode through
+     the micro-op closure (K7', the micro-op scan); the timer's phases and
+     the unsharded calls' ms; then tests/torch_parallel_worker.py spawned
+     at world size 1 on NCCL (table broadcast, byte gather, DP and DP x TP
+     steps of bls2017 at 128 filters identical to make_train_step's) and
+     as two gloo ranks sharing the card (the DP step's gradients within
+     1e-3, its metrics within 1e-4 of one process's; step ms);
   8. times: kernels and plain versions at the main paths' shapes (CUDA
      events), their bounds, and end-to-end ms per image of the native
      containers of both models (the classic ones' are phase 4g's); both
@@ -2573,6 +2584,250 @@ def small_models_phase(device, smi, fails, steps=30):
     torch.cuda.empty_cache()
 
 
+# Phase 7p: 4 images of 512x512 through the sidecar codec (1024 streams).
+PARALLEL_IMAGES = 4
+PARALLEL_RUNS = 3
+PARALLEL_SPAWN_TIMEOUT = 300
+
+
+def _median_ms(fn, runs=PARALLEL_RUNS):
+    """Median ms of ``runs`` calls after a warm-up, on the host clock
+    around work that ends in torch.cuda.synchronize()."""
+    import torch
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _phase_ms(timer):
+    return {name: entry["mean_ms"] for name, entry in timer.summary().items()}
+
+
+def parallel_phase(device, codec, regimes, smi, fails):
+    """Phase 7p: parallel/ on the card.
+
+    Coding on an in-process mesh of every card (``make_mesh`` without a
+    process group): SidecarBatchCodec with the bls2017 codec's EM (128
+    rows, 2^-8 tail mass) on the y rows of ``images`` (1024 streams x 512
+    symbols at 512x512) with 200 escapes planted: bytes, lengths and the
+    sidecar identical to the unsharded ``compress_sidecar_device``, the
+    decode equal to ``quantize``; BatchCodec on bench.py's two regimes
+    (``regimes``: 8192 x 512 on 64 Gaussian rows with escapes at 2^-8,
+    given indexes: K6' / K3'; 32768 x 512 on the zipf row in channel
+    mode: K4' / K5'), bytes identical to ``encode_streams`` and the round
+    trip; ``sharded_encode`` of the Gaussian regime through the micro-op
+    closure (K7', the micro-op scan), its streams those of
+    ``encode_streams``.  The launch counts are read just after these
+    calls; the timer's phases and the unsharded calls' ms (numpy in and
+    out, as the codecs take them) follow.
+
+    Then two spawns of tests/torch_parallel_worker.py, each under a time
+    limit: world size 1 on NCCL (the table broadcast, the byte gather,
+    data_parallel_train_step and dp_tp_train_step of bls2017 at 128
+    filters, batch 8 of 256x256, TF32 off, noise given: the first step's
+    gradients and metrics and the parameters after two steps identical to
+    make_train_step's), and two gloo ranks sharing the card (the DP step
+    on 4 + 4 of the same batch with sliced noise: the first step's
+    gradients within 1e-3 of their largest magnitude, as phase 7 holds
+    the card to the CPU, and its metrics within 1e-4 of the single
+    process's; the parameters after two steps are logged against the
+    largest change, and are no gate: Adam's normalized step turns the
+    float noise of a gradient near zero into up to a whole step).  The
+    median step ms of each.  Returns the launch counts."""
+    import tempfile
+
+    import torch
+    from compression_tpu_torch.codec import torch_coder
+    from compression_tpu_torch.models import native_format
+    from compression_tpu_torch.parallel import (
+        BatchCodec, SidecarBatchCodec, make_mesh, sharded_encode)
+
+    t_phase = time.time()
+    worker = tests_module("torch_parallel_worker")
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    mesh = make_mesh(cards, data_axis=cards, device=device.type)
+    em = codec.em
+    rng = np.random.RandomState(12)
+    images = [rng.randint(0, 256, IMAGES["512x512"]).astype(np.uint8)
+              for _ in range(PARALLEL_IMAGES)]
+    with torch.no_grad():
+        rows = torch.cat([native_format.to_streams(codec._analysis(
+            codec._upload(img))) for img in images]).cpu().numpy()
+    flat = rows.reshape(-1)
+    planted = rng.choice(flat.size, 200, replace=False)
+    flat[planted] = rng.choice([-1, 1], 200) * rng.uniform(300, 3000, 200)
+    (gsym, gidx, gtab), (zsym, ztab) = regimes
+    gtable = torch_coder.DeviceCdfTable(gtab, device)
+    slots = MICRO_SLOTS
+    num_steps = -(-(gsym.shape[1] + ESCAPE_BUDGET * slots) // 64) * 64
+    out_size = -(-(2 * num_steps + 2) // 4) * 4
+
+    def micro_encode(s, i):
+        ops = torch_coder.micro_ops_from_symbols(s, i, gtable, slots,
+                                                 num_steps)
+        return torch_coder.encode_core(*ops, out_size)
+
+    sidecar = SidecarBatchCodec(em, mesh)
+    gauss = BatchCodec(gtab, mesh)
+    zipf = BatchCodec(ztab, mesh)
+    reset_counts()
+    side_out = sidecar.encode(rows)
+    side_back = sidecar.decode(side_out[0], side_out[1], rows.shape[1:-1],
+                               side_out[2], side_out[3])
+    g_out = gauss.encode(gsym, gidx)
+    g_back = gauss.decode(*g_out, gsym.shape[1], gidx)
+    z_out = zipf.encode(zsym)
+    z_back = zipf.decode(*z_out, zsym.shape[1])
+    m_out = sharded_encode(mesh, micro_encode, gsym, gidx)
+    launches, routes = read_counts(("encode", "decode", "decode_sidecar"))
+
+    # The unsharded calls the sharded ones are held against.
+    def unsharded_sidecar():
+        out = em.compress_sidecar_device(torch.as_tensor(rows, device=device))
+        return [t.cpu().numpy() for t in out]
+
+    def unsharded(symbols, table, indexes=None):
+        out = torch_coder.encode_streams(
+            torch.as_tensor(symbols, device=device), table,
+            None if indexes is None else torch.as_tensor(indexes,
+                                                         device=device))
+        return [t.cpu().numpy() for t in out]
+
+    with torch.no_grad():
+        want_side = unsharded_sidecar()
+        want_rows = em.quantize(torch.as_tensor(rows, device=device)).cpu()
+    ztable = zipf.table(device)
+    want_g = unsharded(gsym, gtable, gidx)
+    want_z = unsharded(zsym, ztable)
+    n_side = int(np.prod(rows.shape[1:]))
+    ok = {
+        "sidecar_identical": all(np.array_equal(a, b) for a, b in zip(
+            side_out, [want_side[0].reshape(rows.shape[0], -1)]
+            + want_side[1:])),
+        "sidecar_escapes_found": int(side_out[2].size) >= 200,
+        "sidecar_decode_equals_quantize": bool(
+            np.array_equal(side_back[0], want_rows.numpy())
+            and side_back[1].all()),
+        "gaussian_identical": all(np.array_equal(a, b)
+                                  for a, b in zip(g_out, want_g)),
+        "gaussian_round_trip": bool(np.array_equal(g_back[0], gsym)
+                                    and g_back[1].all()),
+        "zipf_identical": all(np.array_equal(a, b)
+                              for a, b in zip(z_out, want_z)),
+        "zipf_round_trip": bool(np.array_equal(z_back[0], zsym)
+                                and z_back[1].all()),
+        "micro_streams_identical": torch_coder.to_bytes_list(*m_out)
+        == torch_coder.to_bytes_list(*want_g),
+        "routes_on_the_card": routes == {
+            "encode": "cuda-micro", "decode": "cuda-single",
+            "decode_sidecar": "cuda-indexed"},
+        "kernels_launched": all(launches[k] > 0 for k in (
+            "encode_indexed", "decode_indexed", "encode_gamma",
+            "decode_gamma", "encode_single_row", "decode_single_row",
+            "encode_scan", "pair_lookup"))}
+    ms = {
+        "sidecar_encode": _median_ms(lambda: sidecar.encode(rows)),
+        "sidecar_encode_unsharded": _median_ms(unsharded_sidecar),
+        "gaussian_encode": _median_ms(lambda: gauss.encode(gsym, gidx)),
+        "gaussian_encode_unsharded": _median_ms(
+            lambda: unsharded(gsym, gtable, gidx)),
+        "zipf_encode": _median_ms(lambda: zipf.encode(zsym)),
+        "zipf_encode_unsharded": _median_ms(lambda: unsharded(zsym, ztable)),
+        "micro_sharded_encode": _median_ms(
+            lambda: sharded_encode(mesh, micro_encode, gsym, gidx)),
+        "micro_encode_unsharded": _median_ms(lambda: [
+            t.cpu().numpy() for t in micro_encode(
+                torch.as_tensor(gsym, device=device),
+                torch.as_tensor(gidx, device=device))])}
+    log("parallel_coding", card=smi, mesh=mesh.shape,
+        sidecar_shape=list(rows.shape), sidecar_escapes=int(side_out[2].size),
+        gaussian_shape=list(gsym.shape), zipf_shape=list(zsym.shape),
+        micro_steps=num_steps, launches=launches, routes=routes, ms=ms,
+        sidecar_timer_ms=_phase_ms(sidecar.timer),
+        gaussian_timer_ms=_phase_ms(gauss.timer),
+        zipf_timer_ms=_phase_ms(zipf.timer), **ok)
+    if not all(ok.values()):
+        fails.append("parallel/coding")
+    del want_side, want_rows, rows
+    torch.cuda.empty_cache()
+
+    # Multi-process on the card.
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        runs = {}
+        for scenario, world in (("card_nccl", 1), ("card_gloo", 2)):
+            t0 = time.time()
+            results = worker.spawn(scenario, world, None, tmp,
+                                   PARALLEL_SPAWN_TIMEOUT)
+            seconds = time.time() - t0
+            done = all(rc == 0 for rc, _ in results)
+            reports = []
+            for r in range(world if done else 0):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    reports.append(json.load(f))
+            runs[scenario] = (done, reports)
+            if not done:
+                log("parallel_spawn_failed", scenario=scenario,
+                    exit_codes=[rc for rc, _ in results],
+                    tails=[out[-3000:] for _, out in results])
+                fails.append(f"parallel/{scenario}")
+            else:
+                log("parallel_spawn", scenario=scenario, world=world,
+                    seconds=seconds, card=smi, reports=reports)
+        if all(done for done, _ in runs.values()):
+            nccl = runs["card_nccl"][1][0]
+            gloo = runs["card_gloo"][1]
+            start = torch.load(os.path.join(tmp, "start.pt"))
+            single = torch.load(os.path.join(tmp, "single.pt"))
+            two = torch.load(os.path.join(tmp, "gloo.pt"))
+            grad_err = max(float((two["grad"][k] - g).abs().max()
+                                 / g.abs().max())
+                           for k, g in single["grad"].items())
+            metric_err = max(abs(two["metrics"][k] - v) / abs(v)
+                             for k, v in single["metrics"].items())
+            change = max(float((p - start[k]).abs().max())
+                         for k, p in single["params"].items())
+            off = {k: (two["params"][k] - p).abs()
+                   for k, p in single["params"].items()}
+            param_err = max(float(d.max()) for d in off.values())
+            over = sum(int((d > 1e-3 * change).sum()) for d in off.values())
+            timed = slice(worker.PARITY_STEPS, None)
+            ok = {"nccl_backend": nccl["backend"] == "nccl"
+                  and nccl["world"] == 1,
+                  "tables_broadcast": nccl["tables_equal"],
+                  "gather_bytes": nccl["gather_equal"],
+                  "data_parallel_identical": nccl["data_parallel_identical"],
+                  "dp_tp_identical": nccl["dp_tp_identical"],
+                  "gloo_two_ranks": all(r["backend"] == "gloo"
+                                        and r["world"] == 2 for r in gloo),
+                  "gloo_gradients_within_1e-3": grad_err <= 1e-3,
+                  "gloo_metrics_within_1e-4": metric_err <= 1e-4}
+            log("parallel_train", card=smi, filters=worker.CARD_FILTERS,
+                batch=list(worker.CARD_BATCH),
+                parity_steps=worker.PARITY_STEPS,
+                gloo_max_grad_err=grad_err, gloo_metric_rel_err=metric_err,
+                largest_parameter_change=change,
+                gloo_max_param_err=param_err,
+                gloo_param_err_over_change=param_err / change,
+                gloo_params_over_a_thousandth_of_change=over,
+                parameters=sum(d.numel() for d in off.values()),
+                step_ms_median={
+                    **{k: float(np.median(v[timed]))
+                       for k, v in nccl["step_ms"].items()},
+                    **{f"gloo_rank{r}": float(np.median(g["step_ms"][timed]))
+                       for r, g in enumerate(gloo)}},
+                tp_leaves=nccl["tp_leaves"], **ok)
+            if not all(ok.values()):
+                fails.append("parallel/train")
+    log("parallel", seconds=time.time() - t_phase)
+    return launches
+
+
 def escape_count(symbols, rows, meta):
     """How many symbols fall outside their row's range (escapes)."""
     from compression_tpu_torch.codec import cuda_coder
@@ -3484,6 +3739,11 @@ def main():
     # Phase 7s: the layers, lvac, the toy sources, the stochastic round and
     # the PowerLaw / Laplace entropy models.
     small_models_phase(device, smi, fails)
+    # Phase 7p: parallel/ -- sharded coding on the card's mesh, then DP and
+    # DP x TP steps in processes of their own.
+    parallel_launches = parallel_phase(
+        device, codec, ((gsym, gidx, gtab), (zsym.cpu().numpy(), ztab)), smi,
+        fails)
 
     # Phase 8: times at the main paths' shapes.
     saved = dict(cc.LAUNCHES)
@@ -3952,7 +4212,8 @@ def main():
                 + front_launches[k] + hyper_launches[k] + device_launches[k]
                 + ms_launches[k] + hific_launches[k]
                 + hific_train_launches[k] + tfci_launches[k]
-                + universal_launches[k] for k in cc.LAUNCHES}
+                + universal_launches[k] + parallel_launches[k]
+                for k in cc.LAUNCHES}
     for name, count in launches.items():
         if count == 0:
             fails.append(f"no_launch_on_a_main_path/{name}")

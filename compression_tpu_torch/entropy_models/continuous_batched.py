@@ -14,6 +14,8 @@ the native container runs on, and the budgeted pair ``compress_device`` /
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -22,6 +24,7 @@ from compression_tpu_torch.distributions import helpers
 from compression_tpu_torch.entropy_models import continuous_base
 from compression_tpu_torch.ops import math_ops
 from compression_tpu_torch.ops import round_ops
+from compression_tpu_torch.util.device import resolve_device
 
 __all__ = ["ContinuousBatchedEntropyModel"]
 
@@ -85,6 +88,21 @@ class ContinuousBatchedEntropyModel(
     @property
     def prior_shape(self):
         return self._prior_shape
+
+    def to(self, device):
+        """This model coding on ``device``: itself when it codes there
+        already, else a shallow copy that shares the host tables and builds
+        its device table there at first use."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        clone = copy.copy(self)
+        clone.device = device
+        clone._device_table = None
+        clone._row_offset = None
+        if self._offset_dev is not None:
+            clone._offset_dev = self._offset_dev.to(device)
+        return clone
 
     @property
     def quantization_offset(self):

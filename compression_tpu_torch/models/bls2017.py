@@ -166,19 +166,28 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
     device, so that it never waits for the card.  With ``torch.optim.Adam``
     the update is optax.adam's (m_hat / (sqrt(v_hat) + eps)).
     """
-    device = next(model.parameters()).device
-
     def step(batch, generator=None, u=None):
-        batch = torch.as_tensor(batch, device=device).to(torch.float32)
         optimizer.zero_grad(set_to_none=True)
-        loss, bpp, mse = model(batch, training=True, generator=generator,
-                               u=u)
-        loss.backward()
+        metrics = rd_backward(model, batch, generator=generator, u=u)
         optimizer.step()
-        return {"loss": loss.detach(), "bpp": bpp.detach(),
-                "mse": mse.detach()}
+        return metrics
 
     return step
+
+
+def rd_backward(model: nn.Module, batch, generator=None, u=None) -> dict:
+    """The forward and backward half of a rate-distortion step, shared by
+    ``make_train_step`` and the data-parallel steps of
+    ``parallel/sharding.py``, which reduce the gradients before the
+    optimizer steps: moves the batch to the model's device, sets every
+    parameter's gradient afresh and returns {"loss", "bpp", "mse"} as 0-d
+    tensors on that device."""
+    device = next(model.parameters()).device
+    batch = torch.as_tensor(batch, device=device).to(torch.float32)
+    model.zero_grad(set_to_none=True)
+    loss, bpp, mse = model(batch, training=True, generator=generator, u=u)
+    loss.backward()
+    return {"loss": loss.detach(), "bpp": bpp.detach(), "mse": mse.detach()}
 
 
 def train(lmbda=0.01, num_filters=128, batch_size=8, patchsize=256,

@@ -3,15 +3,48 @@ counterpart of compression_tpu/ops/math_ops.py): ``lower_bound`` /
 ``upper_bound`` (max / min with 'identity', 'identity_if_towards' or
 'disconnected' gradients) and ``perturb_and_apply`` (additive U(-.5, .5)
 noise with the analytically expected gradient, Agustsson & Theis 2020
-§4.2)."""
+§4.2), and ``parameter_gradient_reduction``, where the data-parallel train
+steps reduce a parameter's gradient before a bound's gate."""
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
-__all__ = ["lower_bound", "upper_bound", "perturb_and_apply"]
+__all__ = ["lower_bound", "upper_bound", "perturb_and_apply",
+           "parameter_gradient_reduction"]
 
 _GRADIENTS = ("disconnected", "identity", "identity_if_towards")
+# The reduction ``parameter_gradient_reduction`` sets, per thread.
+_REDUCTION = threading.local()
+
+
+@contextlib.contextmanager
+def parameter_gradient_reduction(reduce):
+    """While active, ``lower_bound`` / ``upper_bound`` with the
+    'identity_if_towards' gradient, applied to a leaf tensor that requires
+    grad (a parameter, e.g. GDN's reparameterized beta and gamma), pass
+    the gradient they receive through ``reduce`` before their gate, which
+    depends on its sign.  The data-parallel train steps average it over
+    the data group there, so that the gate sees the global batch's
+    gradient, as one process's step does; gated on each rank's own
+    gradient, the averaged result would differ wherever the ranks' signs
+    differ.  The function is bound when the op runs forward."""
+    saved = getattr(_REDUCTION, "fn", None)
+    _REDUCTION.fn = reduce
+    try:
+        yield
+    finally:
+        _REDUCTION.fn = saved
+
+
+def _reduction(inputs, gradient):
+    if gradient == "identity_if_towards" and inputs.is_leaf \
+            and inputs.requires_grad:
+        return getattr(_REDUCTION, "fn", None)
+    return None
 
 
 def _as_bound(bound, inputs):
@@ -25,38 +58,44 @@ def _as_bound(bound, inputs):
 
 class _LowerBound(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, inputs, bound, gradient):
+    def forward(ctx, inputs, bound, gradient, reduce):
         ctx.save_for_backward(inputs, bound)
         ctx.gradient = gradient
+        ctx.reduce = reduce
         return torch.maximum(inputs, bound)
 
     @staticmethod
     def backward(ctx, grad):
         inputs, bound = ctx.saved_tensors
         if ctx.gradient == "identity":
-            return grad, None, None
+            return grad, None, None, None
+        if ctx.reduce is not None:
+            grad = ctx.reduce(grad)
         pass_through = inputs >= bound
         if ctx.gradient == "identity_if_towards":
             pass_through = pass_through | (grad < 0)
-        return pass_through.to(grad.dtype) * grad, None, None
+        return pass_through.to(grad.dtype) * grad, None, None, None
 
 
 class _UpperBound(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, inputs, bound, gradient):
+    def forward(ctx, inputs, bound, gradient, reduce):
         ctx.save_for_backward(inputs, bound)
         ctx.gradient = gradient
+        ctx.reduce = reduce
         return torch.minimum(inputs, bound)
 
     @staticmethod
     def backward(ctx, grad):
         inputs, bound = ctx.saved_tensors
         if ctx.gradient == "identity":
-            return grad, None, None
+            return grad, None, None, None
+        if ctx.reduce is not None:
+            grad = ctx.reduce(grad)
         pass_through = inputs <= bound
         if ctx.gradient == "identity_if_towards":
             pass_through = pass_through | (grad > 0)
-        return pass_through.to(grad.dtype) * grad, None, None
+        return pass_through.to(grad.dtype) * grad, None, None, None
 
 
 def lower_bound(inputs, bound, gradient="identity_if_towards"):
@@ -67,7 +106,8 @@ def lower_bound(inputs, bound, gradient="identity_if_towards"):
     if gradient not in _GRADIENTS:
         raise ValueError(f"Invalid value for `gradient`: '{gradient}'.")
     bound = _as_bound(bound, inputs)
-    return _LowerBound.apply(inputs, bound, gradient)
+    return _LowerBound.apply(inputs, bound, gradient,
+                             _reduction(inputs, gradient))
 
 
 def upper_bound(inputs, bound, gradient="identity_if_towards"):
@@ -77,7 +117,8 @@ def upper_bound(inputs, bound, gradient="identity_if_towards"):
     if gradient not in _GRADIENTS:
         raise ValueError(f"Invalid value for `gradient`: '{gradient}'.")
     bound = _as_bound(bound, inputs)
-    return _UpperBound.apply(inputs, bound, gradient)
+    return _UpperBound.apply(inputs, bound, gradient,
+                             _reduction(inputs, gradient))
 
 
 class _ExpectedGrads(torch.autograd.Function):

@@ -47,11 +47,18 @@ MODULES = [
     "models/ms2020.py", "models/native_format.py", "models/tfci.py",
     "models/toy_sources.py",
     "ops/math_ops.py", "ops/padding_ops.py", "ops/quantization.py",
-    "ops/round_ops.py", "ops/run_length.py", "util/checkpoint.py",
+    "ops/round_ops.py", "ops/run_length.py",
+    "parallel/__init__.py", "parallel/multihost.py", "parallel/pipeline.py",
+    "parallel/sharding.py", "util/checkpoint.py", "util/compile_cache.py",
     "util/datasets.py",
     "util/device.py", "util/kinks.py", "util/metrics.py",
-    "util/packed_tensors.py", "util/philox.py", "util/xoshiro.py",
+    "util/packed_tensors.py", "util/philox.py", "util/profiling.py",
+    "util/transfer.py", "util/xoshiro.py",
 ]
+
+# The JAX package's modules whose counterparts carry other names.
+COUNTERPARTS = {"codec/jax_coder.py": "codec/torch_coder.py",
+                "codec/pallas_coder.py": "codec/cuda_coder.py"}
 
 
 def test_port_has_modules():
@@ -67,7 +74,24 @@ def test_module_imports_without_a_gpu(module):
     and no triton: kernels are built inside the call that launches them."""
     import importlib
     name = "compression_tpu_torch." + module[:-3].replace("/", ".")
+    name = name.removesuffix(".__init__")
     assert importlib.import_module(name) is not None
+
+
+def _jax_modules():
+    base = os.path.join(ROOT, "compression_tpu")
+    return sorted(
+        os.path.relpath(os.path.join(dirpath, f), base)
+        for dirpath, dirs, files in os.walk(base)
+        if "__pycache__" not in dirpath for f in files if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_every_jax_module_has_a_counterpart(module):
+    """The port does all the JAX package does: each module of it has a
+    module of the same path here, or the one COUNTERPARTS names."""
+    mine = COUNTERPARTS.get(module, module)
+    assert os.path.exists(os.path.join(ROOT, "compression_tpu_torch", mine))
 
 
 @pytest.mark.parametrize(
