@@ -56,7 +56,10 @@ Phases, one JSON line each (any failure exits non-zero):
      of the wrapper's dispatch constant) the plain recurrence runs once
      and the wrapper's choice and both kernels are held against it;
      K8' (bucketed single-row decode) against its plain version and against
-     K5' at 32768 x 512, on every golden case and on corrupted streams;
+     K5' at 32768 x 512, on every golden case and on corrupted streams, and
+     with K4'/K5' on zipf rows at precision 16 of 64 and 94 buckets (4096 x
+     512; K8' counts buckets from registers up to 64, above by binary
+     search);
   4. main paths, each with the launch counts reset just before it and read
      just after, every K1, K2, K3' and K6' launch of (a), (b), (d), (f) and
      (h) expected on the warp-per-stream kernel: (a) bls2017 at
@@ -166,8 +169,17 @@ Phases, one JSON line each (any failure exits non-zero):
      steps of bls2017 at 128 filters identical to make_train_step's) and
      as two gloo ranks sharing the card (the DP step's gradients within
      1e-3, its metrics within 1e-4 of one process's; step ms);
+  7x. examples: the example scripts through their mains on the card:
+     train_synthetic at its defaults (bls2017 at 64 filters, 2 lambdas x
+     400 steps) must run to its end with its RD summary and a verdict its
+     exit code follows (RD points, the verdict, seconds, and the model's
+     step ms on its texture batches); evaluate over a
+     registry written by bls2017's train (2 steps) and seeded .npy images,
+     rows equal to the port's metrics on the decoded images, MS-SSIM NaN
+     for the image below 176 pixels; pod_compress on a mesh of one card
+     and of every card, identical bytes, its rates and phases;
   8. times: kernels and plain versions at the main paths' shapes (CUDA
-     events), their bounds, and end-to-end ms per image of the native
+     events; K4', K5' and K8' from CUDA graphs), their bounds, and end-to-end ms per image of the native
      containers of both models (the classic ones' are phase 4g's); both
      kernels of K3' at the classic containers' three
      stream shapes beside the byte bound and the serial chain's floor, and
@@ -182,9 +194,10 @@ Phases, one JSON line each (any failure exits non-zero):
      decompress gives them, by events and from a CUDA graph, beside the
      byte bound and the chain's floor, and both kernels from 1 to 65536
      streams of 512 symbols; K7' and its library call by events around a loop and
-     replayed from a CUDA graph; K4' and K5' from a CUDA graph at the
+     replayed from a CUDA graph; K4', K5' and K8' from a CUDA graph at the
      micro-bench regime at precision 12 and 16 beside the byte bound and
-     the chain's floor, and from 1 to 65536 streams of 512 symbols.
+     the chains' floors, and K4' and K5' from 1 to 65536 streams of 512
+     symbols.
 
 The line before the last two is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}.  Nothing of
@@ -218,6 +231,10 @@ STRESS_SHAPE = (8192, 512)
 # The coder micro-bench regime (bench.py): one zipf row, alpha 1.2 over 256
 # symbols, precision 12.
 SINGLE_ROW_SHAPE = (32768, 512)
+# Zipf rows at precision 16 whose padded lengths make 64 and 94 buckets of
+# 16 (K8''s two bucket counts), decoded at this shape.
+WIDE_ROW_ALPHABETS = (1020, 1500)
+WIDE_ROW_SHAPE = (4096, 512)
 # The indexed in-stream regime (bench.py bench_indexed) and one long stream.
 GAMMA_SHAPE = (8192, 512)
 LONG_STREAM = (1, 8192)
@@ -354,12 +371,12 @@ def mixed_table(rng, num_rows, prec_lo, prec_hi, overflow):
         tables.build_ragged_cdf(cdfs, precs, ovfs))
 
 
-def zipf_table(precision=12):
-    """bench.py's workload table: zipf alpha 1.2 over 256 symbols at
-    precision 12 (or ``precision``), one row, no overflow; returns (table,
-    pmf)."""
+def zipf_table(precision=12, alphabet=256):
+    """bench.py's workload table: zipf alpha 1.2 over 256 symbols (or
+    ``alphabet``) at precision 12 (or ``precision``), one row, no overflow;
+    returns (table, pmf)."""
     from compression_tpu_torch.codec import tables
-    pmf = 1.0 / (1 + np.arange(256)) ** 1.2
+    pmf = 1.0 / (1 + np.arange(alphabet)) ** 1.2
     pmf /= pmf.sum()
     return tables.parse_ragged_cdf(tables.build_ragged_cdf(
         [tables.pmf_to_quantized_cdf(pmf, precision)], [precision],
@@ -862,15 +879,37 @@ def slot_floor_ms(symbols, precision, clock_mhz):
     """The serial chain's own floor for K5' (ms): symbols x the dependent
     operations of one symbol in the compiled kernel (cuobjdump -sass) x
     their latency, at the card's highest SM clock.  From one size - 1 to
-    the next the chain runs through 23 register operations (select, float
-    conversion and add, the divisor's range test and scaling, reciprocal,
-    multiply, min, rounding conversion, wide multiply-add, two compares,
-    three selects, min, address; after the slot's load: mask, wide
-    multiply-add, funnel shift, complement, add) and one shared-memory
-    load; above precision 14 through 25 and two loads (the count, then the
-    row).  Taken at 4 clocks a register operation and 23 a shared-memory
-    load, the architecture's nominal latencies (not measured here)."""
-    clocks = 23 * 4 + 23 if precision <= 14 else 25 * 4 + 2 * 23
+    the next the chain runs through 21 register operations (select, float
+    conversion and add, reciprocal, multiply, min, rounding conversion,
+    wide multiply-add, two compares, three selects, min, address; after
+    the slot's load: mask, wide multiply-add, funnel shift, complement,
+    add, test) and one shared-memory load; above precision 14 through 23
+    and two loads (the count, then the row).  Taken at 4 clocks a register
+    operation and 23 a shared-memory load, the architecture's nominal
+    latencies (not measured here)."""
+    clocks = 21 * 4 + 23 if precision <= 14 else 23 * 4 + 2 * 23
+    return symbols * clocks / (clock_mhz * 1e3)
+
+
+def bucketed_floor_ms(symbols, num_buckets, clock_mhz):
+    """The serial chain's own floor for K8' (ms) on a row of at most 64
+    buckets (the bucket count from registers): symbols x the dependent
+    operations of one symbol in the compiled kernel (cuobjdump -sass of
+    decode_bucketed_kernel<5>, the zipf row's 17 buckets in 5 quads) x
+    their latency, at the card's highest SM clock.  From one size - 1 to
+    the next the chain runs through 13 register operations for the
+    threshold (float conversion and add, reciprocal, multiply, min,
+    rounding conversion, wide multiply-add, two compares, three selects
+    and adds, min), q + 5 for the bucket count over q quads (difference,
+    shift, q - 1 shift-adds of the longest partial sum, two adds, min,
+    address), the window's shared load, 8 for its count (difference,
+    shift, three shift-adds, two adds, address), the interval's shared
+    load and 6 for the update (wide multiply-add, funnel shift,
+    complement, add, test, select).  Taken at 4 clocks a register
+    operation and 23 a shared-memory load, the architecture's nominal
+    latencies (not measured here)."""
+    quads = -(-num_buckets // 4)
+    clocks = (13 + quads + 5 + 8 + 6) * 4 + 2 * 23
     return symbols * clocks / (clock_mhz * 1e3)
 
 
@@ -2828,6 +2867,213 @@ def parallel_phase(device, codec, regimes, smi, fails):
     return launches
 
 
+# Phase 7x: images that evaluate reads (seeded, as .npy: the card's machine
+# has no PIL), the last one too small for MS-SSIM's five scales; steps of
+# the texture model timed apart from train_synthetic's own run.
+EXAMPLE_IMAGES = {"a.npy": (512, 512, 3), "b.npy": (176, 192, 3),
+                  "c.npy": (64, 80, 3)}
+EXAMPLE_TRAIN_STEPS = 30
+# train_synthetic's defaults, for its model's steps timed apart.
+EXAMPLE_TRAIN = dict(batch_size=8, patchsize=128, num_filters=64)
+
+
+def _run_main(main, argv):
+    """(return value, stdout text, seconds) of an example's main."""
+    import contextlib
+    import io
+    import torch
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    return rc, text.getvalue(), time.perf_counter() - t0
+
+
+def examples_phase(device, smi, fails):
+    """Phase 7x: the port's example scripts on the card, each through its
+    ``main`` as ``python -m compression_tpu_torch.examples.<name>`` runs it.
+
+    ``train_synthetic`` at its defaults (bls2017 at 64 filters, 2 lambdas x
+    400 steps of batch 8 of 128x128 textures, 4 held-out textures through
+    the classic container) must run to its end with both RD points finite,
+    the summary and its verdict, whose exit code it must follow; the
+    verdict is logged and not gated on (at these defaults the two lambdas
+    land within noise of each other).  Its training must move and use its
+    lambda: every loss it logs equals bpp + lambda * mse of the same line
+    within 1e-4 relative, and each lambda's last logged loss is below its
+    first.  EXAMPLE_TRAIN_STEPS steps of the same model on its texture
+    batches are timed apart by CUDA events (median of steps 4-30: the
+    run's own steps include the host's FFTs), and their loss must fall
+    (the mean of the last 5 below that of the first 5).
+    ``evaluate`` over a registry that bls2017's own ``train`` writes (CLI
+    defaults, 2 steps, as phase 7t) and EXAMPLE_IMAGES: one row an image,
+    each bpp 8 * len(compress(img)) / pixels, each PSNR and MS-SSIM that of
+    the port's metrics on the decoded image, MS-SSIM NaN for the image
+    below 176 pixels only, the CSV of ``--out``; one encode and one K3' an
+    image.  ``pod_compress`` on a mesh of one card and on one of every card
+    (4 x 256 rows of 512 symbols, two outliers): identical bytes across the
+    two (on a host of one card both meshes are that card, and the check is
+    logged as vacuous), its rates and phases from the record of ``--out``.
+    Returns the launch counts of the three."""
+    import ast
+    import tempfile
+
+    import torch
+    from compression_tpu_torch.codec import cuda_coder
+    from compression_tpu_torch.examples import (evaluate, pod_compress,
+                                                train_synthetic)
+    from compression_tpu_torch.models import bls2017, tfci
+    from compression_tpu_torch.util import metrics
+
+    t_phase = time.time()
+    total = {k: 0 for k in cuda_coder.LAUNCHES}
+
+    reset_counts()
+    rc, text, seconds = _run_main(train_synthetic.main,
+                                  ["--device", device.type])
+    launches, _ = read_counts(())
+    points = [line.split() for line in text.splitlines()
+              if line.startswith("  lambda ")]
+    rd = [{"lambda": float(p[1]), "bpp": float(p[2]), "psnr_db": float(p[4])}
+          for p in points]
+    verdict = [line.split(": ")[1] for line in text.splitlines()
+               if line.startswith("monotone RD tradeoff: ")]
+    # The losses each lambda's training logs ({"loss", "bpp", "mse"}).
+    logged, lmbda = {}, None
+    for line in text.splitlines():
+        if line.startswith("=== lambda "):
+            lmbda = float(line.split()[2].rstrip(":"))
+            logged[lmbda] = []
+        elif line.startswith("{'loss'") and lmbda is not None:
+            logged[lmbda].append(ast.literal_eval(line))
+    uses_lambda = all(
+        abs(m["loss"] - (m["bpp"] + lm * m["mse"])) <= 1e-4 * abs(m["loss"])
+        for lm, ms in logged.items() for m in ms)
+    training_fell = {lm: len(ms) >= 2 and ms[-1]["loss"] < ms[0]["loss"]
+                     for lm, ms in logged.items()}
+    # The script's own verdict is logged, not gated on: at its defaults the
+    # two lambdas land within noise of each other (PERF.md §6).  The
+    # run must end with both RD points finite, the summary and a verdict
+    # that its exit code follows, its training lowering the loss it logs.
+    ok = (len(rd) == 2 and "RD summary" in text and len(verdict) == 1
+          and rc == {"OK": 0, "VIOLATED": 1}.get(verdict[0])
+          and all(math.isfinite(p["bpp"]) and math.isfinite(p["psnr_db"])
+                  for p in rd)
+          and len(logged) == 2 and uses_lambda
+          and all(training_fell.values()))
+    # The same model's steps on the script's batches, timed apart.
+    args = EXAMPLE_TRAIN
+    sample = train_synthetic.make_texture_source(args["patchsize"], seed=0)
+    batches = [sample(args["batch_size"])
+               for _ in range(EXAMPLE_TRAIN_STEPS)]
+    model = bls2017.BLS2017Model(lmbda=0.003,
+                                 num_filters=args["num_filters"]).to(device)
+    step = bls2017.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-4))
+    gen = torch.Generator(device=device).manual_seed(0)
+    losses, step_ms = _steps_on_card(
+        lambda b: step(b, generator=gen), lambda i: batches[i],
+        EXAMPLE_TRAIN_STEPS)
+    del model, step
+    steps_fell = (bool(np.isfinite(losses).all())
+                  and float(np.mean(losses[-5:]))
+                  < float(np.mean(losses[:5])))
+    ok = ok and steps_fell
+    log("examples", example="train_synthetic", card=smi, rc=rc,
+        seconds=seconds, rd=rd, verdict=verdict, ok=ok, launches=launches,
+        logged_losses={str(lm): [m["loss"] for m in ms]
+                       for lm, ms in logged.items()},
+        uses_lambda=uses_lambda,
+        training_fell={str(lm): v for lm, v in training_fell.items()},
+        train_step_ms_median=float(np.median(step_ms[3:])),
+        timed_loss_first5=float(np.mean(losses[:5])),
+        timed_loss_last5=float(np.mean(losses[-5:])),
+        timed_loss_fell=steps_fell, **args)
+    if not ok:
+        fails.append("examples/train_synthetic")
+    for k in total:
+        total[k] += launches[k]
+
+    with tempfile.TemporaryDirectory(dir=REPO) as root:
+        bls2017.main(["train", "--model_path",
+                      os.path.join(root, "registry", "bls2017"),
+                      "--steps", "2", "--device", device.type])
+        img_dir = os.path.join(root, "images")
+        os.makedirs(img_dir)
+        rng = np.random.RandomState(17)
+        images = {}
+        for name, shape in EXAMPLE_IMAGES.items():
+            images[name] = rng.randint(0, 256, shape).astype(np.uint8)
+            np.save(os.path.join(img_dir, name), images[name])
+        csv = os.path.join(root, "rd.csv")
+        reset_counts()
+        rows, text, seconds = _run_main(evaluate.main, [
+            "--model_path", os.path.join(root, "registry"), "--model",
+            "bls2017", "--images", img_dir, "--out", csv,
+            "--device", device.type])
+        launches, _ = read_counts(())
+        codec = tfci._load_codec(os.path.join(root, "registry"), "bls2017",
+                                 device)
+        checks = []
+        for name, bpp, psnr, msssim in rows:
+            img = images[name]
+            container = codec.compress(img)
+            rec = codec.decompress(container).astype(np.float32)
+            a = img.astype(np.float32)
+            small = min(img.shape[:2]) < 176
+            checks.append(
+                bpp == 8 * len(container) / (img.shape[0] * img.shape[1])
+                and psnr == float(metrics.psnr(a, rec, device=device))
+                and (math.isnan(msssim) if small else msssim == float(
+                    metrics.msssim(a[None], rec[None], device=device))))
+        with open(csv) as f:
+            csv_lines = f.read().splitlines()
+        del codec
+        encodes = launches["encode_indexed"] + launches["encode_gamma"]
+        ok = (sorted(r[0] for r in rows) == sorted(EXAMPLE_IMAGES)
+              and all(checks) and len(csv_lines) == len(rows) + 1
+              and encodes == len(rows)
+              and launches["decode_gamma"] == len(rows))
+        log("examples", example="evaluate", card=smi, seconds=seconds,
+            rows=[{"image": r[0], "bpp": r[1], "psnr_db": r[2],
+                   "msssim": r[3]} for r in rows], rows_ok=checks,
+            launches=launches, ok=ok)
+        if not ok:
+            fails.append("examples/evaluate")
+        for k in total:
+            total[k] += launches[k]
+
+        record_path = os.path.join(root, "pod.json")
+        reset_counts()
+        rc, text, seconds = _run_main(
+            pod_compress.main, ["--device", device.type, "--out",
+                                record_path])
+        launches, _ = read_counts(())
+        with open(record_path) as f:
+            record = json.load(f)
+        same = "container bytes identical across device counts: True" in text
+        ok = (rc == 0 and same
+              and record["bytes_deterministic_across_device_counts"]
+              and launches["encode_indexed"] > 0
+              and launches["decode_indexed"] > 0)
+        # One card: both meshes are that card, and equal bytes show
+        # nothing of device counts (tests/test_torch_examples.py checks
+        # them on a CPU mesh of 2).
+        bytes_check = ("vacuous: one device" if record["devices"] == 1
+                       else "across device counts")
+        log("examples", example="pod_compress", card=smi, seconds=seconds,
+            rc=rc, record=record, bytes_check=bytes_check,
+            launches=launches, ok=ok)
+        if not ok:
+            fails.append("examples/pod_compress")
+        for k in total:
+            total[k] += launches[k]
+    log("examples", part="phase", seconds=round(time.time() - t_phase, 3))
+    torch.cuda.empty_cache()
+    return total
+
+
 def escape_count(symbols, rows, meta):
     """How many symbols fall outside their row's range (escapes)."""
     from compression_tpu_torch.codec import cuda_coder
@@ -2953,6 +3199,16 @@ def main():
     # counts, and the pair read from the row.
     ztable16 = torch_coder.DeviceCdfTable(zipf_table(16)[0], device)
     compare_single_row("single_row/zipf_p16", ztable16, zsym, fails)
+    # Wide rows at precision 16: 64 buckets (K8''s count from registers at
+    # its limit) and 94 (its binary search in shared memory).
+    for alphabet in WIDE_ROW_ALPHABETS:
+        wtab, wpmf = zipf_table(16, alphabet)
+        wsym_row = torch.as_tensor(np.random.RandomState(alphabet).choice(
+            alphabet, size=WIDE_ROW_SHAPE, p=wpmf).astype(np.int32),
+            device=device)
+        compare_single_row(f"single_row/wide{alphabet}_p16",
+                           torch_coder.DeviceCdfTable(wtab, device),
+                           wsym_row, fails)
     z_slots = ztable.single_row_slots()
     corrupt_cases("decode_single_row",
                   lambda b, ln, c, m: cc.decode_single_row(b, ln, n_z, c, m,
@@ -3744,6 +4000,9 @@ def main():
     parallel_launches = parallel_phase(
         device, codec, ((gsym, gidx, gtab), (zsym.cpu().numpy(), ztab)), smi,
         fails)
+    # Phase 7x: the example scripts (train_synthetic, evaluate,
+    # pod_compress).
+    example_launches = examples_phase(device, smi, fails)
 
     # Phase 8: times at the main paths' shapes.
     saved = dict(cc.LAUNCHES)
@@ -3769,9 +4028,10 @@ def main():
         "encode_scan": cuda_ms(lambda: cc.encode_scan(
             *yops, ysbuf.shape[1]), 5),
         "pair_lookup": cuda_ms(lambda: cc.pair_lookup(*ypair), 50),
-        "decode_single_row_bucketed": cuda_ms(
+        # K8' from a CUDA graph too, beside K5'.
+        "decode_single_row_bucketed": graph_ms(
             lambda: cc.decode_single_row_bucketed(
-                zbuf, zlens, n_z, *ztable.bucketed_arrays()), 20),
+                zbuf, zlens, n_z, *ztable.bucketed_arrays())),
     }
     def at(name, t):
         return f"{name}@{t.shape[0]}x{t.shape[1]}"
@@ -4028,6 +4288,7 @@ def main():
         s_slots = s_tab.single_row_slots()
         s_buf, s_lens = cc.encode_single_row(s_sym, s_cdf, s_meta,
                                              zbuf.shape[1])
+        s_row = s_tab.bucketed_arrays()
         single_ms[at(label, s_sym)] = {
             "encode_ms_graph": [graph_ms(lambda: cc.encode_single_row(
                 s_sym, s_cdf, s_meta, zbuf.shape[1])) for _ in range(2)],
@@ -4041,7 +4302,13 @@ def main():
             "decode_bound_ms": decode_bound(s_lens, n_z, s_cdf, s_meta,
                                             with_indexes=False)[0],
             "encode_chain_floor_ms": scan_floor_ms(n_z, clock),
-            "decode_chain_floor_ms": slot_floor_ms(n_z, s_slots[1], clock)}
+            "decode_chain_floor_ms": slot_floor_ms(n_z, s_slots[1], clock),
+            "bucketed_ms_graph": [graph_ms(
+                lambda: cc.decode_single_row_bucketed(
+                    s_buf, s_lens, n_z, *s_row)) for _ in range(2)],
+            "buckets": int(s_row[0].shape[0]),
+            "bucketed_floor_ms": bucketed_floor_ms(
+                n_z, int(s_row[0].shape[0]), clock)}
     single_sweep = {}
     for streams in SWEEP_STREAMS:
         reps = -(-streams // zsym.shape[0])
@@ -4213,6 +4480,7 @@ def main():
                 + ms_launches[k] + hific_launches[k]
                 + hific_train_launches[k] + tfci_launches[k]
                 + universal_launches[k] + parallel_launches[k]
+                + example_launches[k]
                 for k in cc.LAUNCHES}
     for name, count in launches.items():
         if count == 0:

@@ -32,18 +32,17 @@
 //   ctpu_decode_single_row_bucketed (K8') replaces pallas_coder.py:
 //       decode_scan_pallas (v1, kernel body _make_decode_kernel): one shared
 //       CDF row, no overflow, symbol found by the two-level search of
-//       pallas_coder.py:260-278 -- count the bucket-last values below the
-//       threshold, then search the 17-entry window of that bucket
+//       pallas_coder.py:246-278 -- the threshold t = ceil(lower_bound /
+//       size), the count of bucket-last values below t, then the count of
+//       entries below t in that bucket's 17-entry window
 //       (jax_coder._bucketize_row: the last entry of the bucket before, then
-//       the bucket's 16 entries).  "Below the threshold t = ceil(lower_bound
-//       / size)" is tested as size * c < lower_bound with 64-bit products;
-//       the TPU kernel's f32 quotient and +-2 fix-up is Mosaic's way around
-//       its missing wide multiply and is not carried over.  The interval is
-//       [largest window entry below, smallest one not below (at most 2^16)),
-//       the symbol min(16 * full buckets + entries below in the window,
-//       max_len - 1) - 1, and the sanity flag that of pallas_coder.py:301-313
-//       (the same check as the other kernels').  It is the second,
-//       independent single-row decoder that K5' is held against.
+//       the bucket's 16 entries).  The interval is [largest window entry
+//       below, smallest one not below (at most 2^16)), the symbol min(16 *
+//       full buckets + entries below in the window but its first, max_len -
+//       1) - 1, and the sanity flag that of pallas_coder.py:301-313 (the
+//       same check as the other kernels').  It is the second, independent
+//       single-row decoder that K5' is held against: its search reads the
+//       v1 kernel's buckets and windows, never K5''s slot table.
 //
 // The thread template's two, K5' and the warp kernels compute the same
 // function as the XLA scan the TPU kernels are held to, jax_coder.decode_core
@@ -104,6 +103,30 @@
 //   - Measured on an H100 (PERF.md): 0.084 ms at 32768 x 512 against
 //     0.467 for the binary search's kernel, ahead of it at every stream
 //     count from 1 to 65536; the chain's floor is 0.030 ms.
+//
+// K8' runs at the same 32768 x 512 as K5' and shares its frame: one thread
+// per stream, 256 a block, the stream's bytes through K5''s cp.async ring
+// (RowReader) with the next chunk a symbol ahead in a register, K5''s
+// threshold (one f32 quotient set right by two exact products, capped at
+// 2^prec + 1), symbols stored 8 at a time as two 16-byte stores.  After
+// the threshold every test is c < t in 32 bits:
+//   - The bucket count.  bucket_last is staged in shared memory once a
+//     block, padded with a value no threshold exceeds.  Rows of at most
+//     kLinearMaxBuckets buckets (the zipf row has 17) hold it in registers
+//     and count it by an unrolled compare-and-add in four partial sums: no
+//     load and no branch on the chain.  Longer rows binary-search it in
+//     shared memory (log2 of the padded count of dependent loads).
+//   - The window.  Each bucket's window is staged as a row of 20 int32: 0,
+//     its 17 entries, 65536 twice.  The window is non-decreasing, so the
+//     entries below t are a prefix of it: f of them are counted from five
+//     16-byte loads, and the interval is (row[f], row[f + 1]), two loads,
+//     with no max or min over the window.
+// The bucketed search has more work a symbol than K5''s one load: 136
+// instructions against 50 in the compiled kernels, and 37 register
+// operations and two shared loads on the chain against 21 and one.
+// Measured on an H100 (PERF.md): 0.168 ms at 32768 x 512 on the zipf row
+// (0.536 for the kernel before, bucket tests as 64-bit products over
+// bytes read from global memory); the chain's floor is 0.050 ms.
 //
 // Warp per stream (down to the one stream of a classic .tfci container, and
 // the few hundred of a native container's launch): with one thread per
@@ -314,60 +337,6 @@ __global__ void decode_kernel(
   sanity[s] = dec.sane(src_len) ? 1 : 0;
 }
 
-// bucket_last: int32 [num_buckets]; win17: int32 [num_buckets, 17].
-__global__ void decode_bucketed_kernel(
-    const uint8_t* __restrict__ buf, int64_t buf_width,
-    const int32_t* __restrict__ byte_lens, int64_t num_streams,
-    int64_t num_elements, const int32_t* __restrict__ bucket_last,
-    const int32_t* __restrict__ win17, int num_buckets, int max_pv, int prec,
-    int32_t* __restrict__ symbols, uint8_t* __restrict__ sanity) {
-  extern __shared__ int32_t smem[];
-  int32_t* blast = smem;
-  int32_t* win = smem + num_buckets;
-  for (int i = threadIdx.x; i < num_buckets; i += blockDim.x)
-    blast[i] = bucket_last[i];
-  for (int i = threadIdx.x; i < 17 * num_buckets; i += blockDim.x)
-    win[i] = win17[i];
-  __syncthreads();
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (s >= num_streams) return;
-
-  const int64_t src_len = byte_lens[s];
-  Decoder dec;
-  dec.src = buf + s * buf_width;
-  dec.avail = src_len < buf_width ? src_len : buf_width;
-  dec.start();
-  int32_t* orow = symbols + s * num_elements;
-  for (int64_t j = 0; j < num_elements; ++j) {
-    const uint64_t size = static_cast<uint64_t>(dec.sm1) + 1;
-    const uint64_t lower_bound =
-        (static_cast<uint64_t>(dec.value - dec.base) + 1) << prec;
-    int nfull = 0;
-    for (int b = 0; b < num_buckets; ++b)
-      nfull += size * static_cast<uint64_t>(blast[b]) < lower_bound ? 1 : 0;
-    const int bsel = nfull < num_buckets - 1 ? nfull : num_buckets - 1;
-    const int32_t* w = win + 17 * bsel;
-    int fine = 0;
-    uint32_t c_lo = 0, c_hi = 1u << 17;
-    for (int k = 0; k < 17; ++k) {
-      const uint32_t c = static_cast<uint32_t>(w[k]);
-      if (size * static_cast<uint64_t>(c) < lower_bound) {
-        if (k > 0) ++fine;
-        if (c > c_lo) c_lo = c;
-      } else if (c < c_hi) {
-        c_hi = c;
-      }
-    }
-    if (c_hi > 65536u) c_hi = 65536u;
-    int pv = 16 * nfull + fine;
-    if (pv > max_pv) pv = max_pv;
-    dec.refine(static_cast<uint32_t>((size * c_lo) >> prec),
-               static_cast<uint32_t>((size * c_hi) >> prec) - 1u);
-    orow[j] = pv - 1;
-  }
-  sanity[s] = dec.sane(src_len) ? 1 : 0;
-}
-
 // ---------------------------------------------------------------------------
 // K5', one thread per stream over a slot table.
 // ---------------------------------------------------------------------------
@@ -478,25 +447,121 @@ struct SlotDecoder {
   uint32_t next;
 };
 
-// slot table: tab (int32 units, see slot_units).  One symbol: t = ceil(
-// (offset + 1) 2^prec / size), capped at 2^prec + 1, from an f32 quotient
-// (within 0.03 of the exact one) set right by two exact products; then one
-// slot load (kWide) or a count and the row (two dependent loads).
+// t = ceil((offset + 1) 2^prec / size), capped at tmax = 2^prec + 1 (every
+// entry of a row is below it), from an f32 quotient (within 0.03 of the
+// exact one) set right by two exact products.  The quotient takes the
+// reciprocal's approximation as it is (rcp.approx.ftz, 1 ulp): the size is
+// at least 2^16, so __fdividef's test and scaling for a tiny divisor, two
+// operations on the chain, are not needed (measured on an NVIDIA H100
+// 80GB HBM3, 700 W, by tools/bucketed_decode_probe.py at 32768 x 512 on
+// the zipf row: K5' 0.0835 -> 0.0790 ms, K8' 0.1695 -> 0.1674).  Shared by
+// K5' and K8'.
+__device__ __forceinline__ uint32_t threshold(const SlotDecoder& d, int prec,
+                                              float scale, uint32_t tmax) {
+  const float fo = __uint2float_rn(d.offset) + 1.0f;
+  const float fs = __uint2float_rn(d.sm1) + 1.0f;
+  float rcp;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rcp) : "f"(fs));
+  const float q = fminf(fo * scale * rcp, scale + 2.0f);
+  const uint32_t t0 = __float2uint_ru(q);
+  const uint64_t lb = (static_cast<uint64_t>(d.offset) + 1) << prec;
+  const bool up = static_cast<uint64_t>(d.sm1) * t0 + t0 < lb;
+  const bool down =
+      static_cast<uint64_t>(d.sm1) * (t0 - 1u) + (t0 - 1u) >= lb;
+  return min(t0 + (up ? 1u : 0u) - (down ? 1u : 0u), tmax);
+}
+
+// Narrows the state to the interval [c_lo, c_hi) of the row (scaled by
+// size / 2^prec), renormalizes with the chunk held in ``next`` and loads
+// the next one from the ring.  Shared by K5' and K8'.
+__device__ __forceinline__ void narrow(SlotDecoder& d, const RowReader& rd,
+                                       uint32_t c_lo, uint32_t c_hi,
+                                       int prec) {
+  const uint32_t a = static_cast<uint32_t>(
+      (static_cast<uint64_t>(d.sm1) * c_lo + c_lo) >> prec);
+  const uint32_t b = static_cast<uint32_t>(
+      (static_cast<uint64_t>(d.sm1) * c_hi + c_hi) >> prec) - 1u;
+  const uint32_t ns = b - a;
+  const bool renorm = (ns >> 16) == 0;
+  const uint32_t left = d.offset - a;
+  d.offset = renorm ? __byte_perm(left, d.next, 0x1045) : left;
+  d.value = renorm ? __byte_perm(d.value, d.next, 0x1045) : d.value;
+  d.sm1 = renorm ? (ns << 16) | kU16 : ns;
+  d.pos += renorm ? 2u : 0u;
+  d.next = rd.raw(d.pos);
+}
+
+// Opens the stream at ``src`` (``avail`` readable bytes) on the ring at
+// ``ring``: fills the ring, waits for it, and reads the first two chunks
+// into the state, the third into ``next``.
+__device__ __forceinline__ SlotDecoder open_stream(RowReader& rd,
+                                                   const uint8_t* src,
+                                                   int64_t avail,
+                                                   uint8_t* ring) {
+  rd.avail = avail;
+  rd.odd = (reinterpret_cast<uintptr_t>(src) & 1) != 0;
+  rd.shift = rd.odd ? 0 : static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  rd.seg0 = src - rd.shift;
+  rd.ring = ring;
+  rd.segs = 0;
+  for (int k = 0; k < kSingleRowRing / 16; ++k) rd.fill();
+  copy_async_commit();
+  copy_async_wait<0>();
+  SlotDecoder d;
+  d.sm1 = 0xFFFFFFFFu;
+  d.pos = static_cast<uint32_t>(rd.shift);
+  d.offset = __byte_perm(__byte_perm(0u, rd.raw(d.pos), 0x1045),
+                         rd.raw(d.pos + 2), 0x1045);
+  d.value = d.offset;
+  d.pos += 4;
+  d.next = rd.raw(d.pos);
+  return d;
+}
+
+// Decodes a row's n symbols, one ``symbol(d, rd)`` each: kSingleRowPeriod
+// of them between two looks at the ring, stored together (two 16-byte
+// stores where the row allows).  Returns the stream's sanity flag.  Shared
+// by K5' and K8'.
+template <class Symbol>
+__device__ __forceinline__ uint8_t decode_row(SlotDecoder& d, RowReader& rd,
+                                              int32_t* orow, int64_t n,
+                                              int64_t src_len, Symbol symbol) {
+  const bool vec = (reinterpret_cast<uintptr_t>(orow) & 15) == 0;
+  int64_t j = 0;
+  for (; j + kSingleRowPeriod <= n; j += kSingleRowPeriod) {
+    rd.top_up(d.pos);
+    int32_t out[kSingleRowPeriod];
+#pragma unroll
+    for (int i = 0; i < kSingleRowPeriod; ++i) out[i] = symbol(d, rd);
+    if (vec) {
+      int4* o4 = reinterpret_cast<int4*>(orow + j);
+#pragma unroll
+      for (int i = 0; i < kSingleRowPeriod / 4; ++i)
+        o4[i] = make_int4(out[4 * i], out[4 * i + 1], out[4 * i + 2],
+                          out[4 * i + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSingleRowPeriod; ++i) orow[j + i] = out[i];
+    }
+  }
+  rd.top_up(d.pos);
+  for (; j < n; ++j) orow[j] = symbol(d, rd);
+  const int64_t chunks = (d.pos - static_cast<uint32_t>(rd.shift)) / 2;
+  return stream_sane(d.value - d.offset, d.sm1, d.value, chunks, src_len)
+             ? 1
+             : 0;
+}
+
+// slot table: tab (int32 units, see slot_units).  One symbol: the threshold
+// t, then one slot load (kWide) or a count and the row (two dependent
+// loads).
 template <bool kWide>
 __device__ __forceinline__ int32_t slot_symbol(SlotDecoder& d,
                                                const RowReader& rd,
                                                const int32_t* tab, int prec,
                                                int max_len, float scale,
                                                uint32_t tmax) {
-  const float fo = __uint2float_rn(d.offset) + 1.0f;
-  const float fs = __uint2float_rn(d.sm1) + 1.0f;
-  const float q = fminf(__fdividef(fo * scale, fs), scale + 2.0f);
-  const uint32_t t0 = __float2uint_ru(q);
-  const uint64_t lb = (static_cast<uint64_t>(d.offset) + 1) << prec;
-  const bool up = static_cast<uint64_t>(d.sm1) * t0 + t0 < lb;
-  const bool down =
-      static_cast<uint64_t>(d.sm1) * (t0 - 1u) + (t0 - 1u) >= lb;
-  const uint32_t t = min(t0 + (up ? 1u : 0u) - (down ? 1u : 0u), tmax);
+  const uint32_t t = threshold(d, prec, scale, tmax);
   uint32_t c_lo, c_hi;
   int32_t sym;
   if (kWide) {
@@ -513,18 +578,7 @@ __device__ __forceinline__ int32_t slot_symbol(SlotDecoder& d,
     c_hi = static_cast<uint32_t>(row[count + 1]);
     sym = static_cast<int32_t>(min(count, static_cast<uint32_t>(max_len - 2)));
   }
-  const uint32_t a = static_cast<uint32_t>(
-      (static_cast<uint64_t>(d.sm1) * c_lo + c_lo) >> prec);
-  const uint32_t b = static_cast<uint32_t>(
-      (static_cast<uint64_t>(d.sm1) * c_hi + c_hi) >> prec) - 1u;
-  const uint32_t ns = b - a;
-  const bool renorm = (ns >> 16) == 0;
-  const uint32_t left = d.offset - a;
-  d.offset = renorm ? __byte_perm(left, d.next, 0x1045) : left;
-  d.value = renorm ? __byte_perm(d.value, d.next, 0x1045) : d.value;
-  d.sm1 = renorm ? (ns << 16) | kU16 : ns;
-  d.pos += renorm ? 2u : 0u;
-  d.next = rd.raw(d.pos);
+  narrow(d, rd, c_lo, c_hi, prec);
   return sym;
 }
 
@@ -561,57 +615,158 @@ decode_single_row_kernel(const uint8_t* __restrict__ buf, int64_t buf_width,
   if (s >= num_streams) return;
 
   const int64_t src_len = byte_lens[s];
-  const uint8_t* src = buf + s * buf_width;
   RowReader rd;
-  rd.avail = src_len < buf_width ? src_len : buf_width;
-  rd.odd = (reinterpret_cast<uintptr_t>(src) & 1) != 0;
-  rd.shift = rd.odd ? 0 : static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
-  rd.seg0 = src - rd.shift;
-  rd.ring = reinterpret_cast<uint8_t*>(row_smem) + threadIdx.x * kSingleRowRing;
-  rd.segs = 0;
-  for (int k = 0; k < kSingleRowRing / 16; ++k) rd.fill();
-  copy_async_commit();
-  copy_async_wait<0>();
-
-  SlotDecoder d;
-  d.sm1 = 0xFFFFFFFFu;
-  d.pos = static_cast<uint32_t>(rd.shift);
-  d.offset = __byte_perm(__byte_perm(0u, rd.raw(d.pos), 0x1045),
-                         rd.raw(d.pos + 2), 0x1045);
-  d.value = d.offset;
-  d.pos += 4;
-  d.next = rd.raw(d.pos);
+  SlotDecoder d = open_stream(
+      rd, buf + s * buf_width, src_len < buf_width ? src_len : buf_width,
+      reinterpret_cast<uint8_t*>(row_smem) + threadIdx.x * kSingleRowRing);
 
   const float scale = static_cast<float>(1u << prec);
   const uint32_t tmax = (1u << prec) + 1u;
-  const int64_t n = num_elements;
-  int32_t* orow = symbols + s * n;
-  const bool vec = (reinterpret_cast<uintptr_t>(orow) & 15) == 0;
-  int64_t j = 0;
-  for (; j + kSingleRowPeriod <= n; j += kSingleRowPeriod) {
-    rd.top_up(d.pos);
-    int32_t out[kSingleRowPeriod];
+  sanity[s] = decode_row(
+      d, rd, symbols + s * num_elements, num_elements, src_len,
+      [&](SlotDecoder& dd, const RowReader& r) {
+        return slot_symbol<kWide>(dd, r, tab, prec, max_len, scale, tmax);
+      });
+}
+
+// ---------------------------------------------------------------------------
+// K8', one thread per stream over the v1 kernel's buckets and windows.
+// ---------------------------------------------------------------------------
+// Streams (threads) a block: K5''s geometry, whose sweep found 256 best at
+// 32768 x 512.
+constexpr int kBucketedThreads = 256;
+// Rows of at most this many buckets count the bucket-last values below the
+// threshold from registers, longer ones binary-search them in shared
+// memory.  Measured on an NVIDIA H100 80GB HBM3 (700 W) by
+// tools/bucketed_decode_probe.py --variants, from a CUDA graph, at 32768 x
+// 512, registers / binary search, ms: the zipf row (17 buckets) 0.1684 /
+// 0.2293, a row of 1021 entries at precision 16 (64 buckets) 0.2371 /
+// 0.2663.  Each bucket costs two instructions a symbol, each search step
+// a dependent shared load.
+constexpr int kLinearMaxBuckets = 64;
+// A window in shared memory: 0, the bucket's 17 entries, then 65536 twice
+// (80 bytes, 16-byte aligned).
+constexpr int kWindowStride = 20;
+// Padding of the bucket-last values, above every threshold (at most 65537).
+constexpr uint32_t kNeverBelow = 0x7FFFFFFFu;
+
+// 1 where c < t, else 0, for c and t below 2^31: the borrow of c - t.
+__device__ __forceinline__ uint32_t below(uint32_t c, uint32_t t) {
+  return (c - t) >> 31;
+}
+
+// a + b where it is written: the compiler would otherwise fold the
+// partial sums of a count into one chain of dependent adds (17 long for the
+// window, measured in the SASS), which lies on the symbol's chain.
+__device__ __forceinline__ uint32_t add_apart(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("add.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// One symbol of the bucketed search.  blast: the bucket-last values in
+// registers (kQuads > 0, 4 kQuads of them) or in shared memory (kQuads ==
+// 0, ``padded`` of them, a power of two above the bucket count); win: the
+// windows in shared memory, kWindowStride int32 each.
+template <int kQuads>
+__device__ __forceinline__ int32_t bucketed_symbol(
+    SlotDecoder& d, const RowReader& rd, const uint32_t* blast_reg,
+    const uint32_t* blast, int padded, const int32_t* win, int num_buckets,
+    int max_pv, int prec, float scale, uint32_t tmax) {
+  const uint32_t t = threshold(d, prec, scale, tmax);
+  int nfull;
+  if constexpr (kQuads > 0) {
+    uint32_t p0 = 0, p1 = 0, p2 = 0, p3 = 0;
 #pragma unroll
-    for (int i = 0; i < kSingleRowPeriod; ++i)
-      out[i] = slot_symbol<kWide>(d, rd, tab, prec, max_len, scale, tmax);
-    if (vec) {
-      int4* o4 = reinterpret_cast<int4*>(orow + j);
-#pragma unroll
-      for (int i = 0; i < kSingleRowPeriod / 4; ++i)
-        o4[i] = make_int4(out[4 * i], out[4 * i + 1], out[4 * i + 2],
-                          out[4 * i + 3]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kSingleRowPeriod; ++i) orow[j + i] = out[i];
+    for (int q = 0; q < kQuads; ++q) {
+      p0 += below(blast_reg[4 * q], t);
+      p1 += below(blast_reg[4 * q + 1], t);
+      p2 += below(blast_reg[4 * q + 2], t);
+      p3 += below(blast_reg[4 * q + 3], t);
     }
+    nfull = static_cast<int>(
+        add_apart(add_apart(p0, p1), add_apart(p2, p3)));
+  } else {
+    nfull = 0;
+#pragma unroll 1
+    for (int step = padded >> 1; step > 0; step >>= 1)
+      nfull += below(blast[nfull + step - 1], t) ? step : 0;
   }
-  rd.top_up(d.pos);
-  for (; j < n; ++j)
-    orow[j] = slot_symbol<kWide>(d, rd, tab, prec, max_len, scale, tmax);
-  const int64_t chunks = (d.pos - static_cast<uint32_t>(rd.shift)) / 2;
-  sanity[s] = stream_sane(d.value - d.offset, d.sm1, d.value, chunks, src_len)
-                  ? 1
-                  : 0;
+  const int bsel = min(nfull, num_buckets - 1);
+  const int32_t* row = win + kWindowStride * bsel;
+  const int4* row4 = reinterpret_cast<const int4*>(row);
+  const int4 w0 = row4[0], w1 = row4[1], w2 = row4[2], w3 = row4[3],
+             w4 = row4[4];
+  // Entries 1 ... 17 of the row are the window.
+  const uint32_t f0 = below(w0.y, t) + below(w0.z, t) + below(w0.w, t) +
+                      below(w4.x, t) + below(w4.y, t);
+  const uint32_t f1 = below(w1.x, t) + below(w1.y, t) + below(w1.z, t) +
+                      below(w1.w, t);
+  const uint32_t f2 = below(w2.x, t) + below(w2.y, t) + below(w2.z, t) +
+                      below(w2.w, t);
+  const uint32_t f3 = below(w3.x, t) + below(w3.y, t) + below(w3.z, t) +
+                      below(w3.w, t);
+  const int f = static_cast<int>(add_apart(add_apart(f0, f1),
+                                           add_apart(f2, f3)));
+  const uint32_t c_lo = static_cast<uint32_t>(row[f]);
+  const uint32_t c_hi = static_cast<uint32_t>(row[f + 1]);
+  narrow(d, rd, c_lo, c_hi, prec);
+  const int pv = min(16 * nfull + max(f - 1, 0), max_pv);
+  return pv - 1;
+}
+
+// buckets: bucket_last int32 [num_buckets]; windows: int32 [num_buckets,
+// 17] (cuda_coder.bucketize_row).  Shared memory: the rings, the windows
+// (kWindowStride int32 each), then bucket_last padded to ``padded``.
+template <int kQuads>
+__global__ void __launch_bounds__(kBucketedThreads)
+decode_bucketed_kernel(const uint8_t* __restrict__ buf, int64_t buf_width,
+                       const int32_t* __restrict__ byte_lens,
+                       int64_t num_streams, int64_t num_elements,
+                       const int32_t* __restrict__ bucket_last,
+                       const int32_t* __restrict__ win17, int num_buckets,
+                       int padded, int max_pv, int prec,
+                       int32_t* __restrict__ symbols,
+                       uint8_t* __restrict__ sanity) {
+  extern __shared__ int4 bucket_smem[];
+  int32_t* win = reinterpret_cast<int32_t*>(
+      bucket_smem + kBucketedThreads * kSingleRowRing / 16);
+  uint32_t* blast =
+      reinterpret_cast<uint32_t*>(win + kWindowStride * num_buckets);
+  for (int i = threadIdx.x; i < kWindowStride * num_buckets;
+       i += kBucketedThreads) {
+    const int b = i / kWindowStride;
+    const int k = i - b * kWindowStride;
+    win[i] = k == 0 ? 0 : (k <= 17 ? win17[17 * b + k - 1] : 65536);
+  }
+  for (int i = threadIdx.x; i < padded; i += kBucketedThreads)
+    blast[i] = i < num_buckets ? static_cast<uint32_t>(bucket_last[i])
+                               : kNeverBelow;
+  __syncthreads();
+  const int64_t s =
+      static_cast<int64_t>(blockIdx.x) * kBucketedThreads + threadIdx.x;
+  if (s >= num_streams) return;
+
+  uint32_t blast_reg[kQuads > 0 ? 4 * kQuads : 1];
+#pragma unroll
+  for (int i = 0; i < (kQuads > 0 ? 4 * kQuads : 0); ++i)
+    blast_reg[i] = blast[i];
+
+  const int64_t src_len = byte_lens[s];
+  RowReader rd;
+  SlotDecoder d = open_stream(
+      rd, buf + s * buf_width, src_len < buf_width ? src_len : buf_width,
+      reinterpret_cast<uint8_t*>(bucket_smem) + threadIdx.x * kSingleRowRing);
+
+  const float scale = static_cast<float>(1u << prec);
+  const uint32_t tmax = (1u << prec) + 1u;
+  sanity[s] = decode_row(
+      d, rd, symbols + s * num_elements, num_elements, src_len,
+      [&](SlotDecoder& dd, const RowReader& r) {
+        return bucketed_symbol<kQuads>(dd, r, blast_reg, blast, padded, win,
+                                       num_buckets, max_pv, prec, scale,
+                                       tmax);
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -1157,28 +1312,66 @@ extern "C" int ctpu_decode_indexed_warp(
                                sanity, stream);
 }
 
+// K8''s kernel with the bucket count from registers at kQuads quads
+// (kQuads in [1, kLinearMaxBuckets / 4]), or by binary search (0).
+template <int kQuads = kLinearMaxBuckets / 4>
+cudaError_t launch_bucketed(int quads, dim3 grid, size_t smem,
+                            cudaStream_t stream, const uint8_t* buf,
+                            int64_t buf_width, const int32_t* byte_lens,
+                            int64_t num_streams, int64_t num_elements,
+                            const int32_t* bucket_last, const int32_t* win17,
+                            int num_buckets, int padded, int max_pv, int prec,
+                            int32_t* symbols, uint8_t* sanity) {
+  if constexpr (kQuads > 0) {
+    if (quads != kQuads)
+      return launch_bucketed<kQuads - 1>(
+          quads, grid, smem, stream, buf, buf_width, byte_lens, num_streams,
+          num_elements, bucket_last, win17, num_buckets, padded, max_pv, prec,
+          symbols, sanity);
+  }
+  auto kernel = decode_bucketed_kernel<kQuads>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kBucketedThreads, smem, stream>>>(
+      buf, buf_width, byte_lens, num_streams, num_elements, bucket_last,
+      win17, num_buckets, padded, max_pv, prec, symbols, sanity);
+  return cudaGetLastError();
+}
+
+// bucket_last int32 [num_buckets], win17 int32 [num_buckets, 17] of a row
+// at precision prec (1 ... 16) whose entries are at most 2^prec; max_pv the
+// row's padded length less one.
 extern "C" int ctpu_decode_single_row_bucketed(
     const uint8_t* buf, int64_t buf_width, const int32_t* byte_lens,
     int64_t num_streams, int64_t num_elements, const int32_t* bucket_last,
     const int32_t* win17, int num_buckets, int max_pv, int prec,
     int32_t* symbols, uint8_t* sanity, void* stream) {
-  const size_t smem = sizeof(int32_t) * 18 * static_cast<size_t>(num_buckets);
-  if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_bucketed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = num_streams >= 128 * 132 ? 128 : 32;
-  const int64_t blocks = (num_streams + threads - 1) / threads;
-  if (blocks > 0) {
-    decode_bucketed_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-        buf, buf_width, byte_lens, num_streams, num_elements, bucket_last,
-        win17, num_buckets, max_pv, prec, symbols, sanity);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (prec < 1 || prec > 16 || num_buckets < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // bucket_last padded to a power of two above the bucket count (the binary
+  // search's reach) and to whole quads (the registers' loads).
+  int padded = 1;
+  while (padded <= num_buckets) padded <<= 1;
+  const int quads = (num_buckets + 3) / 4;
+  padded = max(padded, 4 * quads);
+  const size_t smem =
+      static_cast<size_t>(kBucketedThreads) * kSingleRowRing +
+      sizeof(int32_t) * (static_cast<size_t>(kWindowStride) * num_buckets +
+                         padded);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks =
+      (num_streams + kBucketedThreads - 1) / kBucketedThreads;
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_bucketed(
+      num_buckets <= kLinearMaxBuckets ? quads : 0,
+      dim3(static_cast<unsigned>(blocks)), smem,
+      static_cast<cudaStream_t>(stream), buf, buf_width, byte_lens,
+      num_streams, num_elements, bucket_last, win17, num_buckets, padded,
+      max_pv, prec, symbols, sanity));
 }
 
 // slots: cuda_coder.single_row_slots(cdf, meta) of a one-row table of

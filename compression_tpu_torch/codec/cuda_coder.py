@@ -68,7 +68,9 @@ pair lookup four elements per thread:
   ``gamma_micro_ops``.
 * ``decode_single_row_bucketed`` (K8') replaces
   ``pallas_coder.decode_scan_pallas`` (v1): the single-row decode with the
-  two-level bucketed search, a second decoder independent of K5'.
+  two-level bucketed search, a second decoder independent of K5'.  One
+  thread per stream on K5''s byte ring and threshold, then 32-bit counts
+  over the buckets and the window.
 
 K1, K4', K6' and the micro-op mode are in ``csrc/encode_indexed.cu``; K2,
 K5', K3' and K8' in ``csrc/decode_indexed.cu``; K7' in
@@ -1350,10 +1352,11 @@ def single_row_slots(cdf, meta, precision=None):
 
 def single_row_threshold_plain(offset, sm1, precision):
     """K5''s slot index t for decoder states (int64 [S] offsets value - base
-    and sizes - 1, 32-bit values): ceil((offset + 1) 2^precision / (sm1 +
-    1)), capped at 2^precision + 1, as the kernel finds it -- an f32
-    quotient (the kernel's is __fdividef's, within 2 ulp of this one),
-    rounded up, then moved by one where an exact product shows it off."""
+    and sizes - 1, 32-bit values), K8''s threshold too: ceil((offset + 1)
+    2^precision / (sm1 + 1)), capped at 2^precision + 1, as the kernels find
+    it -- an f32 quotient (theirs a product with rcp.approx's reciprocal,
+    within 2 ulp of this one), rounded up, then moved by one where an exact
+    product shows it off."""
     scale = float(1 << precision)
     fo = offset.to(torch.float32) + 1
     fs = sm1.to(torch.float32) + 1
@@ -1605,8 +1608,9 @@ def decode_single_row_bucketed(buf, byte_lens, num_elements, bucket_last,
 
     The row comes in the v1 kernel's form, which
     ``DeviceCdfTable.bucketed_arrays`` keeps: ``bucket_last`` int32 [nb],
-    ``win17`` int32 [nb, 17] (see ``bucketize_row``), ``max_pv`` the row's
-    padded length less one, and its ``precision``.
+    ``win17`` int32 [nb, 17] (see ``bucketize_row``) of a non-decreasing
+    row whose entries are at most 2^precision, ``max_pv`` the row's padded
+    length less one, and its ``precision``.
     """
     device = buf.device
     _check("buf", buf, torch.uint8, 2, device)
@@ -1636,29 +1640,41 @@ def decode_single_row_bucketed(buf, byte_lens, num_elements, bucket_last,
     return symbols, sanity
 
 
+def _bucketed_search_exact(size, lower_bound, bucket_last, win17, max_pv):
+    """The v1 kernel body's search for decoder states (int64 [S] sizes and
+    lower bounds (value - base + 1) 2^precision), each test an exact
+    product size * c < lower_bound: (symbol, c_lo, c_hi) int64 [S], the
+    interval the largest window entry below and the smallest one not
+    below (at most 2^16)."""
+    bucket_last, win17 = bucket_last.long(), win17.long()
+    num_buckets = bucket_last.shape[0]
+    full = size[:, None] * bucket_last[None, :] < lower_bound[:, None]
+    nfull = full.sum(1)
+    win = win17[nfull.clamp(max=num_buckets - 1)]
+    below = size[:, None] * win < lower_bound[:, None]
+    fine = below[:, 1:].sum(1)
+    pv = (16 * nfull + fine).clamp(max=max_pv)
+    c_lo = torch.where(below, win, 0).amax(1)
+    c_hi = torch.where(below, 1 << 17, win).amin(1).clamp(max=1 << 16)
+    return pv - 1, c_lo, c_hi
+
+
 def decode_single_row_bucketed_plain(buf, byte_lens, bucket_last, win17,
                                      max_pv, precision, symbols, sanity):
     """Plain PyTorch version of K8' (writes symbols, sanity): the steps of
-    the v1 kernel body, with the threshold test as an exact product."""
-    bucket_last, win17 = bucket_last.long(), win17.long()
-    num_buckets = bucket_last.shape[0]
-    prec = int(precision)
+    the v1 kernel body, with the threshold test as an exact product
+    (``_bucketed_search_exact``)."""
+    prec, max_pv = int(precision), int(max_pv)
     dec = _PlainDecoder(buf, byte_lens)
 
     def step(t):
         size = dec.sm1 + 1
         lower_bound = (((dec.value - dec.base) & _M32) + 1) << prec
-        full = size[:, None] * bucket_last[None, :] < lower_bound[:, None]
-        nfull = full.sum(1)
-        win = win17[nfull.clamp(max=num_buckets - 1)]
-        below = size[:, None] * win < lower_bound[:, None]
-        fine = below[:, 1:].sum(1)
-        pv = (16 * nfull + fine).clamp(max=max_pv)
-        c_lo = torch.where(below, win, 0).amax(1)
-        c_hi = torch.where(below, 1 << 17, win).amin(1).clamp(max=1 << 16)
+        sym, c_lo, c_hi = _bucketed_search_exact(
+            size, lower_bound, bucket_last, win17, max_pv)
         dec.refine(((size * c_lo) >> prec) & _M32,
                    (((size * c_hi) >> prec) - 1) & _M32)
-        symbols.index_copy_(1, t, (pv - 1).to(torch.int32)[:, None])
+        symbols.index_copy_(1, t, sym.to(torch.int32)[:, None])
 
     _run_steps(step, symbols.shape[1], buf.device)
     sanity.copy_(dec.sane(byte_lens))

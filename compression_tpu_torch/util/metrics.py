@@ -21,8 +21,8 @@ import torch.nn.functional as F
 from compression_tpu_torch.models import lpips as lpips_lib
 from compression_tpu_torch.util.device import resolve_device
 
-__all__ = ["psnr", "ssim", "msssim", "frechet_distance",
-           "fid_from_features", "kid_from_features",
+__all__ = ["psnr", "ssim", "msssim", "ImageTooSmallError",
+           "frechet_distance", "fid_from_features", "kid_from_features",
            "image_perceptual_features"]
 
 _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
@@ -100,14 +100,27 @@ def _avg_pool2(x):
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
+class ImageTooSmallError(ValueError):
+    """An image smaller than MS-SSIM's coarsest scale takes: each scale
+    needs the SSIM window (``filter_size`` pixels, 11 by default) a side,
+    so five scales need 176."""
+
+
 def msssim(a, b, max_val=255.0, weights=_MSSSIM_WEIGHTS, device="cuda",
            **kwargs):
-    """Multi-scale SSIM (Wang et al. 2003); returns [N]."""
+    """Multi-scale SSIM (Wang et al. 2003); returns [N].  Raises
+    ImageTooSmallError where a scale is smaller than the window."""
     a, b = _batched(a, b, device)
     levels = len(weights)
+    window = kwargs.get("filter_size", 11)
     mcs = []
     luminance = None
     for i in range(levels):
+        if min(a.shape[1], a.shape[2]) < window:
+            raise ImageTooSmallError(
+                f"MS-SSIM's scale {i} is {a.shape[1]}x{a.shape[2]}, smaller "
+                f"than its {window}-pixel window: {levels} scales need "
+                f"{window << (levels - 1)} pixels a side")
         luminance, cs = _ssim_components(a, b, max_val, **kwargs)
         mcs.append(torch.clamp(torch.mean(cs, dim=(1, 2, 3)), min=0.0))
         if i < levels - 1:

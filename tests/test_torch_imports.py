@@ -40,6 +40,8 @@ MODULES = [
     "entropy_models/continuous_batched.py",
     "entropy_models/continuous_indexed.py", "entropy_models/laplace.py",
     "entropy_models/power_law.py", "entropy_models/universal.py",
+    "examples/__init__.py", "examples/evaluate.py",
+    "examples/pod_compress.py", "examples/train_synthetic.py",
     "layers/gdn.py", "layers/initializers.py", "layers/parameters.py",
     "layers/signal_conv.py", "layers/soft_round.py",
     "models/bls2017.py", "models/bmshj2018.py", "models/cli.py",

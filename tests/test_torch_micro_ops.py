@@ -2,13 +2,17 @@
 package: ``micro_ops_from_symbols`` / ``encode_core`` /
 ``encode_streams_budgeted`` of compression_tpu_torch.codec.torch_coder, the
 plain version of the pair lookup (K7') and the plain version of the bucketed
-single-row decode (K8').
+single-row decode (K8'), with the plain mirror of K8''s kernel (K5''s
+threshold, 32-bit counts over the buckets and the window, the interval read
+at the window's count) against the exact products.
 
 Every comparison is exact (micro-op arrays, bytes, lengths, symbols, sanity
 flags): the coder has no tolerance.  The JAX package's Pallas kernels run in
 interpret mode, as its own tests run them on the CPU.
 """
 
+import hypothesis
+import hypothesis.strategies as st
 import numpy as np
 import pytest
 import torch
@@ -367,3 +371,186 @@ def test_decode_streams_single_row_route():
     again, sane = cuda_coder.decode_single_row_bucketed(
         buf, lens, 20, *pt.bucketed_arrays())
     assert torch.equal(again, out) and torch.equal(sane, ok)
+
+
+# -- K8''s kernel arithmetic: threshold, 32-bit counts, two-read window -------
+M32 = 2 ** 32 - 1
+
+
+def _windows(win17):
+    """K8''s windows as the kernel stages them (int64 [nb, 20]): 0, the
+    window's 17 entries, then 65536 twice.  The entries below a threshold
+    are a prefix of the 17 (the row does not decrease), so with f of them
+    the interval is (row[f], row[f + 1])."""
+    win17 = win17.long()
+    return torch.cat([torch.zeros_like(win17[:, :1]), win17,
+                      torch.full_like(win17[:, :2], 1 << 16)], 1)
+
+
+def _kernel_search(t, bucket_last, windows, max_pv):
+    """Plain mirror of K8''s search for thresholds t (int64 [S], the output
+    of ``single_row_threshold_plain``, which K5' and K8' share): (symbol,
+    c_lo, c_hi) int64 [S].  The bucket count is #{b : bucket_last[b] < t};
+    the window's count f is #{k : windows[b, 1 + k] < t} over its 17
+    entries, and the interval (windows[b, f], windows[b, f + 1]) is read,
+    not reduced over the window; the symbol min(16 nfull + max(f - 1, 0),
+    max_pv) - 1."""
+    bucket_last = bucket_last.long()
+    num_buckets = bucket_last.shape[0]
+    nfull = (bucket_last[None, :] < t[:, None]).sum(1)
+    row = windows[nfull.clamp(max=num_buckets - 1)]
+    f = (row[:, 1:18] < t[:, None]).sum(1)
+    c_lo = row.gather(1, f[:, None])[:, 0]
+    c_hi = row.gather(1, f[:, None] + 1)[:, 0]
+    pv = (16 * nfull + (f - 1).clamp(min=0)).clamp(max=max_pv)
+    return pv - 1, c_lo, c_hi
+
+
+def _row_with_repeats(precision, length, seed):
+    """A non-decreasing CDF row from 0 to 2^precision with repeated entries
+    (zero-probability symbols), padded as a table pads it."""
+    rng = np.random.RandomState(seed)
+    top = 1 << precision
+    inner = np.sort(rng.randint(0, top + 1, length - 2))
+    inner[rng.rand(length - 2) < 0.3] = 0  # runs of zeros, sorted below
+    row = np.concatenate([[0], np.sort(inner), [top]]).astype(np.int32)
+    return torch.as_tensor(row)
+
+
+def _bucketed(row):
+    blast, win17 = cuda_coder.bucketize_row(row)
+    max_pv = row.shape[0] - 1
+    return blast, win17, _windows(win17), max_pv
+
+
+def _check_states(offset, sm1, precision, row):
+    """The mirror's step (threshold, bucket count, prefix count, two reads)
+    against the exact products on decoder states (int64 [S] offsets value -
+    base and sizes - 1); also the prefix claim: in every window the entries
+    below the threshold come first."""
+    blast, win17, windows, max_pv = _bucketed(row)
+    size = sm1 + 1
+    lower_bound = (offset + 1) << precision
+    t = cuda_coder.single_row_threshold_plain(offset, sm1, precision)
+    mine = _kernel_search(t, blast, windows, max_pv)
+    exact = cuda_coder._bucketed_search_exact(size, lower_bound, blast,
+                                              win17, max_pv)
+    for a, b in zip(mine, exact):
+        assert torch.equal(a, b)
+    below = size[:, None, None] * win17.long()[None, :, :] < \
+        lower_bound[:, None, None]
+    assert bool((below[..., 1:] <= below[..., :-1]).all())
+    full = size[:, None] * blast.long()[None, :] < lower_bound[:, None]
+    assert bool((full[:, 1:] <= full[:, :-1]).all())
+
+
+BUCKETED_ROWS = {
+    1: [torch.tensor([0, 1, 2], dtype=torch.int32),
+        torch.tensor([0, 0, 2, 2], dtype=torch.int32)],
+    12: [_row_with_repeats(12, 258, 1), _row_with_repeats(12, 40, 2)],
+    16: [_row_with_repeats(16, 1021, 3), _row_with_repeats(16, 34, 4),
+         torch.tensor([0] * 20 + [65536] * 3, dtype=torch.int32)],
+}
+
+
+@pytest.mark.parametrize("precision", sorted(BUCKETED_ROWS))
+@hypothesis.settings(max_examples=150, deadline=None, derandomize=True,
+                     database=None)
+@hypothesis.given(states=st.lists(st.tuples(st.integers(0, M32),
+                                            st.integers(2 ** 16 - 1, M32)),
+                                  min_size=1, max_size=64))
+@hypothesis.example(states=[(2 ** 16 - 1, 2 ** 16 - 1), (0, 2 ** 16 - 1),
+                            (M32, M32), (M32, 2 ** 16 - 1), (0, M32),
+                            (2 ** 31, 2 ** 31)])
+def test_bucketed_step_matches_exact_products(precision, states):
+    """Any state a stream can reach, valid (offset <= size - 1, incl.
+    offset = size - 1 and size = 2^16) or corrupt (offset past the size):
+    the kernel's step equals the v1 kernel body's exact products, on rows
+    with zero-probability symbols, and the entries below the threshold are
+    a prefix of every window and of the bucket-last values."""
+    offset = torch.tensor([s[0] for s in states], dtype=torch.int64)
+    sm1 = torch.tensor([s[1] for s in states], dtype=torch.int64)
+    for row in BUCKETED_ROWS[precision]:
+        _check_states(offset, sm1, precision, row)
+        valid = torch.minimum(offset, sm1)
+        _check_states(valid, sm1, precision, row)
+
+
+def _decode_both(buf, lens, n, row, precision, monkeypatch):
+    """The mirror's and the exact plain version's symbols and flags, and
+    the states the exact one met before each symbol.  The mirror is
+    ``decode_single_row_bucketed_plain`` with its exact search replaced by
+    the kernel's: the threshold from the same state, then
+    ``_kernel_search``."""
+    blast, win17, windows, max_pv = _bucketed(row)
+    states = []
+    exact = cuda_coder._bucketed_search_exact
+
+    def kernel_step(size, lower_bound, *args):
+        offset = (lower_bound >> precision) - 1
+        t = cuda_coder.single_row_threshold_plain(offset, size - 1,
+                                                  precision)
+        return _kernel_search(t, blast, windows, max_pv)
+
+    def recording(size, lower_bound, *args):
+        states.append(((lower_bound >> precision) - 1, size - 1))
+        return exact(size, lower_bound, *args)
+
+    out = [torch.empty((buf.shape[0], n), dtype=torch.int32),
+           torch.empty(buf.shape[0], dtype=torch.bool)]
+    ref = [torch.empty_like(out[0]), torch.empty_like(out[1])]
+    for search, result in ((kernel_step, out), (recording, ref)):
+        monkeypatch.setattr(cuda_coder, "_bucketed_search_exact", search)
+        cuda_coder.decode_single_row_bucketed_plain(
+            buf, lens, blast, win17, max_pv, precision, *result)
+    monkeypatch.undo()
+    return out, ref, states
+
+
+@pytest.mark.parametrize("kind", K8_KINDS)
+@pytest.mark.parametrize("precision,alphabet",
+                         [(1, 2), (12, 40), (15, 70), (16, 33)])
+def test_bucketed_mirror_matches_exact_plain(monkeypatch, precision,
+                                             alphabet, kind):
+    """On the streams of test_bucketed_decode_matches_v1_kernel (the v1
+    kernel's interpret-mode cases: intact, truncated, bit-flipped, random
+    and empty), and at precision 1, the kernel's mirror gives the exact
+    plain version's symbols and flags; the prefix claim holds on every
+    state those streams reach."""
+    rng = np.random.RandomState(precision + K8_KINDS.index(kind))
+    pmf, ragged = _single_row(precision, alphabet)
+    n = 29
+    sym = rng.choice(alphabet, size=(256, n), p=pmf).astype(np.int32)
+    buf, lens = jax_coder.encode_streams(
+        sym, jax_tables.parse_ragged_cdf(ragged))
+    buf, lens = _corrupt(kind, buf, lens, rng)
+    _, pt = _tables(ragged)
+    row = pt.indexed_arrays()[0][0]
+    (out, ok), (ref, ref_ok), states = _decode_both(
+        torch.as_tensor(buf), torch.as_tensor(lens), n, row, precision,
+        monkeypatch)
+    assert torch.equal(out, ref) and torch.equal(ok, ref_ok)
+    if kind == "none":
+        np.testing.assert_array_equal(out.numpy(), sym)
+        assert bool(ok.all())
+    offset = torch.cat([s[0] for s in states])
+    sm1 = torch.cat([s[1] for s in states])
+    _check_states(offset, sm1, precision, row)
+
+
+@pytest.mark.parametrize("precision", [12, 16])
+def test_bucketed_mirror_on_zero_probability_rows(monkeypatch, precision):
+    """Random and bit-flipped streams on rows with repeated entries (the
+    decode can land on a zero-probability symbol, an empty interval):
+    mirror and exact plain version agree, symbols and flags."""
+    rng = np.random.RandomState(precision)
+    for row in BUCKETED_ROWS[precision]:
+        buf = torch.as_tensor(rng.randint(0, 256, (48, 40)).astype(np.uint8))
+        lens = torch.as_tensor(rng.randint(0, 41, 48).astype(np.int32))
+        cols = torch.arange(40)[None, :]
+        buf = torch.where(cols < lens[:, None].long(), buf, 0).to(torch.uint8)
+        (out, ok), (ref, ref_ok), states = _decode_both(
+            buf, lens, 30, row, precision, monkeypatch)
+        assert torch.equal(out, ref) and torch.equal(ok, ref_ok)
+        _check_states(torch.cat([s[0] for s in states]),
+                      torch.cat([s[1] for s in states]), precision, row)
