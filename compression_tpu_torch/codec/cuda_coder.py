@@ -113,6 +113,7 @@ import torch
 import torch.nn.functional as F
 
 from compression_tpu_torch import native
+from compression_tpu_torch.util import profiling
 
 __all__ = [
     "LAUNCHES",
@@ -329,11 +330,13 @@ def _launch(name, fn, *args):
     device = args[0].device
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
-    if device.index == torch.cuda.current_device():
-        rc = fn(*c_args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            rc = fn(*c_args, torch.cuda.current_stream(device).cuda_stream)
+    with profiling.span("coder", f"launch.{name}", "dispatch"):
+        if device.index == torch.cuda.current_device():
+            rc = fn(*c_args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*c_args,
+                        torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed: CUDA error {rc}")

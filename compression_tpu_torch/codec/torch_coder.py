@@ -51,6 +51,7 @@ import torch
 
 from compression_tpu_torch.codec import cuda_coder
 from compression_tpu_torch.codec import tables
+from compression_tpu_torch.util import profiling
 
 __all__ = [
     "DeviceCdfTable",
@@ -316,8 +317,9 @@ def encode_streams(symbols, table: DeviceCdfTable, indexes=None):
             symbols, indexes, meta)
         # One copy to the host for both: the route and the buffer width
         # depend on the data.
-        escapes, total = torch.stack(
-            [escape.any().long(), counts.sum(1).max()]).tolist()
+        with profiling.wait("route"):
+            escapes, total = torch.stack(
+                [escape.any().long(), counts.sum(1).max()]).tolist()
     out_size = stream_out_size(total)
     route = _encode_route(table, escapes)
     DISPATCH_LOG["encode"] = _route_name(symbols.device, route)
@@ -434,8 +436,10 @@ def encode_streams_budgeted(symbols, indexes, table: DeviceCdfTable,
 def sidecar_extract(symbols, escape):
     """Escape compaction: (flat positions int64 [K] ascending, values int32
     [K]) of the True entries of ``escape`` (counterpart of
-    jax_coder.sidecar_extract, with the exact count instead of a budget)."""
-    flat_idx = torch.nonzero(escape.reshape(-1)).reshape(-1)
+    jax_coder.sidecar_extract, with the exact count instead of a budget).
+    The count is read on the host, so the host waits for the card."""
+    with profiling.wait("escapes"):
+        flat_idx = torch.nonzero(escape.reshape(-1)).reshape(-1)
     return flat_idx, symbols.reshape(-1)[flat_idx].to(torch.int32)
 
 

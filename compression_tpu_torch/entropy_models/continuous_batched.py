@@ -24,6 +24,7 @@ from compression_tpu_torch.distributions import helpers
 from compression_tpu_torch.entropy_models import continuous_base
 from compression_tpu_torch.ops import math_ops
 from compression_tpu_torch.ops import round_ops
+from compression_tpu_torch.util import profiling
 from compression_tpu_torch.util.device import resolve_device
 
 __all__ = ["ContinuousBatchedEntropyModel"]
@@ -186,9 +187,11 @@ class ContinuousBatchedEntropyModel(
     def compress_to_strings(self, bottleneck):
         """Compresses to a flat list of bytes objects (one per stream)."""
         buf, lengths = self.compress(bottleneck)
-        return torch_coder.to_bytes_list(
-            buf.reshape(-1, buf.shape[-1]).cpu().numpy(),
-            lengths.reshape(-1).cpu().numpy())
+        with profiling.span("container", "pack"):
+            with profiling.wait("fetch"):
+                buf = buf.reshape(-1, buf.shape[-1]).cpu().numpy()
+                lengths = lengths.reshape(-1).cpu().numpy()
+            return torch_coder.to_bytes_list(buf, lengths)
 
     def decompress(self, strings_or_buf, broadcast_shape, lengths=None):
         """Decompresses reference-format streams to the quantized

@@ -31,6 +31,7 @@ from compression_tpu_torch.codec import torch_coder
 from compression_tpu_torch.entropy_models import continuous_base
 from compression_tpu_torch.ops import math_ops
 from compression_tpu_torch.ops import round_ops
+from compression_tpu_torch.util import profiling
 
 __all__ = [
     "ContinuousIndexedEntropyModel",
@@ -216,9 +217,11 @@ class ContinuousIndexedEntropyModel(
     def compress_to_strings(self, bottleneck, indexes):
         """Compresses to a flat list of bytes objects (one per stream)."""
         buf, lengths = self.compress(bottleneck, indexes)
-        return torch_coder.to_bytes_list(
-            buf.reshape(-1, buf.shape[-1]).cpu().numpy(),
-            lengths.reshape(-1).cpu().numpy())
+        with profiling.span("container", "pack"):
+            with profiling.wait("fetch"):
+                buf = buf.reshape(-1, buf.shape[-1]).cpu().numpy()
+                lengths = lengths.reshape(-1).cpu().numpy()
+            return torch_coder.to_bytes_list(buf, lengths)
 
     def decompress(self, strings_or_buf, indexes, lengths=None):
         """Decompresses reference-format streams with the index tensor of

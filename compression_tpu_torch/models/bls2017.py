@@ -34,6 +34,7 @@ from compression_tpu_torch.entropy_models.continuous_batched import (
 from compression_tpu_torch.layers.gdn import GDN
 from compression_tpu_torch.layers.signal_conv import SignalConv2D
 from compression_tpu_torch.models import native_format
+from compression_tpu_torch.util import profiling
 from compression_tpu_torch.util.device import resolve_device
 from compression_tpu_torch.util.packed_tensors import PackedTensors
 
@@ -167,10 +168,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
     the update is optax.adam's (m_hat / (sqrt(v_hat) + eps)).
     """
     def step(batch, generator=None, u=None):
-        optimizer.zero_grad(set_to_none=True)
-        metrics = rd_backward(model, batch, generator=generator, u=u)
-        optimizer.step()
-        return metrics
+        with profiling.span("train", "step", request=True):
+            optimizer.zero_grad(set_to_none=True)
+            metrics = rd_backward(model, batch, generator=generator, u=u)
+            with profiling.span("train", "optimizer", "dispatch"):
+                optimizer.step()
+            return metrics
 
     return step
 
@@ -183,10 +186,17 @@ def rd_backward(model: nn.Module, batch, generator=None, u=None) -> dict:
     parameter's gradient afresh and returns {"loss", "bpp", "mse"} as 0-d
     tensors on that device."""
     device = next(model.parameters()).device
-    batch = torch.as_tensor(batch, device=device).to(torch.float32)
+    if isinstance(batch, torch.Tensor) and batch.device == device:
+        batch = batch.to(torch.float32)
+    else:
+        with profiling.wait("upload"):
+            batch = torch.as_tensor(batch, device=device).to(torch.float32)
     model.zero_grad(set_to_none=True)
-    loss, bpp, mse = model(batch, training=True, generator=generator, u=u)
-    loss.backward()
+    with profiling.span("train", "forward", "dispatch"):
+        loss, bpp, mse = model(batch, training=True, generator=generator,
+                               u=u)
+    with profiling.span("train", "backward", "dispatch"):
+        loss.backward()
     return {"loss": loss.detach(), "bpp": bpp.detach(), "mse": mse.detach()}
 
 

@@ -46,6 +46,7 @@ from compression_tpu_torch.layers.signal_conv import SignalConv2D
 from compression_tpu_torch.models import native_format
 # One train step serves both models (JAX: models/bmshj2018.py:193).
 from compression_tpu_torch.models.bls2017 import make_train_step
+from compression_tpu_torch.util import profiling
 from compression_tpu_torch.util.device import resolve_device
 from compression_tpu_torch.util.packed_tensors import PackedTensors
 
@@ -393,27 +394,34 @@ class BMSHJ2018Codec:
 
     # -- shared transform path --------------------------------------------
     def _upload(self, x):
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        if x.dtype != torch.uint8 or x.ndim != 3 or x.shape[-1] != 3:
-            raise ValueError("expected a uint8 [H, W, 3] image")
-        return x.to(self.device)
+        with profiling.span("codec", "upload"):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            if x.dtype != torch.uint8 or x.ndim != 3 or x.shape[-1] != 3:
+                raise ValueError("expected a uint8 [H, W, 3] image")
+            if x.device == self.device:
+                return x
+            with profiling.wait("upload"):
+                return x.to(self.device)
 
     def _encode(self, x):
         """Image -> (y, z, y's scale indexes and location, cropped to y)."""
-        y, z = self.model.encode(x.to(torch.float32)[None])
+        with profiling.span("transforms", "analysis", "dispatch"):
+            y, z = self.model.encode(x.to(torch.float32)[None])
         return (y, z) + self._y_params(self.side_em.quantize(z),
                                        y.shape[1:3])
 
     def _y_params(self, z_hat, y_hw):
         """(scale indexes, location) of y from the quantized hyper-latent,
         cropped to y's extent; bmshj2018's location is None."""
-        indexes = self.model.hyper_decode(z_hat)
+        with profiling.span("transforms", "hyper_synthesis", "dispatch"):
+            indexes = self.model.hyper_decode(z_hat)
         return indexes[:, : y_hw[0], : y_hw[1], :], None
 
     def _synthesis_u8(self, y_hat):
-        x_hat = self.model.decode(y_hat)
-        return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
+        with profiling.span("transforms", "synthesis", "dispatch"):
+            x_hat = self.model.decode(y_hat)
+            return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
 
     # -- compress ----------------------------------------------------------
     @torch.no_grad()
@@ -421,51 +429,61 @@ class BMSHJ2018Codec:
         """uint8 [H, W, 3] image -> classic .tfci container bytes: y and z
         each in one reference-format stream, escapes in-stream (the
         reference's format, byte-identical to the JAX package's)."""
-        x = self._upload(x)
-        y, z, indexes, loc = self._encode(x)
-        side_strings = self.side_em.compress_to_strings(z)
-        strings = self.em.compress_to_strings(y, indexes, loc=loc)
-        packed = PackedTensors()
-        packed.model = self.MODEL_ID
-        packed.pack([strings, side_strings,
-                     np.asarray(tuple(x.shape[:2]), np.int32),
-                     np.asarray(tuple(y.shape[1:-1]), np.int32),
-                     np.asarray(tuple(z.shape[1:-1]), np.int32)])
-        return packed.string
+        with profiling.span("codec", "compress", request=True):
+            x = self._upload(x)
+            y, z, indexes, loc = self._encode(x)
+            with profiling.span("entropy", "encode.z"):
+                side_strings = self.side_em.compress_to_strings(z)
+            with profiling.span("entropy", "encode.y"):
+                strings = self.em.compress_to_strings(y, indexes, loc=loc)
+            with profiling.span("container", "pack"):
+                packed = PackedTensors()
+                packed.model = self.MODEL_ID
+                packed.pack([strings, side_strings,
+                             np.asarray(tuple(x.shape[:2]), np.int32),
+                             np.asarray(tuple(y.shape[1:-1]), np.int32),
+                             np.asarray(tuple(z.shape[1:-1]), np.int32)])
+                return packed.string
 
     def _encode_latents(self, x):
         """Launches the transforms and both sidecar encodes of an uploaded
         image; returns device results without waiting for them."""
         y, z, indexes, loc = self._encode(x)
-        y_out = self.em.compress_sidecar_device(
-            native_format.to_streams(y), native_format.to_streams(indexes),
-            loc=None if loc is None else native_format.to_streams(loc))
-        z_out = self.side_em.compress_sidecar_device(
-            native_format.to_streams(z))
+        with profiling.span("entropy", "encode.y"):
+            y_out = self.em.compress_sidecar_device(
+                native_format.to_streams(y),
+                native_format.to_streams(indexes),
+                loc=None if loc is None else native_format.to_streams(loc))
+        with profiling.span("entropy", "encode.z"):
+            z_out = self.side_em.compress_sidecar_device(
+                native_format.to_streams(z))
         return (y_out, tuple(int(s) for s in y.shape[1:]),
                 z_out, tuple(int(s) for s in z.shape[1:]),
                 tuple(x.shape[:2]))
 
-    def _container(self, encoded) -> bytes:
-        """Copies an _encode_latents result to the host and packs it."""
+    def _container(self, encoded, request=None) -> bytes:
+        """Copies an _encode_latents result to the host and packs it;
+        ``request``: the request id its span resumes (``profiling.span``)."""
         y_out, y_hwc, z_out, z_hwc, x_hw = encoded
 
         def fetch(out, hwc):
-            buf, lens, esc_idx, esc_val = (t.cpu().numpy() for t in out)
+            with profiling.wait("fetch"):
+                buf, lens, esc_idx, esc_val = (t.cpu().numpy() for t in out)
             _, w, c = hwc
             n = (w // native_format.split_factor(w, c)) * c
             pairs, vals = native_format.esc_to_pairs(esc_idx, esc_val, n)
             return torch_coder.to_bytes_list(buf, lens), pairs.ravel(), vals
 
-        y_strings, y_pairs, y_vals = fetch(y_out, y_hwc)
-        z_strings, z_pairs, z_vals = fetch(z_out, z_hwc)
-        packed = PackedTensors()
-        packed.model = self.MODEL_ID
-        packed.pack([y_strings, z_strings, np.asarray(x_hw, np.int32),
-                     np.asarray(y_hwc[:2], np.int32),
-                     np.asarray(z_hwc[:2], np.int32),
-                     y_pairs, y_vals, z_pairs, z_vals])
-        return packed.string
+        with profiling.span("container", "pack", request=request):
+            y_strings, y_pairs, y_vals = fetch(y_out, y_hwc)
+            z_strings, z_pairs, z_vals = fetch(z_out, z_hwc)
+            packed = PackedTensors()
+            packed.model = self.MODEL_ID
+            packed.pack([y_strings, z_strings, np.asarray(x_hw, np.int32),
+                         np.asarray(y_hwc[:2], np.int32),
+                         np.asarray(z_hwc[:2], np.int32),
+                         y_pairs, y_vals, z_pairs, z_vals])
+            return packed.string
 
     @torch.no_grad()
     def compress_native(self, x) -> bytes:
@@ -473,24 +491,31 @@ class BMSHJ2018Codec:
         one coder stream per latent row block plus the escape sidecar.  Not
         byte-compatible with the reference .tfci format; byte-identical to
         the JAX package's native container."""
-        return self._container(self._encode_latents(self._upload(x)))
+        with profiling.span("codec", "compress_native", request=True):
+            return self._container(self._encode_latents(self._upload(x)))
 
     @torch.no_grad()
     def compress_native_many(self, images) -> list:
         """Launches every image's transforms and encodes before the first
         copy to the host; containers equal per-image compress_native."""
-        pending = [self._encode_latents(self._upload(x)) for x in images]
-        return [self._container(e) for e in pending]
+        with profiling.span("codec", "compress_native_many"):
+            pending = []
+            for x in images:
+                with profiling.span("codec", "image", request=True) as req:
+                    pending.append(
+                        (req, self._encode_latents(self._upload(x))))
+            return [self._container(e, request=req) for req, e in pending]
 
     # -- decompress --------------------------------------------------------
     def _unpack(self, container) -> PackedTensors:
-        packed = PackedTensors(container)
-        if packed.model != self.MODEL_ID:
-            raise ValueError(f"container is for model {packed.model!r}")
-        if packed.num_tensors not in (5, 9):
-            raise ValueError(
-                f"not a {self.MODEL_ID} classic or native container")
-        return packed
+        with profiling.span("container", "parse"):
+            packed = PackedTensors(container)
+            if packed.model != self.MODEL_ID:
+                raise ValueError(f"container is for model {packed.model!r}")
+            if packed.num_tensors not in (5, 9):
+                raise ValueError(
+                    f"not a {self.MODEL_ID} classic or native container")
+            return packed
 
     def _decode_latent(self, packed):
         """Launches the range decodes and the hyper synthesis of a classic
@@ -498,14 +523,6 @@ class BMSHJ2018Codec:
         (H, W)) on the device without waiting."""
         if packed.num_tensors == 5:
             return self._decode_classic(packed)
-        (strings, side_strings, x_shape, y_shape, z_shape, y_ep, y_ev,
-         z_ep, z_ev) = packed.unpack(
-            ["bytes", "bytes", np.int32, np.int32, np.int32,
-             np.int32, np.int32, np.int32, np.int32])
-        hy, wy = int(y_shape[0]), int(y_shape[1])
-        hz, wz = int(z_shape[0]), int(z_shape[1])
-        cz = int(np.prod(self.side_em.prior_shape))
-        cy = self.latent_depth
         dev = self.device
 
         def streams(strs, h, w, c, esc_pos, esc_val):
@@ -516,75 +533,105 @@ class BMSHJ2018Codec:
             if esc_idx.shape[0] != esc_val.shape[0]:
                 raise ValueError("escape positions and values disagree")
             buf, lens = torch_coder.from_bytes_list(strs)
-            return (k, torch.as_tensor(buf, device=dev),
-                    torch.as_tensor(lens, device=dev),
-                    torch.as_tensor(esc_idx, device=dev),
-                    torch.as_tensor(esc_val, device=dev))
+            with profiling.wait("upload"):
+                return (k, torch.as_tensor(buf, device=dev),
+                        torch.as_tensor(lens, device=dev),
+                        torch.as_tensor(esc_idx, device=dev),
+                        torch.as_tensor(esc_val, device=dev))
 
-        k_z, z_buf, z_len, z_ei, z_evd = streams(
-            side_strings, hz, wz, cz, z_ep, z_ev)
-        k_y, y_buf, y_len, y_ei, y_evd = streams(
-            strings, hy, wy, cy, y_ep, y_ev)
-        z_rows, z_san = self.side_em.decompress_sidecar_device(
-            z_buf, z_len, (1, wz // k_z), z_ei, z_evd)
+        with profiling.span("container", "parse"):
+            (strings, side_strings, x_shape, y_shape, z_shape, y_ep, y_ev,
+             z_ep, z_ev) = packed.unpack(
+                ["bytes", "bytes", np.int32, np.int32, np.int32,
+                 np.int32, np.int32, np.int32, np.int32])
+            hy, wy = int(y_shape[0]), int(y_shape[1])
+            hz, wz = int(z_shape[0]), int(z_shape[1])
+            cz = int(np.prod(self.side_em.prior_shape))
+            cy = self.latent_depth
+            k_z, z_buf, z_len, z_ei, z_evd = streams(
+                side_strings, hz, wz, cz, z_ep, z_ev)
+            k_y, y_buf, y_len, y_ei, y_evd = streams(
+                strings, hy, wy, cy, y_ep, y_ev)
+        with profiling.span("entropy", "decode.z"):
+            z_rows, z_san = self.side_em.decompress_sidecar_device(
+                z_buf, z_len, (1, wz // k_z), z_ei, z_evd)
         indexes, loc = self._y_params(
             native_format.from_streams(z_rows, hz, wz, cz), (hy, wy))
         if tuple(indexes.shape[1:3]) != (hy, wy):
             raise ValueError("latent shapes of the container disagree")
         rows = (hy * k_y, 1, wy // k_y, cy)
-        y_rows, y_san = self.em.decompress_sidecar_device(
-            y_buf, y_len, indexes[0].reshape(rows), y_ei, y_evd,
-            loc=None if loc is None else loc[0].reshape(rows))
+        with profiling.span("entropy", "decode.y"):
+            y_rows, y_san = self.em.decompress_sidecar_device(
+                y_buf, y_len, indexes[0].reshape(rows), y_ei, y_evd,
+                loc=None if loc is None else loc[0].reshape(rows))
         return (native_format.from_streams(y_rows, hy, wy, cy),
                 torch.cat([z_san, y_san]),
                 (int(x_shape[0]), int(x_shape[1])))
 
     def _decode_classic(self, packed):
-        strings, side_strings, x_shape, y_shape, z_shape = packed.unpack(
-            ["bytes", "bytes", np.int32, np.int32, np.int32])
-        for strs, shape in ((strings, y_shape), (side_strings, z_shape)):
-            if len(strs) != 1 or shape.shape != (2,) or (shape < 1).any():
-                raise ValueError(f"not a {self.MODEL_ID} classic container")
+        with profiling.span("container", "parse"):
+            strings, side_strings, x_shape, y_shape, z_shape = packed.unpack(
+                ["bytes", "bytes", np.int32, np.int32, np.int32])
+            for strs, shape in ((strings, y_shape), (side_strings, z_shape)):
+                if len(strs) != 1 or shape.shape != (2,) or (shape < 1).any():
+                    raise ValueError(
+                        f"not a {self.MODEL_ID} classic container")
         dev = self.device
 
         def upload(strs):
-            buf, lens = torch_coder.from_bytes_list(strs)
-            return (torch.as_tensor(buf, device=dev),
-                    torch.as_tensor(lens, device=dev))
+            with profiling.span("container", "parse"):
+                buf, lens = torch_coder.from_bytes_list(strs)
+                with profiling.wait("upload"):
+                    return (torch.as_tensor(buf, device=dev),
+                            torch.as_tensor(lens, device=dev))
 
-        z_hat, z_san = self.side_em.decompress_device(
-            *upload(side_strings), tuple(int(s) for s in z_shape))
+        side = upload(side_strings)
+        with profiling.span("entropy", "decode.z"):
+            z_hat, z_san = self.side_em.decompress_device(
+                *side, tuple(int(s) for s in z_shape))
         hy, wy = int(y_shape[0]), int(y_shape[1])
         indexes, loc = self._y_params(z_hat, (hy, wy))
         if tuple(indexes.shape[1:3]) != (hy, wy):
             raise ValueError("latent shapes of the container disagree")
-        y_hat, y_san = self.em.decompress_device(*upload(strings), indexes,
-                                                 loc=loc)
+        main = upload(strings)
+        with profiling.span("entropy", "decode.y"):
+            y_hat, y_san = self.em.decompress_device(*main, indexes, loc=loc)
         return (y_hat, torch.cat([z_san, y_san]),
                 (int(x_shape[0]), int(x_shape[1])))
 
-    def _finish(self, x_hat, sanity, x_hw) -> np.ndarray:
-        if self.em.decode_sanity_check and not bool(sanity.all()):
-            raise ValueError("Sanity check failed (corrupt bit streams).")
-        return x_hat[0, : x_hw[0], : x_hw[1], :].cpu().numpy()
+    def _finish(self, x_hat, sanity, x_hw, request=None) -> np.ndarray:
+        with profiling.span("codec", "finish", request=request):
+            if self.em.decode_sanity_check:
+                with profiling.wait("sanity"):
+                    sane = bool(sanity.all())
+                if not sane:
+                    raise ValueError(
+                        "Sanity check failed (corrupt bit streams).")
+            with profiling.wait("fetch"):
+                return x_hat[0, : x_hw[0], : x_hw[1], :].cpu().numpy()
 
     @torch.no_grad()
     def decompress(self, container: bytes) -> np.ndarray:
         """Classic or native container -> uint8 [H, W, 3]; raises
         ValueError on a corrupt container."""
-        y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
-        return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
+        with profiling.span("codec", "decompress", request=True):
+            y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
+            return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
 
     @torch.no_grad()
     def decompress_native_many(self, containers) -> list:
         """Launches every container's decodes and transforms (classic or
         native) before the first copy to the host; outputs equal
         per-container decompress."""
-        pending = []
-        for c in containers:
-            y_hat, sanity, x_hw = self._decode_latent(self._unpack(c))
-            pending.append((self._synthesis_u8(y_hat), sanity, x_hw))
-        return [self._finish(*p) for p in pending]
+        with profiling.span("codec", "decompress_native_many"):
+            pending = []
+            for c in containers:
+                with profiling.span("codec", "image", request=True) as req:
+                    y_hat, sanity, x_hw = self._decode_latent(
+                        self._unpack(c))
+                    pending.append(
+                        (req, self._synthesis_u8(y_hat), sanity, x_hw))
+            return [self._finish(*p, request=req) for req, *p in pending]
 
     @torch.no_grad()
     def reconstruct(self, x) -> np.ndarray:

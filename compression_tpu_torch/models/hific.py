@@ -68,6 +68,7 @@ from compression_tpu_torch.models import lpips as lpips_lib
 from compression_tpu_torch.models.bmshj2018 import (BMSHJ2018Codec,
                                                     make_scale_fn)
 from compression_tpu_torch.ops import round_ops
+from compression_tpu_torch.util import profiling
 from compression_tpu_torch.util.device import resolve_device
 
 __all__ = [
@@ -766,7 +767,8 @@ class HiFiCCodec(BMSHJ2018Codec):
 
     def _y_params(self, z_hat, y_hw):
         """(continuous scale indexes, means) of y, cropped to y."""
-        raw_scales, means = self.model.hyper_decode(z_hat)
+        with profiling.span("transforms", "hyper_synthesis", "dispatch"):
+            raw_scales, means = self.model.hyper_decode(z_hat)
         raw_scales = raw_scales[:, : y_hw[0], : y_hw[1], :]
         means = means[:, : y_hw[0], : y_hw[1], :]
         return self.model.scale_indexes(raw_scales), means

@@ -2,21 +2,32 @@
 compression_tpu/util/profiling.py).
 
 Per-phase wall-clock timers (``PhaseTimer``, ``phase`` on a process-wide
-timer) and ``torch.profiler`` traces written as Chrome trace files.
+timer), ``torch.profiler`` traces written as Chrome trace files, and the
+program's own spans (``span``, ``wait``, read back with ``spans``).
+
+Spans record only while ``torch.profiler`` is recording (``trace``, or
+any other profile): each enters ``record_function("ctpu.<layer>.<name>")``, so it
+shows in the profiler's trace, and appends a ``SpanRecord`` timed with
+``time.time_ns()``, the clock the profiler's events carry.  With the
+profiler off a span is one flag check that returns a shared null context.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["PhaseTimer", "trace", "phase", "global_summary"]
+__all__ = ["PhaseTimer", "trace", "phase", "global_summary", "span",
+           "wait", "spans", "clear_spans", "dropped_spans", "SpanRecord"]
 
 
 def _cuda_devices(tree, found):
@@ -119,3 +130,128 @@ def trace(log_dir: str, host_tracer_level: Optional[int] = None):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# -- the program's spans -------------------------------------------------------
+# Records kept at most; later ones are counted in ``dropped_spans()``.
+MAX_SPANS = 1_000_000
+
+
+class SpanRecord:
+    """One span: ``id``; ``parent`` (the enclosing span's id, or None);
+    ``request`` (the request's id, or None outside any request);
+    ``layer``, ``name``, ``kind`` ("host": host work, "dispatch": kernel
+    launches the host does not wait for, "wait": the host waits for the
+    card); ``start_ns`` and ``end_ns`` by ``time.time_ns()`` (``end_ns``
+    is None while the span is open)."""
+
+    __slots__ = ("id", "parent", "request", "layer", "name", "kind",
+                 "start_ns", "end_ns")
+
+    def __init__(self, id, parent, request, layer, name, kind, start_ns,
+                 end_ns=None):
+        self.id, self.parent, self.request = id, parent, request
+        self.layer, self.name, self.kind = layer, name, kind
+        self.start_ns, self.end_ns = start_ns, end_ns
+
+    @property
+    def label(self):
+        """The name of its ``record_function``: ``ctpu.<layer>.<name>``."""
+        return f"ctpu.{self.layer}.{self.name}"
+
+    def __repr__(self):
+        return (f"SpanRecord({self.label}, kind={self.kind}, id={self.id}, "
+                f"parent={self.parent}, request={self.request})")
+
+
+_records: list = []
+_dropped = 0
+_ids = itertools.count()
+_requests = itertools.count()
+_local = threading.local()
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("record", "function")
+
+    def __init__(self, layer, name, kind, request):
+        global _dropped
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        top = stack[-1] if stack else None
+        if request is True:
+            request = next(_requests)
+        elif request is None and top is not None:
+            request = top.request
+        self.record = SpanRecord(next(_ids), top.id if top else None,
+                                 request, layer, name, kind, 0)
+        if len(_records) < MAX_SPANS:
+            _records.append(self.record)
+        else:
+            _dropped += 1
+        self.function = torch.profiler.record_function(self.record.label)
+
+    def __enter__(self):
+        _local.stack.append(self.record)
+        self.record.start_ns = time.time_ns()
+        self.function.__enter__()
+        return self.record.request
+
+    def __exit__(self, *exc):
+        self.function.__exit__(*exc)
+        self.record.end_ns = time.time_ns()
+        _local.stack.pop()
+        return False
+
+
+def span(layer: str, name: str, kind: str = "host", request=None):
+    """A span of the program around the body, recorded while
+    ``torch.profiler`` is recording; otherwise a shared null context.
+
+    ``kind``: "host", "dispatch" or "wait" (``SpanRecord``).  ``request``:
+    None carries the enclosing span's request id, True begins a new
+    request (an entry point, or one image of a batch), an id resumes that
+    request.  ``with span(...) as request_id`` gives the id (None when
+    nothing records)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Span(layer, name, kind, request)
+
+
+def wait(name: str):
+    """A span in which the host waits for the card: a copy to the host, a
+    read of a device value, an upload from pageable memory."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Span("wait", name, "wait", None)
+
+
+def spans() -> list:
+    """The recorded ``SpanRecord``s, in the order the spans began."""
+    return list(_records)
+
+
+def clear_spans():
+    """Forgets the recorded spans and the count of dropped ones."""
+    global _dropped
+    _records.clear()
+    _dropped = 0
+
+
+def dropped_spans() -> int:
+    """Spans not kept since the last ``clear_spans`` (past MAX_SPANS)."""
+    return _dropped

@@ -1,0 +1,8 @@
+"""The program's `wait` spans (the host waiting for the card) per
+decompress request in the traced window (program spans, host clock)."""
+
+from portbench.metrics import _spans
+
+
+def read(observed):
+    return _spans.host_waits(observed, "decompress")

@@ -6,6 +6,7 @@ mode); on a machine with one, run
 same comparisons at full size)."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -1268,3 +1269,59 @@ def test_universal_models_on_the_card(device, kind, escapes):
     # batched model's prior lives there, with its tables).
     assert torch.equal(out.cpu(), cpu(torch.tensor(x), *args,
                                       training=False)[0])
+
+
+CODER_KERNEL = re.compile(r"(encode|decode)\w*_kernel|pair_lookup_kernel")
+
+
+@pytest.mark.parametrize("entry", ["compress", "compress_native"])
+def test_spans_share_the_device_trace_clock(device, entry):
+    """bmshj2018 at 16 filters on a 64x64 image under torch.profiler: every
+    coder kernel starts after the start of the ``coder.launch.*`` span that
+    enqueued it, and within its request's entry span; the program's spans
+    enclose the profiler's events of their names; the GPU-side copies of
+    the spans are user annotations, not kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from compression_tpu_torch.models import bmshj2018
+    from compression_tpu_torch.util import profiling
+
+    codec = bmshj2018.BMSHJ2018Codec(
+        bmshj2018.BMSHJ2018Model(num_filters=16), device=device)
+    x = np.random.RandomState(0).randint(0, 256, (64, 64, 3)).astype(
+        np.uint8)
+    run = lambda: codec.decompress(getattr(codec, entry)(x))  # noqa: E731
+    run()
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    records = profiling.spans()
+    host, kernels = {}, []
+    for e in prof.profiler.kineto_results.events():
+        start = e.start_ns()
+        span = (start, start + e.duration_ns())
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if e.name().startswith("ctpu."):
+                assert e.is_user_annotation(), e.name()
+            elif CODER_KERNEL.search(e.name()):
+                kernels.append(span)
+        elif e.name().startswith("ctpu."):
+            host.setdefault(e.name(), []).append(span)
+    for label, events in host.items():
+        mine = sorted((r.start_ns, r.end_ns) for r in records
+                      if r.label == label)
+        assert len(mine) == len(events), label
+        for (s0, s1), (e0, e1) in zip(mine, sorted(events)):
+            assert s0 <= e0 and e1 <= s1, label
+    launches = [r for r in records if r.layer == "coder"]
+    assert launches and len(launches) == len(kernels)
+    assert {r.kind for r in launches} == {"dispatch"}
+    by_id = {r.id: r for r in records}
+    for span, (k0, k1) in zip(launches, sorted(kernels)):
+        entry_span = span
+        while entry_span.parent is not None:
+            entry_span = by_id[entry_span.parent]
+        assert span.start_ns <= k0, span
+        assert entry_span.start_ns <= k0 and k1 <= entry_span.end_ns, span
