@@ -181,6 +181,59 @@ def test_channel_norm_matches_jax():
     _assert_close(tx.grad.permute(0, 2, 3, 1), ref_grad, 1e-5)
 
 
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("grid", [(4, 6), (5, 3)])
+@pytest.mark.parametrize("cin", [960, 220])
+def test_trunk_gemm_matches_conv(cin, grid, batch):
+    """Conv.gemm (the generator trunk's path: NHWC patches times the HWIO
+    kernel) against Conv.forward at the published widths (960 -> 960 in
+    the blocks, 220 -> 960 in Conv_0), on even and odd grids: the output
+    and the gradients of input, kernel and bias within 1e-5 of their
+    largest magnitude."""
+    torch.manual_seed(cin + grid[0] + batch)
+    conv = hific.Conv(cin, 960, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        conv.bias.normal_()
+    x = torch.randn((batch,) + grid + (cin,))
+    w = torch.randn((batch,) + grid + (960,))
+
+    def run(fn):
+        conv.zero_grad()
+        xi = x.clone().requires_grad_()
+        out = fn(xi)
+        torch.sum(w * out).backward()
+        return out.detach(), xi.grad, conv.kernel.grad.clone(), \
+            conv.bias.grad.clone()
+
+    before = hific.GEMM_CONVS
+    mine = run(conv.gemm)
+    assert hific.GEMM_CONVS - before == 1
+    ref = run(lambda xi: conv(xi.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+    assert mine[0].shape == (batch,) + grid + (960,)
+    for got, want in zip(mine, ref):
+        _assert_close(got, want, 1e-5)
+
+
+def test_channel_norm_nhwc_equals_nchw():
+    """ChannelNorm over the last axis (the trunk's NHWC) against the NCHW
+    form: values and the input's gradient."""
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.normal(1, 3, (2, 5, 6, 7)).astype(np.float32))
+    w = torch.tensor(rng.normal(0, 1, x.shape).astype(np.float32))
+    norm = hific.ChannelNorm(7)
+    with torch.no_grad():
+        norm.gamma.normal_()
+        norm.beta.normal_()
+    a = x.clone().requires_grad_()
+    out = norm(a, dim=-1)
+    torch.sum(w * out).backward()
+    b = x.clone().permute(0, 3, 1, 2).requires_grad_()
+    ref = norm(b)
+    torch.sum(w.permute(0, 3, 1, 2) * ref).backward()
+    _assert_close(out.detach(), ref.detach().permute(0, 2, 3, 1), 1e-6)
+    _assert_close(a.grad, b.grad.permute(0, 2, 3, 1), 1e-6)
+
+
 def test_params_from_jax_names_every_parameter_at_full_width():
     """The flax tree of get_config("hific") maps onto the port's model
     name for name and shape: ~182.7M parameters, nothing cut."""
@@ -377,6 +430,69 @@ def test_many_equal_single(pair):
     mixed = singles + [pc.compress(images[0])]
     for out, c in zip(pc.decompress_native_many(mixed), mixed):
         np.testing.assert_array_equal(out, pc.decompress(c))
+
+
+# The JAX tests' tiny widths at the published depth: nine residual blocks,
+# so the trunk is 19 convolutions as in get_config("hific").
+DEEP = dict(CONFIGS["tiny"], num_residual_blocks=9)
+
+
+@pytest.fixture(scope="module")
+def deep_codec():
+    model = hific.HiFiCModel(hific.HiFiCConfig(**DEEP), seed=5)
+    return hific.HiFiCCodec(model, device="cpu")
+
+
+@pytest.mark.parametrize("entry,per_image", [
+    ("compress", 0), ("compress_native", 0), ("compress_native_many", 0),
+    ("decompress", 19), ("decompress_native_many", 19),
+    ("reconstruct", 19)])
+def test_gemm_convs_count_trunk_convolutions(deep_codec, entry, per_image):
+    """GEMM_CONVS counts the trunk's 19 convolutions an image synthesized
+    (8 images through decompress_native_many: 152) and none a compress:
+    the encoder and the hyperprior keep their own convolutions."""
+    pc = deep_codec
+    images = [np.random.RandomState(i).randint(0, 256, (32, 48, 3)).astype(
+        np.uint8) for i in range(8)]
+    call = {
+        "compress": lambda: pc.compress(images[0]),
+        "compress_native": lambda: pc.compress_native(images[0]),
+        "compress_native_many": lambda: pc.compress_native_many(images),
+        "decompress": lambda: pc.decompress(pc.compress_native(images[0])),
+        "decompress_native_many": lambda: pc.decompress_native_many(
+            [pc.compress_native(x) for x in images]),
+        "reconstruct": lambda: pc.reconstruct(images[0]),
+    }[entry]
+    count = {"compress_native_many": 8, "decompress_native_many": 8}.get(
+        entry, 1)
+    before = hific.GEMM_CONVS
+    call()
+    assert hific.GEMM_CONVS - before == per_image * count
+
+
+def test_decoder_state_dict_keeps_flax_names_and_shapes():
+    """The trunk's own path keeps the Decoder's parameters: names and HWIO
+    shapes equal the flax decoder's at the published depth."""
+    cfg = jax_hific.HiFiCConfig(**DEEP)
+    shapes = jax.eval_shape(
+        lambda: jax_hific.HiFiCModel(cfg=cfg).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+            training=False))["params"]["decoder"]
+    want = {}
+
+    def walk(prefix, node):
+        for key, value in node.items():
+            if hasattr(value, "items"):
+                walk(f"{prefix}{key}.", value)
+            else:
+                want[prefix + key] = tuple(value.shape)
+
+    walk("", shapes)
+    decoder = hific.Decoder(hific.HiFiCConfig(**DEEP))
+    got = {k: tuple(v.shape) for k, v in decoder.state_dict().items()}
+    assert got == want
+    assert got["block_8.Conv_1.kernel"] == (3, 3, 16, 16)
+    assert got["Conv_0.kernel"] == (3, 3, 8, 16)
 
 
 def _rewrite(container, tensor, edit):
