@@ -29,6 +29,22 @@ or from the reference's TF variables (``params_from_tf``).  Images are
 uint8 [H, W, 3] (numpy or torch) and latents [1, H, W, C], the JAX
 package's NHWC layout.
 
+Spans (``util/profiling.py``, recorded only under a profiler) carry the
+bmshj2018 codec's names where they mean the same: the entries
+``codec.compress``, ``codec.compress_native``, ``codec.decompress`` and
+``codec.compress_native_many`` / ``codec.decompress_native_many`` (a
+``codec.image`` an image), ``codec.upload``, ``codec.finish``,
+``transforms.analysis`` / ``.hyper_synthesis`` / ``.synthesis``,
+``container.pack`` / ``.parse``, ``entropy.encode.z`` / ``.decode.z``, and
+``entropy.encode.y`` / ``.decode.y`` around each slice's coder call (the
+native compress's one y encode after the loop).  The slice loop has a layer
+of its own: ``slices.loop`` around the whole of ``MS2020Model.slice_loop``,
+``slices.params`` and ``slices.lrp`` a slice inside it, so that every entry
+point and training share them.  ``SLICE_CODER_CALLS`` counts the coder
+calls made inside the slice loop: 10 a classic compress or decompress and a
+native decompress at 10 slices, none a native compress or a
+``reconstruct``.
+
 "Channel-wise Autoregressive Entropy Models for Learned Image Compression"
 https://arxiv.org/abs/2007.08739
 """
@@ -52,6 +68,7 @@ from compression_tpu_torch.layers.signal_conv import SignalConv2D
 from compression_tpu_torch.models import native_format
 from compression_tpu_torch.models.bls2017 import make_train_step
 from compression_tpu_torch.models.bmshj2018 import make_scale_fn
+from compression_tpu_torch.util import profiling
 from compression_tpu_torch.util.device import resolve_device
 from compression_tpu_torch.util.packed_tensors import PackedTensors
 
@@ -70,6 +87,16 @@ __all__ = [
     "model_from_config",
     "main",
 ]
+
+#: Range coder calls made inside the slice loop (one a slice of a classic
+#: compress, of a classic decompress and of a native decompress) since the
+#: count was last reset.
+SLICE_CODER_CALLS = 0
+
+
+def _count_slice_coder_call():
+    global SLICE_CODER_CALLS
+    SLICE_CODER_CALLS += 1
 
 
 class AnalysisTransform(nn.Module):
@@ -346,18 +373,23 @@ class MS2020Model(nn.Module):
         supporting decoded slices, ``code_slice(i, mu, sigma)`` -> the
         quantized slice, plus its LRP.  Returns y_hat [N, h, w,
         latent_depth]."""
-        latent_scales, latent_means = self.hyper_decode(z_hat)
-        if latent_means.shape[1] < y_hw[0] or latent_means.shape[2] < y_hw[1]:
-            raise ValueError("latent shapes of the container disagree")
-        y_hat_slices = []
-        for i in range(self.num_slices):
-            mu, sigma, mean_support = self.slice_params(
-                i, latent_means, latent_scales, self.support(y_hat_slices),
-                y_hw)
-            y_hat_slice = code_slice(i, mu, sigma)
-            y_hat_slices.append(y_hat_slice + self.lrp(i, mean_support,
-                                                        y_hat_slice))
-        return torch.cat(y_hat_slices, dim=-1)
+        with profiling.span("slices", "loop"):
+            with profiling.span("transforms", "hyper_synthesis", "dispatch"):
+                latent_scales, latent_means = self.hyper_decode(z_hat)
+            if (latent_means.shape[1] < y_hw[0]
+                    or latent_means.shape[2] < y_hw[1]):
+                raise ValueError("latent shapes of the container disagree")
+            y_hat_slices = []
+            for i in range(self.num_slices):
+                with profiling.span("slices", "params", "dispatch"):
+                    mu, sigma, mean_support = self.slice_params(
+                        i, latent_means, latent_scales,
+                        self.support(y_hat_slices), y_hw)
+                y_hat_slice = code_slice(i, mu, sigma)
+                with profiling.span("slices", "lrp", "dispatch"):
+                    y_hat_slices.append(y_hat_slice + self.lrp(
+                        i, mean_support, y_hat_slice))
+            return torch.cat(y_hat_slices, dim=-1)
 
     def decode(self, y_hat):
         return self.synthesis(y_hat)
@@ -500,18 +532,24 @@ class MS2020Codec:
 
     # -- shared transform path --------------------------------------------
     def _upload(self, x):
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        if x.dtype != torch.uint8 or x.ndim != 3 or x.shape[-1] != 3:
-            raise ValueError("expected a uint8 [H, W, 3] image")
-        return x.to(self.device)
+        with profiling.span("codec", "upload"):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            if x.dtype != torch.uint8 or x.ndim != 3 or x.shape[-1] != 3:
+                raise ValueError("expected a uint8 [H, W, 3] image")
+            if x.device == self.device:
+                return x
+            with profiling.wait("upload"):
+                return x.to(self.device)
 
     def _encode(self, x):
-        return self.model.encode(x.to(torch.float32)[None])
+        with profiling.span("transforms", "analysis", "dispatch"):
+            return self.model.encode(x.to(torch.float32)[None])
 
     def _synthesis_u8(self, y_hat):
-        x_hat = self.model.decode(y_hat)
-        return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
+        with profiling.span("transforms", "synthesis", "dispatch"):
+            x_hat = self.model.decode(y_hat)
+            return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
 
     def _slices(self, y):
         return torch.split(y, self.model.slice_depth, dim=-1)
@@ -524,26 +562,31 @@ class MS2020Codec:
         reference's format, byte-identical to the JAX package's).  The
         slices after a slice see its quantized values, which are what its
         decode gives, so nothing is decoded here."""
-        x = self._upload(x)
-        y, z = self._encode(x)
-        y_hw = tuple(int(s) for s in y.shape[1:3])
-        z_strings = self.em_z.compress_to_strings(z)
-        y_slices = self._slices(y)
-        y_strings = []
+        with profiling.span("codec", "compress", request=True):
+            x = self._upload(x)
+            y, z = self._encode(x)
+            y_hw = tuple(int(s) for s in y.shape[1:3])
+            with profiling.span("entropy", "encode.z"):
+                z_strings = self.em_z.compress_to_strings(z)
+            y_slices = self._slices(y)
+            y_strings = []
 
-        def code(i, mu, sigma):
-            y_strings.append(self.em_y.compress_to_strings(
-                y_slices[i], sigma, loc=mu))
-            return self.em_y.quantize(y_slices[i], mu)
+            def code(i, mu, sigma):
+                with profiling.span("entropy", "encode.y"):
+                    _count_slice_coder_call()
+                    y_strings.append(self.em_y.compress_to_strings(
+                        y_slices[i], sigma, loc=mu))
+                return self.em_y.quantize(y_slices[i], mu)
 
-        self.model.slice_loop(self.em_z.quantize(z), y_hw, code)
-        packed = PackedTensors()
-        packed.model = self.MODEL_ID
-        packed.pack([np.asarray(tuple(x.shape[:2]), np.int32),
-                     np.asarray(y_hw, np.int32),
-                     np.asarray(tuple(z.shape[1:3]), np.int32),
-                     z_strings] + y_strings)
-        return packed.string
+            self.model.slice_loop(self.em_z.quantize(z), y_hw, code)
+            with profiling.span("container", "pack"):
+                packed = PackedTensors()
+                packed.model = self.MODEL_ID
+                packed.pack([np.asarray(tuple(x.shape[:2]), np.int32),
+                             np.asarray(y_hw, np.int32),
+                             np.asarray(tuple(z.shape[1:3]), np.int32),
+                             z_strings] + y_strings)
+                return packed.string
 
     def _encode_native(self, x):
         """Launches the transforms, the slice loop and both sidecar encodes
@@ -552,7 +595,9 @@ class MS2020Codec:
         waiting for them."""
         y, z = self._encode(x)
         y_hw = tuple(int(s) for s in y.shape[1:3])
-        z_out = self.em_z.compress_sidecar_device(native_format.to_streams(z))
+        with profiling.span("entropy", "encode.z"):
+            z_out = self.em_z.compress_sidecar_device(
+                native_format.to_streams(z))
         y_slices = self._slices(y)
         mus, sigmas = [], []
 
@@ -566,40 +611,44 @@ class MS2020Codec:
         def stacked(parts):
             return torch.cat([native_format.to_streams(t) for t in parts])
 
-        y_out = self.em_y.compress_sidecar_device(
-            stacked(y_slices), stacked(sigmas), loc=stacked(mus))
+        with profiling.span("entropy", "encode.y"):
+            y_out = self.em_y.compress_sidecar_device(
+                stacked(y_slices), stacked(sigmas), loc=stacked(mus))
         return (y_out, y_hw + (self.model.slice_depth,), z_out,
                 tuple(int(s) for s in z.shape[1:]), tuple(x.shape[:2]))
 
-    def _container(self, encoded) -> bytes:
+    def _container(self, encoded, request=None) -> bytes:
         """Copies an _encode_native result to the host and packs it, the
         stacked slice streams split back per slice (stream s belongs to
-        slice s // streams-per-slice)."""
+        slice s // streams-per-slice); ``request``: the request id its span
+        resumes (``profiling.span``)."""
         y_out, (hy, wy, cs), z_out, (hz, wz, cz), x_hw = encoded
 
         def fetch(out, w, c):
-            buf, lens, esc_idx, esc_val = (t.cpu().numpy() for t in out)
+            with profiling.wait("fetch"):
+                buf, lens, esc_idx, esc_val = (t.cpu().numpy() for t in out)
             n = (w // native_format.split_factor(w, c)) * c
             pairs, vals = native_format.esc_to_pairs(esc_idx, esc_val, n)
             return torch_coder.to_bytes_list(buf, lens), pairs, vals
 
-        z_strings, z_pairs, z_vals = fetch(z_out, wz, cz)
-        y_strings, y_pairs, y_vals = fetch(y_out, wy, cs)
-        s_y = hy * native_format.split_factor(wy, cs)
-        slice_fields = []
-        for i in range(self.model.num_slices):
-            lo, hi = i * s_y, (i + 1) * s_y
-            mine = (y_pairs[:, 0] >= lo) & (y_pairs[:, 0] < hi)
-            slice_fields += [y_strings[lo:hi],
-                             (y_pairs[mine] - np.asarray([lo, 0], np.int32)
-                              ).ravel(), y_vals[mine]]
-        packed = PackedTensors()
-        packed.model = self.MODEL_ID
-        packed.pack([np.asarray(x_hw, np.int32),
-                     np.asarray((hy, wy), np.int32),
-                     np.asarray((hz, wz), np.int32),
-                     z_strings, z_pairs.ravel(), z_vals] + slice_fields)
-        return packed.string
+        with profiling.span("container", "pack", request=request):
+            z_strings, z_pairs, z_vals = fetch(z_out, wz, cz)
+            y_strings, y_pairs, y_vals = fetch(y_out, wy, cs)
+            s_y = hy * native_format.split_factor(wy, cs)
+            slice_fields = []
+            for i in range(self.model.num_slices):
+                lo, hi = i * s_y, (i + 1) * s_y
+                mine = (y_pairs[:, 0] >= lo) & (y_pairs[:, 0] < hi)
+                slice_fields += [y_strings[lo:hi],
+                                 (y_pairs[mine] - np.asarray([lo, 0], np.int32)
+                                  ).ravel(), y_vals[mine]]
+            packed = PackedTensors()
+            packed.model = self.MODEL_ID
+            packed.pack([np.asarray(x_hw, np.int32),
+                         np.asarray((hy, wy), np.int32),
+                         np.asarray((hz, wz), np.int32),
+                         z_strings, z_pairs.ravel(), z_vals] + slice_fields)
+            return packed.string
 
     @torch.no_grad()
     def compress_native(self, x) -> bytes:
@@ -607,24 +656,31 @@ class MS2020Codec:
         each slice one coder stream per latent row block plus the escape
         sidecar.  Not byte-compatible with the reference .tfci format;
         byte-identical to the JAX package's native container."""
-        return self._container(self._encode_native(self._upload(x)))
+        with profiling.span("codec", "compress_native", request=True):
+            return self._container(self._encode_native(self._upload(x)))
 
     @torch.no_grad()
     def compress_native_many(self, images) -> list:
         """Launches every image's transforms and encodes before the first
         copy to the host; containers equal per-image compress_native."""
-        pending = [self._encode_native(self._upload(x)) for x in images]
-        return [self._container(e) for e in pending]
+        with profiling.span("codec", "compress_native_many"):
+            pending = []
+            for x in images:
+                with profiling.span("codec", "image", request=True) as req:
+                    pending.append(
+                        (req, self._encode_native(self._upload(x))))
+            return [self._container(e, request=req) for req, e in pending]
 
     # -- decompress --------------------------------------------------------
     def _unpack(self, container) -> PackedTensors:
-        packed = PackedTensors(container)
-        if packed.model != self.MODEL_ID:
-            raise ValueError(f"container is for model {packed.model!r}")
-        if packed.num_tensors not in (self.num_classic_tensors,
-                                      self.num_native_tensors):
-            raise ValueError("not an ms2020 classic or native container")
-        return packed
+        with profiling.span("container", "parse"):
+            packed = PackedTensors(container)
+            if packed.model != self.MODEL_ID:
+                raise ValueError(f"container is for model {packed.model!r}")
+            if packed.num_tensors not in (self.num_classic_tensors,
+                                          self.num_native_tensors):
+                raise ValueError("not an ms2020 classic or native container")
+            return packed
 
     @staticmethod
     def _shapes(x_shape, y_shape, z_shape):
@@ -641,31 +697,35 @@ class MS2020Codec:
         ns = self.model.num_slices
         dev = self.device
         if packed.num_tensors == self.num_classic_tensors:
-            fields = packed.unpack([np.int32] * 3 + ["bytes"] * (1 + ns))
-            x_hw, y_hw, z_hw = self._shapes(*fields[:3])
-            if any(len(s) != 1 for s in fields[3:]):
-                raise ValueError("not an ms2020 classic container")
+            with profiling.span("container", "parse"):
+                fields = packed.unpack([np.int32] * 3 + ["bytes"] * (1 + ns))
+                x_hw, y_hw, z_hw = self._shapes(*fields[:3])
+                if any(len(s) != 1 for s in fields[3:]):
+                    raise ValueError("not an ms2020 classic container")
 
             def upload(strs):
-                buf, lens = torch_coder.from_bytes_list(strs)
-                return (torch.as_tensor(buf, device=dev),
-                        torch.as_tensor(lens, device=dev))
+                with profiling.span("container", "parse"):
+                    buf, lens = torch_coder.from_bytes_list(strs)
+                    with profiling.wait("upload"):
+                        return (torch.as_tensor(buf, device=dev),
+                                torch.as_tensor(lens, device=dev))
 
-            z_hat, z_san = self.em_z.decompress_device(*upload(fields[3]),
-                                                       z_hw)
+            z_stream = upload(fields[3])
+            with profiling.span("entropy", "decode.z"):
+                z_hat, z_san = self.em_z.decompress_device(*z_stream, z_hw)
             sanity = [z_san]
 
             def decode(i, mu, sigma):
-                y_slice, san = self.em_y.decompress_device(
-                    *upload(fields[4 + i]), sigma, loc=mu)
+                stream = upload(fields[4 + i])
+                with profiling.span("entropy", "decode.y"):
+                    _count_slice_coder_call()
+                    y_slice, san = self.em_y.decompress_device(
+                        *stream, sigma, loc=mu)
                 sanity.append(san)
                 return y_slice
 
             y_hat = self.model.slice_loop(z_hat, y_hw, decode)
             return y_hat, torch.cat(sanity), x_hw
-        fields = packed.unpack(
-            [np.int32] * 3 + ["bytes", np.int32, np.int32] * (1 + ns))
-        x_hw, (hy, wy), (hz, wz) = self._shapes(*fields[:3])
         cz, cs = self.model.hyperprior_depth, self.model.slice_depth
 
         def streams(strs, h, w, c, esc_pos, esc_val):
@@ -676,27 +736,36 @@ class MS2020Codec:
             if esc_idx.shape[0] != esc_val.shape[0]:
                 raise ValueError("escape positions and values disagree")
             buf, lens = torch_coder.from_bytes_list(strs)
-            return (k, torch.as_tensor(buf, device=dev),
-                    torch.as_tensor(lens, device=dev),
-                    torch.as_tensor(esc_idx, device=dev),
-                    torch.as_tensor(esc_val, device=dev))
+            with profiling.wait("upload"):
+                return (k, torch.as_tensor(buf, device=dev),
+                        torch.as_tensor(lens, device=dev),
+                        torch.as_tensor(esc_idx, device=dev),
+                        torch.as_tensor(esc_val, device=dev))
 
         # Every container field is parsed and uploaded before the first
         # launch; the slices decode one launch each inside the loop.
-        k_z, *z_args = streams(fields[3], hz, wz, cz, fields[4], fields[5])
-        slice_args = [streams(fields[6 + 3 * i], hy, wy, cs,
-                              fields[7 + 3 * i], fields[8 + 3 * i])
-                      for i in range(ns)]
-        z_rows, z_san = self.em_z.decompress_sidecar_device(
-            z_args[0], z_args[1], (1, wz // k_z), z_args[2], z_args[3])
+        with profiling.span("container", "parse"):
+            fields = packed.unpack(
+                [np.int32] * 3 + ["bytes", np.int32, np.int32] * (1 + ns))
+            x_hw, (hy, wy), (hz, wz) = self._shapes(*fields[:3])
+            k_z, *z_args = streams(fields[3], hz, wz, cz, fields[4],
+                                   fields[5])
+            slice_args = [streams(fields[6 + 3 * i], hy, wy, cs,
+                                  fields[7 + 3 * i], fields[8 + 3 * i])
+                          for i in range(ns)]
+        with profiling.span("entropy", "decode.z"):
+            z_rows, z_san = self.em_z.decompress_sidecar_device(
+                z_args[0], z_args[1], (1, wz // k_z), z_args[2], z_args[3])
         sanity = [z_san]
 
         def code(i, mu, sigma):
             k, buf, lens, esc_idx, esc_val = slice_args[i]
             rows = (hy * k, 1, wy // k, cs)
-            y_rows, san = self.em_y.decompress_sidecar_device(
-                buf, lens, sigma[0].reshape(rows), esc_idx, esc_val,
-                loc=mu[0].reshape(rows))
+            with profiling.span("entropy", "decode.y"):
+                _count_slice_coder_call()
+                y_rows, san = self.em_y.decompress_sidecar_device(
+                    buf, lens, sigma[0].reshape(rows), esc_idx, esc_val,
+                    loc=mu[0].reshape(rows))
             sanity.append(san)
             return native_format.from_streams(y_rows, hy, wy, cs)
 
@@ -704,28 +773,39 @@ class MS2020Codec:
             native_format.from_streams(z_rows, hz, wz, cz), (hy, wy), code)
         return y_hat, torch.cat(sanity), x_hw
 
-    def _finish(self, x_hat, sanity, x_hw) -> np.ndarray:
-        if self.em_y.decode_sanity_check and not bool(sanity.all()):
-            raise ValueError("Sanity check failed (corrupt bit streams).")
-        return x_hat[0, : x_hw[0], : x_hw[1], :].cpu().numpy()
+    def _finish(self, x_hat, sanity, x_hw, request=None) -> np.ndarray:
+        with profiling.span("codec", "finish", request=request):
+            if self.em_y.decode_sanity_check:
+                with profiling.wait("sanity"):
+                    sane = bool(sanity.all())
+                if not sane:
+                    raise ValueError(
+                        "Sanity check failed (corrupt bit streams).")
+            with profiling.wait("fetch"):
+                return x_hat[0, : x_hw[0], : x_hw[1], :].cpu().numpy()
 
     @torch.no_grad()
     def decompress(self, container: bytes) -> np.ndarray:
         """Classic or native container (told apart by the tensor count) ->
         uint8 [H, W, 3]; raises ValueError on a corrupt container."""
-        y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
-        return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
+        with profiling.span("codec", "decompress", request=True):
+            y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
+            return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
 
     @torch.no_grad()
     def decompress_native_many(self, containers) -> list:
         """Launches every container's decodes and transforms (classic or
         native) before the first copy to the host; outputs equal
         per-container decompress."""
-        pending = []
-        for c in containers:
-            y_hat, sanity, x_hw = self._decode_latent(self._unpack(c))
-            pending.append((self._synthesis_u8(y_hat), sanity, x_hw))
-        return [self._finish(*p) for p in pending]
+        with profiling.span("codec", "decompress_native_many"):
+            pending = []
+            for c in containers:
+                with profiling.span("codec", "image", request=True) as req:
+                    y_hat, sanity, x_hw = self._decode_latent(
+                        self._unpack(c))
+                    pending.append(
+                        (req, self._synthesis_u8(y_hat), sanity, x_hw))
+            return [self._finish(*p, request=req) for req, *p in pending]
 
     @torch.no_grad()
     def reconstruct(self, x) -> np.ndarray:
