@@ -98,10 +98,11 @@ Phases, one JSON line each (any failure exits non-zero):
      get_config("hific") (4 downsamplings, base 60, bottleneck 220, 9
      residual blocks, hyper 320; seeded init, its own tables, nothing
      cut: ~182.7M parameters) on the same images through both
-     containers, the *_many calls and reconstruct: two K1 launches per
-     native compress (y, z) and two K2 per native decompress, two encodes
-     per classic compress (K1 or K6') and two K3' per classic decompress,
-     all on the warp kernels; then K1 and K2 at the native launches (y
+     containers, the *_many calls and reconstruct (each native container
+     decompressed twice to the same image, with num_down + 1 upsampling
+     GEMMs a decompress): two K1 launches per native compress (y, z) and
+     two K2 per native decompress, two encodes per classic compress (K1 or
+     K6') and two K3' per classic decompress, all on the warp kernels; then K1 and K2 at the native launches (y
      512 x 440 and z 64 x 320 at 512x512) against their plain versions on
      the codec's inputs and the container's bytes, timed from a CUDA
      graph beside the byte bound and the chain's floor; the classic y
@@ -1830,10 +1831,12 @@ def hific_phase(device, images, batch, smi, fails):
     """Phase 4h: HiFiC at get_config("hific") (seeded init, its own
     tables, nothing cut) through both containers, the *_many calls and
     reconstruct on the card, with the launch counts reset just before and
-    read just after; then K1 and K2 at the native launches of y and z
-    against their plain versions on what the codec gives them (K1's bytes
-    the container's, K2 on the container's own bytes), timed from a CUDA
-    graph beside the byte bound and the chain's floor; the classic y and z
+    read just after (each native container decompressed twice: the images
+    equal, and ``hific.GEMM_UPSAMPLES`` counts ``num_down`` + 1 a
+    decompress); then K1 and K2 at the native launches of y and z against
+    their plain versions on what the codec gives them (K1's bytes the
+    container's, K2 on the container's own bytes), timed from a CUDA graph
+    beside the byte bound and the chain's floor; the classic y and z
     streams against the host C coder in both directions; e2e ms of both
     containers with K3''s share of the classic decompress.  Returns the
     main path's launch counts."""
@@ -1869,24 +1872,32 @@ def hific_phase(device, images, batch, smi, fails):
             classic = codec.compress(img)
             routes["classic_encode"] = torch_coder.DISPATCH_LOG["encode"]
             recon = codec.reconstruct(img)
+            upsamples = hific.GEMM_UPSAMPLES
             from_native = codec.decompress(native)
+            upsamples = hific.GEMM_UPSAMPLES - upsamples
             routes["native_decode"] = torch_coder.DISPATCH_LOG[
                 "decode_sidecar"]
+            again = codec.decompress(native)
             from_classic = codec.decompress(classic)
             routes["classic_decode"] = torch_coder.DISPATCH_LOG["decode"]
             for key in calls:
                 calls[key] += 1
+            calls["native_decompress"] += 1
+            repeat = bool(np.array_equal(again, from_native))
             exact = bool(np.array_equal(from_native, recon)
                          and np.array_equal(from_classic, recon))
-            path_ok &= exact and recon.shape == img.shape and (
+            path_ok &= exact and repeat and recon.shape == img.shape and (
                 PackedTensors(native).num_tensors == 9) and (
-                    PackedTensors(classic).num_tensors == 5)
+                    PackedTensors(classic).num_tensors == 5) and (
+                        upsamples == m.cfg.num_down + 1)
             pixels = img.shape[0] * img.shape[1]
             log("hific_path", image=name, native_bytes=len(native),
                 classic_bytes=len(classic),
                 native_bits_per_pixel=8 * len(native) / pixels,
                 classic_bits_per_pixel=8 * len(classic) / pixels,
-                decompress_equals_reconstruct=exact, shape=list(recon.shape))
+                decompress_equals_reconstruct=exact,
+                decompress_repeats_exactly=repeat,
+                gemm_upsamples_a_decompress=upsamples, shape=list(recon.shape))
         many = codec.compress_native_many(batch)
         single = [codec.compress_native(x) for x in batch]
         calls["native_compress"] += 2 * len(batch)

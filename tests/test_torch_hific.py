@@ -181,6 +181,17 @@ def test_channel_norm_matches_jax():
     _assert_close(tx.grad.permute(0, 2, 3, 1), ref_grad, 1e-5)
 
 
+def _grads(module, x, w, fn):
+    """fn(x)'s value and the gradients of sum(w * fn(x)) by the input and
+    by ``module``'s kernel and bias."""
+    module.zero_grad()
+    xi = x.clone().requires_grad_()
+    out = fn(xi)
+    torch.sum(w * out).backward()
+    return out.detach(), xi.grad, module.kernel.grad.clone(), \
+        module.bias.grad.clone()
+
+
 @pytest.mark.parametrize("batch", [1, 3])
 @pytest.mark.parametrize("grid", [(4, 6), (5, 3)])
 @pytest.mark.parametrize("cin", [960, 220])
@@ -196,20 +207,69 @@ def test_trunk_gemm_matches_conv(cin, grid, batch):
         conv.bias.normal_()
     x = torch.randn((batch,) + grid + (cin,))
     w = torch.randn((batch,) + grid + (960,))
-
-    def run(fn):
-        conv.zero_grad()
-        xi = x.clone().requires_grad_()
-        out = fn(xi)
-        torch.sum(w * out).backward()
-        return out.detach(), xi.grad, conv.kernel.grad.clone(), \
-            conv.bias.grad.clone()
-
     before = hific.GEMM_CONVS
-    mine = run(conv.gemm)
+    mine = _grads(conv, x, w, conv.gemm)
     assert hific.GEMM_CONVS - before == 1
-    ref = run(lambda xi: conv(xi.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+    ref = _grads(conv, x, w, lambda xi: conv(xi.permute(0, 3, 1, 2)).permute(
+        0, 2, 3, 1))
     assert mine[0].shape == (batch,) + grid + (960,)
+    for got, want in zip(mine, ref):
+        _assert_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("grid", [(4, 6), (5, 3)])
+@pytest.mark.parametrize("cin,cout", [(960, 480), (480, 240), (240, 120),
+                                      (120, 60)])
+def test_upsampling_overlap_add_matches_conv_transpose(cin, cout, grid,
+                                                        batch):
+    """ConvTranspose (the generator's upsampling path: one matrix product
+    and F.fold's overlap-add) against torch's transposed convolution of the
+    flipped kernel, its first 2 H x 2 W outputs kept, at the published
+    widths on even and odd grids: the output and the gradients of input,
+    kernel and bias within 1e-5 of their largest magnitude; one count of
+    GEMM_UPSAMPLES a call."""
+    torch.manual_seed(cin + grid[0] + batch)
+    conv = hific.ConvTranspose(cin, cout, 3, 2,
+                               generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        conv.bias.normal_()
+    x = torch.randn((batch, cin) + grid)
+    w = torch.randn((batch, cout, 2 * grid[0], 2 * grid[1]))
+
+    def oracle(xi):
+        out = torch.nn.functional.conv_transpose2d(
+            xi, conv.kernel.flip(0, 1).permute(2, 3, 0, 1), conv.bias,
+            stride=2)
+        return out[:, :, : 2 * grid[0], : 2 * grid[1]]
+
+    before = hific.GEMM_UPSAMPLES
+    mine = _grads(conv, x, w, conv)
+    assert hific.GEMM_UPSAMPLES - before == 1
+    ref = _grads(conv, x, w, oracle)
+    assert mine[0].shape == ref[0].shape == w.shape
+    for got, want in zip(mine, ref):
+        _assert_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("grid", [(8, 12), (9, 5)])
+def test_tail_overlap_add_matches_conv(grid, batch):
+    """Conv.overlap_add (the generator's 7x7 tail, 60 -> 3, as a stride-1
+    transposed convolution of the same kernel) against Conv.forward: the
+    output and the gradients of input, kernel and bias within 1e-5 of
+    their largest magnitude; one count of GEMM_UPSAMPLES a call."""
+    torch.manual_seed(grid[0] + batch)
+    conv = hific.Conv(60, 3, 7, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        conv.bias.normal_()
+    x = torch.randn((batch, 60) + grid)
+    w = torch.randn((batch, 3) + grid)
+    before = hific.GEMM_UPSAMPLES
+    mine = _grads(conv, x, w, conv.overlap_add)
+    assert hific.GEMM_UPSAMPLES - before == 1
+    ref = _grads(conv, x, w, conv)
+    assert mine[0].shape == ref[0].shape == w.shape
     for got, want in zip(mine, ref):
         _assert_close(got, want, 1e-5)
 
@@ -443,15 +503,9 @@ def deep_codec():
     return hific.HiFiCCodec(model, device="cpu")
 
 
-@pytest.mark.parametrize("entry,per_image", [
-    ("compress", 0), ("compress_native", 0), ("compress_native_many", 0),
-    ("decompress", 19), ("decompress_native_many", 19),
-    ("reconstruct", 19)])
-def test_gemm_convs_count_trunk_convolutions(deep_codec, entry, per_image):
-    """GEMM_CONVS counts the trunk's 19 convolutions an image synthesized
-    (8 images through decompress_native_many: 152) and none a compress:
-    the encoder and the hyperprior keep their own convolutions."""
-    pc = deep_codec
+def _entry(pc, entry):
+    """A call of the codec's ``entry`` on 32x48 images, and the number of
+    images it codes."""
     images = [np.random.RandomState(i).randint(0, 256, (32, 48, 3)).astype(
         np.uint8) for i in range(8)]
     call = {
@@ -463,11 +517,59 @@ def test_gemm_convs_count_trunk_convolutions(deep_codec, entry, per_image):
             [pc.compress_native(x) for x in images]),
         "reconstruct": lambda: pc.reconstruct(images[0]),
     }[entry]
-    count = {"compress_native_many": 8, "decompress_native_many": 8}.get(
-        entry, 1)
+    return call, {"compress_native_many": 8,
+                  "decompress_native_many": 8}.get(entry, 1)
+
+
+@pytest.mark.parametrize("entry,per_image", [
+    ("compress", 0), ("compress_native", 0), ("compress_native_many", 0),
+    ("decompress", 19), ("decompress_native_many", 19),
+    ("reconstruct", 19)])
+def test_gemm_convs_count_trunk_convolutions(deep_codec, entry, per_image):
+    """GEMM_CONVS counts the trunk's 19 convolutions an image synthesized
+    (8 images through decompress_native_many: 152) and none a compress:
+    the encoder and the hyperprior keep their own convolutions."""
+    call, count = _entry(deep_codec, entry)
     before = hific.GEMM_CONVS
     call()
     assert hific.GEMM_CONVS - before == per_image * count
+
+
+@pytest.fixture(scope="module")
+def compact_codec():
+    model = hific.HiFiCModel(hific.HiFiCConfig(**CONFIGS["compact"]), seed=5)
+    return hific.HiFiCCodec(model, device="cpu")
+
+
+@pytest.mark.parametrize("entry,per_image", [
+    ("compress", 0), ("compress_native", 0), ("compress_native_many", 0),
+    ("decompress", 5), ("decompress_native_many", 5),
+    ("reconstruct", 5)])
+def test_gemm_upsamples_count_the_upsampling_stack(compact_codec, entry,
+                                                   per_image):
+    """GEMM_UPSAMPLES counts the generator's four transposed convolutions
+    and its 7x7 tail an image synthesized at the published depth (8 images
+    through decompress_native_many: 40) and none a compress."""
+    call, count = _entry(compact_codec, entry)
+    before = hific.GEMM_UPSAMPLES
+    call()
+    assert hific.GEMM_UPSAMPLES - before == per_image * count
+
+
+@pytest.mark.parametrize("kind", ["native", "classic"])
+def test_decompress_repeats_exactly(compact_codec, kind):
+    """Two decompresses of one container give the same uint8 image, and it
+    equals reconstruct: the upsampling stack's overlap-add sums in a fixed
+    order."""
+    pc = compact_codec
+    image = np.random.RandomState(11).randint(0, 256, (48, 64, 3)).astype(
+        np.uint8)
+    container = {"native": pc.compress_native,
+                 "classic": pc.compress}[kind](image)
+    first, second = pc.decompress(container), pc.decompress(container)
+    assert first.dtype == np.uint8 and first.shape == image.shape
+    np.testing.assert_array_equal(first, second)
+    np.testing.assert_array_equal(first, pc.reconstruct(image))
 
 
 def test_decoder_state_dict_keeps_flax_names_and_shapes():
