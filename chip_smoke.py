@@ -962,6 +962,15 @@ def e2e_times(compress, decompress, img, runs=10):
             "container_bytes": len(container)}
 
 
+def bls_native(codec, y, x_hw):
+    """bls2017's native container of the latent ``y`` of an image of
+    ``x_hw``: the codec's own encode and pack, from a given latent."""
+    from compression_tpu_torch.models import native_format
+
+    out = codec.em.compress_sidecar_device(native_format.to_streams(y))
+    return codec._container((out, tuple(y.shape[1:]), tuple(x_hw)))
+
+
 def pixels_off(codec, container, expect):
     """(pixels that differ from ``expect``, pixels that differ although
     the float image is not within PIXEL_BOUNDARY of a rounding boundary,
@@ -3582,8 +3591,7 @@ def main():
         y = codec._analysis(codec._upload(images[first]))
         scale = 2.0 * table.max_len / float(y.abs().max())
         y_wide = scale * y
-        cont = codec._container(codec._encode_latent(y_wide),
-                                IMAGES[first][:2])
+        cont = bls_native(codec, y_wide, IMAGES[first][:2])
         y_hat, sanity, _ = codec._decode_latent(codec._unpack(cont))
         esc_ok = bool(torch.equal(y_hat, codec.em.quantize(y_wide))
                       and sanity.all())
@@ -3908,9 +3916,8 @@ def main():
         tables=codec.em.get_weights())
     with torch.no_grad():
         y = codec._analysis(codec._upload(small))
-        c_gpu = codec._container(codec._encode_latent(y), small.shape[:2])
-        c_cpu = cpu_codec._container(cpu_codec._encode_latent(y.cpu()),
-                                     small.shape[:2])
+        c_gpu = bls_native(codec, y, small.shape[:2])
+        c_cpu = bls_native(cpu_codec, y.cpu(), small.shape[:2])
         y_gpu = codec._decode_latent(codec._unpack(c_cpu))[0]
         y_cpu = cpu_codec._decode_latent(cpu_codec._unpack(c_gpu))[0]
         s_gpu = codec.em.compress_to_strings(3.0 * y)

@@ -5,17 +5,17 @@ compression_tpu/models/bls2017.py).
 A 3-layer SignalConv2D analysis transform with GDN (downsampling 4,2,2), a
 mirrored synthesis transform with IGDN, a NoisyDeepFactorized prior over the
 latent channels and a ContinuousBatchedEntropyModel with coding_rank=3.
-``BLS2017Codec`` writes and reads two containers: the classic .tfci one of
-the reference (``compress``: one stream per image, escapes in-stream) and
-the native one (``compress_native``, ``compress_native_many``: one stream
-per latent row block plus the escape sidecar); ``decompress`` and
-``decompress_native_many`` read both, and ``reconstruct`` skips the coder.
-``BLS2017Model.forward(training=True)``, ``make_train_step`` and ``train``
-train the model (uniform noise on the latent, Adam).  Weights come from a
-seeded init, from the JAX package (``params_from_jax``) or from the
-reference's TF variables (``params_from_tf``).  Images are
-uint8 [H, W, 3] (numpy or torch) and latents [1, H, W, C], the JAX
-package's NHWC layout.
+``BLS2017Codec`` (on ``image_codec.ImageCodec``) writes and reads two
+containers: the classic .tfci one of the reference (``compress``: one stream
+per image, escapes in-stream) and the native one (``compress_native``,
+``compress_native_many``: one stream per latent row block plus the escape
+sidecar); ``decompress`` and ``decompress_native_many`` read both, and
+``reconstruct`` skips the coder.  ``BLS2017Model.forward(training=True)``,
+``make_train_step`` and ``train`` train the model (uniform noise on the
+latent, Adam).  Weights come from a seeded init, from the JAX package
+(``params_from_jax``) or from the reference's TF variables
+(``params_from_tf``).  Images are uint8 [H, W, 3] (numpy or torch) and
+latents [1, H, W, C], the JAX package's NHWC layout.
 
 "End-to-end Optimized Image Compression"
 https://openreview.net/forum?id=rJxdQ3jeg
@@ -27,16 +27,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from compression_tpu_torch.codec import torch_coder
 from compression_tpu_torch.distributions import deep_factorized
 from compression_tpu_torch.entropy_models.continuous_batched import (
     ContinuousBatchedEntropyModel)
 from compression_tpu_torch.layers.gdn import GDN
 from compression_tpu_torch.layers.signal_conv import SignalConv2D
 from compression_tpu_torch.models import native_format
+from compression_tpu_torch.models.image_codec import ImageCodec
 from compression_tpu_torch.util import profiling
 from compression_tpu_torch.util.device import resolve_device
-from compression_tpu_torch.util.packed_tensors import PackedTensors
 
 __all__ = [
     "AnalysisTransform",
@@ -156,6 +155,9 @@ class BLS2017Model(nn.Module):
         bpp = torch.sum(bits) / num_pixels
         mse = torch.mean(torch.square(x - x_hat))
         return bpp + self.lmbda * mse, bpp, mse
+
+    def decode(self, y_hat):
+        return self.synthesis(y_hat)
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer):
@@ -298,8 +300,10 @@ def params_from_tf(tf_vars) -> dict:
     return state
 
 
-class BLS2017Codec:
-    """Inference codec with frozen range-coding tables.
+class BLS2017Codec(ImageCodec):
+    """Inference codec with frozen range-coding tables: ``ImageCodec``'s
+    entry points over one latent, the classic container's 3 tensors and the
+    native one's 5.
 
     Args:
       model: a BLS2017Model (moved to ``device``).
@@ -309,24 +313,14 @@ class BLS2017Codec:
         or ``[cdf, cdf_offset, quantization_offset]`` (the JAX
         entropy model's ``get_weights()``); by default the tables are built
         from the model's prior on the CPU.
-
-    The float path runs in full float32: TF32 is switched off for cuDNN and
-    matmuls, and cuDNN is made deterministic, so that compress,
-    compress_native, decompress and reconstruct share one
-    analysis/synthesis path and ``decompress(compress(x))`` and
-    ``decompress(compress_native(x))`` equal ``reconstruct(x)`` exactly.
     """
 
     MODEL_ID = "bls2017"
+    num_classic_tensors, num_native_tensors = 3, 5
+    _y_em = property(lambda self: self.em)
 
     def __init__(self, model: BLS2017Model, device="cuda", tables=None):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.deterministic = True
-            torch.backends.cudnn.benchmark = False
-        self.model = model.to(self.device).eval()
+        super().__init__(model, device)
         nf = model.num_filters
         if tables is None:
             self.em = ContinuousBatchedEntropyModel(
@@ -339,160 +333,60 @@ class BLS2017Codec:
                 quantization_offset=offset[0] if offset else None,
                 coding_rank=3, compression=True, device=self.device)
 
-    # -- shared transform path --------------------------------------------
-    def _upload(self, x):
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        if x.dtype != torch.uint8 or x.ndim != 3 or x.shape[-1] != 3:
-            raise ValueError("expected a uint8 [H, W, 3] image")
-        return x.to(self.device)
-
     def _analysis(self, x):
-        return self.model.analysis(x.to(torch.float32)[None])
+        with profiling.span("transforms", "analysis", "dispatch"):
+            return self.model.analysis(x.to(torch.float32)[None])
 
-    def _synthesis_u8(self, y_hat):
-        x_hat = self.model.synthesis(y_hat)
-        return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
-
-    # -- compress ----------------------------------------------------------
-    @torch.no_grad()
-    def compress(self, x) -> bytes:
-        """uint8 [H, W, 3] image -> classic .tfci container bytes: the whole
-        latent in one reference-format stream, escapes in-stream (the
-        reference's format, byte-identical to the JAX package's)."""
-        x = self._upload(x)
+    def _classic_fields(self, x):
+        """The whole latent in one reference-format stream."""
         y = self._analysis(x)
-        packed = PackedTensors()
-        packed.model = self.MODEL_ID
-        packed.pack([self.em.compress_to_strings(y),
-                     np.asarray(tuple(x.shape[:2]), np.int32),
-                     np.asarray(tuple(y.shape[1:-1]), np.int32)])
-        return packed.string
+        with profiling.span("entropy", "encode.y"):
+            strings = self.em.compress_to_strings(y)
+        return [strings, np.asarray(tuple(x.shape[:2]), np.int32),
+                np.asarray(tuple(y.shape[1:-1]), np.int32)]
 
-    def _encode_latent(self, y):
-        """Launches the sidecar encode of a latent [1, h, w, c]; returns
-        device results without waiting for them."""
-        _, h, w, c = (int(s) for s in y.shape)
-        buf, lens, esc_idx, esc_val = self.em.compress_sidecar_device(
-            native_format.to_streams(y))
-        return buf, lens, esc_idx, esc_val, (h, w, c)
+    def _encode_native(self, x):
+        y = self._analysis(x)
+        with profiling.span("entropy", "encode.y"):
+            y_out = self.em.compress_sidecar_device(
+                native_format.to_streams(y))
+        return y_out, tuple(int(s) for s in y.shape[1:]), tuple(x.shape[:2])
 
-    def _container(self, encoded, x_hw) -> bytes:
-        """Copies an _encode_latent result to the host and packs it."""
-        buf, lens, esc_idx, esc_val, (h, w, c) = encoded
-        n = (w // native_format.split_factor(w, c)) * c
-        buf, lens = buf.cpu().numpy(), lens.cpu().numpy()
-        pairs, vals = native_format.esc_to_pairs(
-            esc_idx.cpu().numpy(), esc_val.cpu().numpy(), n)
-        packed = PackedTensors()
-        packed.model = self.MODEL_ID
-        packed.pack([
-            torch_coder.to_bytes_list(buf, lens),
-            np.asarray(x_hw, np.int32),
-            np.asarray((h, w), np.int32),
-            pairs.ravel(), vals])
-        return packed.string
+    def _native_fields(self, encoded):
+        y_out, (h, w, c), x_hw = encoded
+        strings, pairs, vals = self._fetch(y_out, w, c)
+        return [strings, np.asarray(x_hw, np.int32),
+                np.asarray((h, w), np.int32), pairs.ravel(), vals]
 
-    @torch.no_grad()
-    def compress_native(self, x) -> bytes:
-        """uint8 [H, W, 3] image -> native container bytes: one coder
-        stream per latent row block plus the escape sidecar.  Not
-        byte-compatible with the reference .tfci format."""
-        x = self._upload(x)
-        return self._container(self._encode_latent(self._analysis(x)),
-                               tuple(x.shape[:2]))
-
-    @torch.no_grad()
-    def compress_native_many(self, images) -> list:
-        """Launches every image's transform and encode before the first
-        copy to the host; containers equal per-image compress_native."""
-        pending = []
-        for x in images:
-            x = self._upload(x)
-            pending.append((self._encode_latent(self._analysis(x)),
-                            tuple(x.shape[:2])))
-        return [self._container(e, hw) for e, hw in pending]
-
-    # -- decompress --------------------------------------------------------
-    def _unpack(self, container) -> PackedTensors:
-        packed = PackedTensors(container)
-        if packed.model != self.MODEL_ID:
-            raise ValueError(f"container is for model {packed.model!r}")
-        if packed.num_tensors not in (3, 5):
-            raise ValueError("not a bls2017 classic or native container")
-        return packed
-
-    def _decode_latent(self, packed):
-        """Launches the range decode of a classic or native container;
-        returns (y_hat [1, h, w, c], sanity [S], (H, W)) on the device
-        without waiting."""
-        if packed.num_tensors == 3:
-            return self._decode_classic(packed)
-        strings, x_shape, y_shape, esc_flat, esc_val = packed.unpack(
-            ["bytes", np.int32, np.int32, np.int32, np.int32])
-        buf, lens = torch_coder.from_bytes_list(strings)
-        h, w = int(y_shape[0]), int(y_shape[1])
-        c = int(np.prod(self.em.prior_shape))
-        k = native_format.split_factor_from_streams(len(strings), h)
-        n = (w // k) * c
-        esc_idx = torch_coder.sidecar_flatten(
-            esc_flat.reshape(-1, 2), len(strings), n)
-        if esc_idx.shape[0] != esc_val.shape[0]:
-            raise ValueError("escape positions and values disagree")
-        dev = self.device
-        y_rows, sanity = self.em.decompress_sidecar_device(
-            torch.as_tensor(buf, device=dev),
-            torch.as_tensor(lens, device=dev), (1, w // k),
-            torch.as_tensor(esc_idx, device=dev),
-            torch.as_tensor(esc_val, device=dev))
+    def _decode_native(self, packed):
+        with profiling.span("container", "parse"):
+            strings, x_shape, y_shape, esc_pos, esc_val = packed.unpack(
+                ["bytes", np.int32, np.int32, np.int32, np.int32])
+            h, w = int(y_shape[0]), int(y_shape[1])
+            c = int(np.prod(self.em.prior_shape))
+            k, buf, lens, esc_idx, esc_val = self._native_streams(
+                strings, h, w, c, esc_pos, esc_val)
+        with profiling.span("entropy", "decode.y"):
+            y_rows, sanity = self.em.decompress_sidecar_device(
+                buf, lens, (1, w // k), esc_idx, esc_val)
         return (native_format.from_streams(y_rows, h, w, c), sanity,
                 (int(x_shape[0]), int(x_shape[1])))
 
     def _decode_classic(self, packed):
-        strings, x_shape, y_shape = packed.unpack(
-            ["bytes", np.int32, np.int32])
-        if len(strings) != 1 or y_shape.shape != (2,) or (y_shape < 1).any():
-            raise ValueError("not a bls2017 classic container")
-        buf, lens = torch_coder.from_bytes_list(strings)
-        dev = self.device
-        y_hat, sanity = self.em.decompress_device(
-            torch.as_tensor(buf, device=dev),
-            torch.as_tensor(lens, device=dev), tuple(y_shape))
+        with profiling.span("container", "parse"):
+            strings, x_shape, y_shape = packed.unpack(
+                ["bytes", np.int32, np.int32])
+            if (len(strings) != 1 or y_shape.shape != (2,)
+                    or (y_shape < 1).any()):
+                raise ValueError("not a bls2017 classic container")
+        stream = self._classic_streams(strings)
+        with profiling.span("entropy", "decode.y"):
+            y_hat, sanity = self.em.decompress_device(*stream,
+                                                      tuple(y_shape))
         return y_hat, sanity, (int(x_shape[0]), int(x_shape[1]))
 
-    def _finish(self, x_hat, sanity, x_hw) -> np.ndarray:
-        if self.em.decode_sanity_check and not bool(sanity.all()):
-            raise ValueError("Sanity check failed (corrupt bit streams).")
-        return x_hat[0, : x_hw[0], : x_hw[1], :].cpu().numpy()
-
-    @torch.no_grad()
-    def decompress(self, container: bytes) -> np.ndarray:
-        """Classic or native container -> uint8 [H, W, 3]; raises
-        ValueError on a corrupt container."""
-        y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
-        return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
-
-    @torch.no_grad()
-    def decompress_native_many(self, containers) -> list:
-        """Launches every container's decode and synthesis (classic or
-        native) before the first copy to the host; outputs equal
-        per-container decompress."""
-        pending = []
-        for c in containers:
-            y_hat, sanity, x_hw = self._decode_latent(self._unpack(c))
-            pending.append((self._synthesis_u8(y_hat), sanity, x_hw))
-        return [self._finish(*p) for p in pending]
-
-    @torch.no_grad()
-    def reconstruct(self, x) -> np.ndarray:
-        """Reconstruction without the range coder: quantize the latent with
-        the codec's entropy model and synthesize; equals
-        decompress(compress(x)) and decompress(compress_native(x))
-        exactly."""
-        x = self._upload(x)
-        y_hat = self.em.quantize(self._analysis(x))
-        return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
-                                         :].cpu().numpy()
+    def _quantized_latent(self, x):
+        return self.em.quantize(self._analysis(x))
 
 
 # The command line's hyperparameters and their defaults, the JAX package's.

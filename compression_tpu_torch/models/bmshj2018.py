@@ -7,19 +7,20 @@ hyper-latent ``z`` and ``z`` into one scale index per element of ``y``, a
 NoisyDeepFactorized hyperprior over ``z`` (batched entropy model) and a
 LocationScaleIndexedEntropyModel over ``y`` with a log-spaced scale table.
 
-``BMSHJ2018Codec`` writes and reads two containers: the reference's classic
-.tfci one (``compress``: one stream for ``y`` and one for ``z``, escapes
-in-stream; 5 tensors) and the native one (``compress_native``,
-``compress_native_many``: one stream per latent row block plus an escape
-sidecar, for both latents; 9 tensors).  ``decompress`` and
-``decompress_native_many`` read both, ``reconstruct`` skips the coder.
-``BMSHJ2018Model.forward(training=True)`` and ``make_train_step`` train
-the model (uniform noise on both latents).  The JAX package's fetch budgets and compacted transfers, and the fallback that
-goes with them, have no counterpart: the escape list here is exact, so
-``compress_native`` has no budget to overflow.  Weights come from a seeded
-init, from the JAX package (``params_from_jax``) or from the reference's TF
-variables (``params_from_tf``).  Images are uint8 [H, W, 3] (numpy or
-torch) and latents [1, H, W, C], the JAX package's NHWC layout.
+``BMSHJ2018Codec`` (on ``image_codec.ImageCodec``) writes and reads two
+containers: the reference's classic .tfci one (``compress``: one stream for
+``y`` and one for ``z``, escapes in-stream; 5 tensors) and the native one
+(``compress_native``, ``compress_native_many``: one stream per latent row
+block plus an escape sidecar, for both latents; 9 tensors).  ``decompress``
+and ``decompress_native_many`` read both, ``reconstruct`` skips the coder.
+``BMSHJ2018Model.forward(training=True)`` and ``make_train_step`` train the
+model (uniform noise on both latents).  The JAX package's fetch budgets and
+compacted transfers, and the fallback that goes with them, have no
+counterpart: the escape list here is exact, so ``compress_native`` has no
+budget to overflow.  Weights come from a seeded init, from the JAX package
+(``params_from_jax``) or from the reference's TF variables
+(``params_from_tf``).  Images are uint8 [H, W, 3] (numpy or torch) and
+latents [1, H, W, C], the JAX package's NHWC layout.
 
 "Variational image compression with a scale hyperprior"
 https://openreview.net/forum?id=rkcQFMZRb
@@ -34,7 +35,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from compression_tpu_torch.codec import torch_coder
 from compression_tpu_torch.distributions import deep_factorized
 from compression_tpu_torch.distributions import uniform_noise
 from compression_tpu_torch.entropy_models.continuous_batched import (
@@ -46,9 +46,8 @@ from compression_tpu_torch.layers.signal_conv import SignalConv2D
 from compression_tpu_torch.models import native_format
 # One train step serves both models (JAX: models/bmshj2018.py:193).
 from compression_tpu_torch.models.bls2017 import make_train_step
+from compression_tpu_torch.models.image_codec import ImageCodec
 from compression_tpu_torch.util import profiling
-from compression_tpu_torch.util.device import resolve_device
-from compression_tpu_torch.util.packed_tensors import PackedTensors
 
 __all__ = [
     "AnalysisTransform",
@@ -334,8 +333,10 @@ def params_from_tf(tf_vars) -> dict:
     return state
 
 
-class BMSHJ2018Codec:
-    """Inference codec with frozen tables for both entropy models.
+class BMSHJ2018Codec(ImageCodec):
+    """Inference codec with frozen tables for both entropy models:
+    ``ImageCodec``'s entry points over y and z, the classic container's 5
+    tensors and the native one's 9.
 
     Args:
       model: a BMSHJ2018Model (moved to ``device``).
@@ -354,24 +355,14 @@ class BMSHJ2018Codec:
     indexes and location (None here: bmshj2018 codes y about zero), which
     every entry point hands to the y entropy model, so that a model with a
     mean branch (HiFiC) runs the same code.
-
-    The float path runs in full float32: TF32 is switched off for cuDNN and
-    matmuls, and cuDNN is made deterministic, so that compress,
-    compress_native, decompress and reconstruct share one transform path
-    and ``decompress(compress(x))`` and ``decompress(compress_native(x))``
-    equal ``reconstruct(x)`` exactly.
     """
 
     MODEL_ID = "bmshj2018"
+    num_classic_tensors, num_native_tensors = 5, 9
+    _y_em = property(lambda self: self.em)
 
     def __init__(self, model: BMSHJ2018Model, device="cuda", tables=None):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.deterministic = True
-            torch.backends.cudnn.benchmark = False
-        self.model = model.to(self.device).eval()
+        super().__init__(model, device)
         y_tables, z_tables = tables if tables is not None else (None, None)
         cdf_y, cdf_offset_y = y_tables if y_tables is not None \
             else (None, None)
@@ -392,18 +383,6 @@ class BMSHJ2018Codec:
                 coding_rank=3, compression=True, device=self.device)
         self.latent_depth = model.latent_depth
 
-    # -- shared transform path --------------------------------------------
-    def _upload(self, x):
-        with profiling.span("codec", "upload"):
-            if not isinstance(x, torch.Tensor):
-                x = torch.from_numpy(np.ascontiguousarray(x))
-            if x.dtype != torch.uint8 or x.ndim != 3 or x.shape[-1] != 3:
-                raise ValueError("expected a uint8 [H, W, 3] image")
-            if x.device == self.device:
-                return x
-            with profiling.wait("upload"):
-                return x.to(self.device)
-
     def _encode(self, x):
         """Image -> (y, z, y's scale indexes and location, cropped to y)."""
         with profiling.span("transforms", "analysis", "dispatch"):
@@ -418,36 +397,19 @@ class BMSHJ2018Codec:
             indexes = self.model.hyper_decode(z_hat)
         return indexes[:, : y_hw[0], : y_hw[1], :], None
 
-    def _synthesis_u8(self, y_hat):
-        with profiling.span("transforms", "synthesis", "dispatch"):
-            x_hat = self.model.decode(y_hat)
-            return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
+    def _classic_fields(self, x):
+        """y and z each in one reference-format stream."""
+        y, z, indexes, loc = self._encode(x)
+        with profiling.span("entropy", "encode.z"):
+            side_strings = self.side_em.compress_to_strings(z)
+        with profiling.span("entropy", "encode.y"):
+            strings = self.em.compress_to_strings(y, indexes, loc=loc)
+        return [strings, side_strings,
+                np.asarray(tuple(x.shape[:2]), np.int32),
+                np.asarray(tuple(y.shape[1:-1]), np.int32),
+                np.asarray(tuple(z.shape[1:-1]), np.int32)]
 
-    # -- compress ----------------------------------------------------------
-    @torch.no_grad()
-    def compress(self, x) -> bytes:
-        """uint8 [H, W, 3] image -> classic .tfci container bytes: y and z
-        each in one reference-format stream, escapes in-stream (the
-        reference's format, byte-identical to the JAX package's)."""
-        with profiling.span("codec", "compress", request=True):
-            x = self._upload(x)
-            y, z, indexes, loc = self._encode(x)
-            with profiling.span("entropy", "encode.z"):
-                side_strings = self.side_em.compress_to_strings(z)
-            with profiling.span("entropy", "encode.y"):
-                strings = self.em.compress_to_strings(y, indexes, loc=loc)
-            with profiling.span("container", "pack"):
-                packed = PackedTensors()
-                packed.model = self.MODEL_ID
-                packed.pack([strings, side_strings,
-                             np.asarray(tuple(x.shape[:2]), np.int32),
-                             np.asarray(tuple(y.shape[1:-1]), np.int32),
-                             np.asarray(tuple(z.shape[1:-1]), np.int32)])
-                return packed.string
-
-    def _encode_latents(self, x):
-        """Launches the transforms and both sidecar encodes of an uploaded
-        image; returns device results without waiting for them."""
+    def _encode_native(self, x):
         y, z, indexes, loc = self._encode(x)
         with profiling.span("entropy", "encode.y"):
             y_out = self.em.compress_sidecar_device(
@@ -461,84 +423,16 @@ class BMSHJ2018Codec:
                 z_out, tuple(int(s) for s in z.shape[1:]),
                 tuple(x.shape[:2]))
 
-    def _container(self, encoded, request=None) -> bytes:
-        """Copies an _encode_latents result to the host and packs it;
-        ``request``: the request id its span resumes (``profiling.span``)."""
+    def _native_fields(self, encoded):
         y_out, y_hwc, z_out, z_hwc, x_hw = encoded
+        y_strings, y_pairs, y_vals = self._fetch(y_out, *y_hwc[1:])
+        z_strings, z_pairs, z_vals = self._fetch(z_out, *z_hwc[1:])
+        return [y_strings, z_strings, np.asarray(x_hw, np.int32),
+                np.asarray(y_hwc[:2], np.int32),
+                np.asarray(z_hwc[:2], np.int32),
+                y_pairs.ravel(), y_vals, z_pairs.ravel(), z_vals]
 
-        def fetch(out, hwc):
-            with profiling.wait("fetch"):
-                buf, lens, esc_idx, esc_val = (t.cpu().numpy() for t in out)
-            _, w, c = hwc
-            n = (w // native_format.split_factor(w, c)) * c
-            pairs, vals = native_format.esc_to_pairs(esc_idx, esc_val, n)
-            return torch_coder.to_bytes_list(buf, lens), pairs.ravel(), vals
-
-        with profiling.span("container", "pack", request=request):
-            y_strings, y_pairs, y_vals = fetch(y_out, y_hwc)
-            z_strings, z_pairs, z_vals = fetch(z_out, z_hwc)
-            packed = PackedTensors()
-            packed.model = self.MODEL_ID
-            packed.pack([y_strings, z_strings, np.asarray(x_hw, np.int32),
-                         np.asarray(y_hwc[:2], np.int32),
-                         np.asarray(z_hwc[:2], np.int32),
-                         y_pairs, y_vals, z_pairs, z_vals])
-            return packed.string
-
-    @torch.no_grad()
-    def compress_native(self, x) -> bytes:
-        """uint8 [H, W, 3] image -> native container bytes: for y and for z
-        one coder stream per latent row block plus the escape sidecar.  Not
-        byte-compatible with the reference .tfci format; byte-identical to
-        the JAX package's native container."""
-        with profiling.span("codec", "compress_native", request=True):
-            return self._container(self._encode_latents(self._upload(x)))
-
-    @torch.no_grad()
-    def compress_native_many(self, images) -> list:
-        """Launches every image's transforms and encodes before the first
-        copy to the host; containers equal per-image compress_native."""
-        with profiling.span("codec", "compress_native_many"):
-            pending = []
-            for x in images:
-                with profiling.span("codec", "image", request=True) as req:
-                    pending.append(
-                        (req, self._encode_latents(self._upload(x))))
-            return [self._container(e, request=req) for req, e in pending]
-
-    # -- decompress --------------------------------------------------------
-    def _unpack(self, container) -> PackedTensors:
-        with profiling.span("container", "parse"):
-            packed = PackedTensors(container)
-            if packed.model != self.MODEL_ID:
-                raise ValueError(f"container is for model {packed.model!r}")
-            if packed.num_tensors not in (5, 9):
-                raise ValueError(
-                    f"not a {self.MODEL_ID} classic or native container")
-            return packed
-
-    def _decode_latent(self, packed):
-        """Launches the range decodes and the hyper synthesis of a classic
-        or native container; returns (y_hat [1, h, w, c], sanity [Sz + Sy],
-        (H, W)) on the device without waiting."""
-        if packed.num_tensors == 5:
-            return self._decode_classic(packed)
-        dev = self.device
-
-        def streams(strs, h, w, c, esc_pos, esc_val):
-            k = native_format.split_factor_from_streams(len(strs), h)
-            n = (w // k) * c
-            esc_idx = torch_coder.sidecar_flatten(
-                esc_pos.reshape(-1, 2), len(strs), n)
-            if esc_idx.shape[0] != esc_val.shape[0]:
-                raise ValueError("escape positions and values disagree")
-            buf, lens = torch_coder.from_bytes_list(strs)
-            with profiling.wait("upload"):
-                return (k, torch.as_tensor(buf, device=dev),
-                        torch.as_tensor(lens, device=dev),
-                        torch.as_tensor(esc_idx, device=dev),
-                        torch.as_tensor(esc_val, device=dev))
-
+    def _decode_native(self, packed):
         with profiling.span("container", "parse"):
             (strings, side_strings, x_shape, y_shape, z_shape, y_ep, y_ev,
              z_ep, z_ev) = packed.unpack(
@@ -548,9 +442,9 @@ class BMSHJ2018Codec:
             hz, wz = int(z_shape[0]), int(z_shape[1])
             cz = int(np.prod(self.side_em.prior_shape))
             cy = self.latent_depth
-            k_z, z_buf, z_len, z_ei, z_evd = streams(
+            k_z, z_buf, z_len, z_ei, z_evd = self._native_streams(
                 side_strings, hz, wz, cz, z_ep, z_ev)
-            k_y, y_buf, y_len, y_ei, y_evd = streams(
+            k_y, y_buf, y_len, y_ei, y_evd = self._native_streams(
                 strings, hy, wy, cy, y_ep, y_ev)
         with profiling.span("entropy", "decode.z"):
             z_rows, z_san = self.side_em.decompress_sidecar_device(
@@ -576,16 +470,7 @@ class BMSHJ2018Codec:
                 if len(strs) != 1 or shape.shape != (2,) or (shape < 1).any():
                     raise ValueError(
                         f"not a {self.MODEL_ID} classic container")
-        dev = self.device
-
-        def upload(strs):
-            with profiling.span("container", "parse"):
-                buf, lens = torch_coder.from_bytes_list(strs)
-                with profiling.wait("upload"):
-                    return (torch.as_tensor(buf, device=dev),
-                            torch.as_tensor(lens, device=dev))
-
-        side = upload(side_strings)
+        side = self._classic_streams(side_strings)
         with profiling.span("entropy", "decode.z"):
             z_hat, z_san = self.side_em.decompress_device(
                 *side, tuple(int(s) for s in z_shape))
@@ -593,57 +478,17 @@ class BMSHJ2018Codec:
         indexes, loc = self._y_params(z_hat, (hy, wy))
         if tuple(indexes.shape[1:3]) != (hy, wy):
             raise ValueError("latent shapes of the container disagree")
-        main = upload(strings)
+        main = self._classic_streams(strings)
         with profiling.span("entropy", "decode.y"):
             y_hat, y_san = self.em.decompress_device(*main, indexes, loc=loc)
         return (y_hat, torch.cat([z_san, y_san]),
                 (int(x_shape[0]), int(x_shape[1])))
 
-    def _finish(self, x_hat, sanity, x_hw, request=None) -> np.ndarray:
-        with profiling.span("codec", "finish", request=request):
-            if self.em.decode_sanity_check:
-                with profiling.wait("sanity"):
-                    sane = bool(sanity.all())
-                if not sane:
-                    raise ValueError(
-                        "Sanity check failed (corrupt bit streams).")
-            with profiling.wait("fetch"):
-                return x_hat[0, : x_hw[0], : x_hw[1], :].cpu().numpy()
-
-    @torch.no_grad()
-    def decompress(self, container: bytes) -> np.ndarray:
-        """Classic or native container -> uint8 [H, W, 3]; raises
-        ValueError on a corrupt container."""
-        with profiling.span("codec", "decompress", request=True):
-            y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
-            return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
-
-    @torch.no_grad()
-    def decompress_native_many(self, containers) -> list:
-        """Launches every container's decodes and transforms (classic or
-        native) before the first copy to the host; outputs equal
-        per-container decompress."""
-        with profiling.span("codec", "decompress_native_many"):
-            pending = []
-            for c in containers:
-                with profiling.span("codec", "image", request=True) as req:
-                    y_hat, sanity, x_hw = self._decode_latent(
-                        self._unpack(c))
-                    pending.append(
-                        (req, self._synthesis_u8(y_hat), sanity, x_hw))
-            return [self._finish(*p, request=req) for req, *p in pending]
-
-    @torch.no_grad()
-    def reconstruct(self, x) -> np.ndarray:
-        """Reconstruction without the range coder: quantize the latent and
-        synthesize (the location-scale model rounds y whatever its indexes,
-        so the hyper branch drops out); equals decompress(compress(x)) and
-        decompress(compress_native(x)) exactly."""
-        x = self._upload(x)
+    def _quantized_latent(self, x):
+        """y rounded: the location-scale model rounds y whatever its
+        indexes, so the hyper branch drops out."""
         y, _ = self.model.encode(x.to(torch.float32)[None])
-        y_hat = self.em.quantize(y)
-        return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
-                                         :].cpu().numpy()
+        return self.em.quantize(y)
 
 
 # The command line's hyperparameters and their defaults, the JAX package's.

@@ -842,17 +842,10 @@ class HiFiCCodec(BMSHJ2018Codec):
         means = means[:, : y_hw[0], : y_hw[1], :]
         return self.model.scale_indexes(raw_scales), means
 
-    @torch.no_grad()
-    def reconstruct(self, x) -> np.ndarray:
-        """Reconstruction without the range coder: the quantized
-        hyper-latent gives the means, y is rounded about them and
-        synthesized; equals decompress(compress(x)) and
-        decompress(compress_native(x)) exactly."""
-        x = self._upload(x)
+    def _quantized_latent(self, x):
+        """y rounded about the means the quantized hyper-latent gives."""
         y, _, _, means = self._encode(x)
-        y_hat = self.em.quantize(y, means)
-        return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
-                                         :].cpu().numpy()
+        return self.em.quantize(y, means)
 
 
 def model_from_config(config, seed=0) -> HiFiCModel:

@@ -10,40 +10,37 @@ prediction ``0.5 * tanh(lrp)`` corrects each decoded slice.  The slice
 loop is the model's one autoregression: mu and sigma stay on the device
 throughout, and only the range coder of a slice waits for them.
 
-``MS2020Codec`` writes and reads two containers: the reference's classic
-.tfci one (``compress``: one reference-format stream for z and one per
-slice, escapes in-stream; 4 + num_slices tensors; on the card each is
-one stream, coded by one warp of the in-stream-gamma kernels) and the native
-one (``compress_native``, ``compress_native_many``: row streams plus an
-escape sidecar for z and for every slice; 6 + 3 * num_slices tensors).
-The native compress codes the streams of all slices in one launch (the
-encoder has no decode dependency between slices, and a stream's bytes do
-not depend on the grouping); the native decompress decodes z, then one
-slice a launch inside the slice loop.  ``decompress`` and
-``decompress_native_many`` read both containers, ``reconstruct`` skips the
-coder.  ``MS2020Model.forward(training=True)`` and ``make_train_step``
-train the model (uniform noise on z and on each slice, Adam); the codec
-and training run the same slice loop (``MS2020Model.slice_loop``).
-Weights come from a seeded init, from the JAX package (``params_from_jax``)
-or from the reference's TF variables (``params_from_tf``).  Images are
-uint8 [H, W, 3] (numpy or torch) and latents [1, H, W, C], the JAX
-package's NHWC layout.
+``MS2020Codec`` (on ``image_codec.ImageCodec``) writes and reads two
+containers: the reference's classic .tfci one (``compress``: one
+reference-format stream for z and one per slice, escapes in-stream;
+4 + num_slices tensors; on the card each is one stream, coded by one warp
+of the in-stream-gamma kernels) and the native one (``compress_native``,
+``compress_native_many``: row streams plus an escape sidecar for z and for
+every slice; 6 + 3 * num_slices tensors).  The native compress codes the
+streams of all slices in one launch (the encoder has no decode dependency
+between slices, and a stream's bytes do not depend on the grouping); the
+native decompress decodes z, then one slice a launch inside the slice loop.
+``decompress`` and ``decompress_native_many`` read both containers,
+``reconstruct`` skips the coder.  ``MS2020Model.forward(training=True)`` and
+``make_train_step`` train the model (uniform noise on z and on each slice,
+Adam); the codec and training run the same slice loop
+(``MS2020Model.slice_loop``).  Weights come from a seeded init, from the JAX
+package (``params_from_jax``) or from the reference's TF variables
+(``params_from_tf``).  Images are uint8 [H, W, 3] (numpy or torch) and
+latents [1, H, W, C], the JAX package's NHWC layout.
 
-Spans (``util/profiling.py``, recorded only under a profiler) carry the
-bmshj2018 codec's names where they mean the same: the entries
-``codec.compress``, ``codec.compress_native``, ``codec.decompress`` and
-``codec.compress_native_many`` / ``codec.decompress_native_many`` (a
-``codec.image`` an image), ``codec.upload``, ``codec.finish``,
-``transforms.analysis`` / ``.hyper_synthesis`` / ``.synthesis``,
-``container.pack`` / ``.parse``, ``entropy.encode.z`` / ``.decode.z``, and
-``entropy.encode.y`` / ``.decode.y`` around each slice's coder call (the
-native compress's one y encode after the loop).  The slice loop has a layer
-of its own: ``slices.loop`` around the whole of ``MS2020Model.slice_loop``,
-``slices.params`` and ``slices.lrp`` a slice inside it, so that every entry
-point and training share them.  ``SLICE_CODER_CALLS`` counts the coder
-calls made inside the slice loop: 10 a classic compress or decompress and a
-native decompress at 10 slices, none a native compress or a
-``reconstruct``.
+Spans (``util/profiling.py``, recorded only under a profiler): the shell's
+(``models/image_codec.py``: the entries, ``codec.upload`` / ``.finish``,
+``transforms.synthesis``, ``container.pack`` / ``.parse``),
+``transforms.analysis`` / ``.hyper_synthesis``, ``entropy.encode.z`` /
+``.decode.z``, and ``entropy.encode.y`` / ``.decode.y`` around each slice's
+coder call (the native compress's one y encode after the loop).  The slice
+loop has a layer of its own: ``slices.loop`` around the whole of
+``MS2020Model.slice_loop``, ``slices.params`` and ``slices.lrp`` a slice
+inside it, so that every entry point and training share them.
+``SLICE_CODER_CALLS`` counts the coder calls made inside the slice loop: 10
+a classic compress or decompress and a native decompress at 10 slices, none
+a native compress or a ``reconstruct``.
 
 "Channel-wise Autoregressive Entropy Models for Learned Image Compression"
 https://arxiv.org/abs/2007.08739
@@ -56,7 +53,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from compression_tpu_torch.codec import torch_coder
 from compression_tpu_torch.distributions import deep_factorized
 from compression_tpu_torch.distributions import uniform_noise
 from compression_tpu_torch.entropy_models.continuous_batched import (
@@ -68,9 +64,8 @@ from compression_tpu_torch.layers.signal_conv import SignalConv2D
 from compression_tpu_torch.models import native_format
 from compression_tpu_torch.models.bls2017 import make_train_step
 from compression_tpu_torch.models.bmshj2018 import make_scale_fn
+from compression_tpu_torch.models.image_codec import ImageCodec
 from compression_tpu_torch.util import profiling
-from compression_tpu_torch.util.device import resolve_device
-from compression_tpu_torch.util.packed_tensors import PackedTensors
 
 __all__ = [
     "AnalysisTransform",
@@ -475,9 +470,9 @@ def params_from_tf(tf_vars) -> dict:
     return state
 
 
-class MS2020Codec:
-    """Inference codec: the sequential slice loop with the transforms and
-    the coder's inputs on the device.
+class MS2020Codec(ImageCodec):
+    """Inference codec: ``ImageCodec``'s entry points over the sequential
+    slice loop, with the transforms and the coder's inputs on the device.
 
     Args:
       model: an MS2020Model (moved to ``device``).
@@ -490,24 +485,15 @@ class MS2020Codec:
         model's hyperprior without the offset heuristic, as the reference
         builds it.
 
-    The float path runs in full float32: TF32 is switched off for cuDNN and
-    matmuls, and cuDNN is made deterministic.  compress, compress_native,
-    decompress and reconstruct run one slice loop
-    (``MS2020Model.slice_loop``) over the same transform calls, so
-    ``decompress(compress(x))`` and ``decompress(compress_native(x))``
-    equal ``reconstruct(x)`` exactly.
+    compress, compress_native, decompress and reconstruct run one slice
+    loop (``MS2020Model.slice_loop``) over the same transform calls.
     """
 
     MODEL_ID = "ms2020"
+    _y_em = property(lambda self: self.em_y)
 
     def __init__(self, model: MS2020Model, device="cuda", tables=None):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.deterministic = True
-            torch.backends.cudnn.benchmark = False
-        self.model = model.to(self.device).eval()
+        super().__init__(model, device)
         y_tables, z_tables = tables if tables is not None else (None, None)
         cdf_y, cdf_offset_y = y_tables if y_tables is not None \
             else (None, None)
@@ -530,69 +516,41 @@ class MS2020Codec:
         self.num_native_tensors = 6 + 3 * model.num_slices
         self.num_classic_tensors = 4 + model.num_slices
 
-    # -- shared transform path --------------------------------------------
-    def _upload(self, x):
-        with profiling.span("codec", "upload"):
-            if not isinstance(x, torch.Tensor):
-                x = torch.from_numpy(np.ascontiguousarray(x))
-            if x.dtype != torch.uint8 or x.ndim != 3 or x.shape[-1] != 3:
-                raise ValueError("expected a uint8 [H, W, 3] image")
-            if x.device == self.device:
-                return x
-            with profiling.wait("upload"):
-                return x.to(self.device)
-
     def _encode(self, x):
         with profiling.span("transforms", "analysis", "dispatch"):
             return self.model.encode(x.to(torch.float32)[None])
 
-    def _synthesis_u8(self, y_hat):
-        with profiling.span("transforms", "synthesis", "dispatch"):
-            x_hat = self.model.decode(y_hat)
-            return torch.clamp(torch.round(x_hat), 0, 255).to(torch.uint8)
-
     def _slices(self, y):
         return torch.split(y, self.model.slice_depth, dim=-1)
 
-    # -- compress ----------------------------------------------------------
-    @torch.no_grad()
-    def compress(self, x) -> bytes:
-        """uint8 [H, W, 3] image -> classic .tfci container bytes: z and
-        each slice in one reference-format stream, escapes in-stream (the
-        reference's format, byte-identical to the JAX package's).  The
-        slices after a slice see its quantized values, which are what its
-        decode gives, so nothing is decoded here."""
-        with profiling.span("codec", "compress", request=True):
-            x = self._upload(x)
-            y, z = self._encode(x)
-            y_hw = tuple(int(s) for s in y.shape[1:3])
-            with profiling.span("entropy", "encode.z"):
-                z_strings = self.em_z.compress_to_strings(z)
-            y_slices = self._slices(y)
-            y_strings = []
+    def _classic_fields(self, x):
+        """z and each slice in one reference-format stream.  The slices
+        after a slice see its quantized values, which are what its decode
+        gives, so nothing is decoded here."""
+        y, z = self._encode(x)
+        y_hw = tuple(int(s) for s in y.shape[1:3])
+        with profiling.span("entropy", "encode.z"):
+            z_strings = self.em_z.compress_to_strings(z)
+        y_slices = self._slices(y)
+        y_strings = []
 
-            def code(i, mu, sigma):
-                with profiling.span("entropy", "encode.y"):
-                    _count_slice_coder_call()
-                    y_strings.append(self.em_y.compress_to_strings(
-                        y_slices[i], sigma, loc=mu))
-                return self.em_y.quantize(y_slices[i], mu)
+        def code(i, mu, sigma):
+            with profiling.span("entropy", "encode.y"):
+                _count_slice_coder_call()
+                y_strings.append(self.em_y.compress_to_strings(
+                    y_slices[i], sigma, loc=mu))
+            return self.em_y.quantize(y_slices[i], mu)
 
-            self.model.slice_loop(self.em_z.quantize(z), y_hw, code)
-            with profiling.span("container", "pack"):
-                packed = PackedTensors()
-                packed.model = self.MODEL_ID
-                packed.pack([np.asarray(tuple(x.shape[:2]), np.int32),
-                             np.asarray(y_hw, np.int32),
-                             np.asarray(tuple(z.shape[1:3]), np.int32),
-                             z_strings] + y_strings)
-                return packed.string
+        self.model.slice_loop(self.em_z.quantize(z), y_hw, code)
+        return [np.asarray(tuple(x.shape[:2]), np.int32),
+                np.asarray(y_hw, np.int32),
+                np.asarray(tuple(z.shape[1:3]), np.int32),
+                z_strings] + y_strings
 
     def _encode_native(self, x):
-        """Launches the transforms, the slice loop and both sidecar encodes
-        of an uploaded image (z's streams in one launch, the streams of
-        all slices stacked in another); returns device results without
-        waiting for them."""
+        """The transforms, the slice loop and both sidecar encodes: z's
+        streams in one launch, the streams of all slices stacked in
+        another."""
         y, z = self._encode(x)
         y_hw = tuple(int(s) for s in y.shape[1:3])
         with profiling.span("entropy", "encode.z"):
@@ -617,70 +575,23 @@ class MS2020Codec:
         return (y_out, y_hw + (self.model.slice_depth,), z_out,
                 tuple(int(s) for s in z.shape[1:]), tuple(x.shape[:2]))
 
-    def _container(self, encoded, request=None) -> bytes:
-        """Copies an _encode_native result to the host and packs it, the
-        stacked slice streams split back per slice (stream s belongs to
-        slice s // streams-per-slice); ``request``: the request id its span
-        resumes (``profiling.span``)."""
+    def _native_fields(self, encoded):
+        """The stacked slice streams split back per slice (stream s belongs
+        to slice s // streams-per-slice)."""
         y_out, (hy, wy, cs), z_out, (hz, wz, cz), x_hw = encoded
-
-        def fetch(out, w, c):
-            with profiling.wait("fetch"):
-                buf, lens, esc_idx, esc_val = (t.cpu().numpy() for t in out)
-            n = (w // native_format.split_factor(w, c)) * c
-            pairs, vals = native_format.esc_to_pairs(esc_idx, esc_val, n)
-            return torch_coder.to_bytes_list(buf, lens), pairs, vals
-
-        with profiling.span("container", "pack", request=request):
-            z_strings, z_pairs, z_vals = fetch(z_out, wz, cz)
-            y_strings, y_pairs, y_vals = fetch(y_out, wy, cs)
-            s_y = hy * native_format.split_factor(wy, cs)
-            slice_fields = []
-            for i in range(self.model.num_slices):
-                lo, hi = i * s_y, (i + 1) * s_y
-                mine = (y_pairs[:, 0] >= lo) & (y_pairs[:, 0] < hi)
-                slice_fields += [y_strings[lo:hi],
-                                 (y_pairs[mine] - np.asarray([lo, 0], np.int32)
-                                  ).ravel(), y_vals[mine]]
-            packed = PackedTensors()
-            packed.model = self.MODEL_ID
-            packed.pack([np.asarray(x_hw, np.int32),
-                         np.asarray((hy, wy), np.int32),
-                         np.asarray((hz, wz), np.int32),
-                         z_strings, z_pairs.ravel(), z_vals] + slice_fields)
-            return packed.string
-
-    @torch.no_grad()
-    def compress_native(self, x) -> bytes:
-        """uint8 [H, W, 3] image -> native container bytes: for z and for
-        each slice one coder stream per latent row block plus the escape
-        sidecar.  Not byte-compatible with the reference .tfci format;
-        byte-identical to the JAX package's native container."""
-        with profiling.span("codec", "compress_native", request=True):
-            return self._container(self._encode_native(self._upload(x)))
-
-    @torch.no_grad()
-    def compress_native_many(self, images) -> list:
-        """Launches every image's transforms and encodes before the first
-        copy to the host; containers equal per-image compress_native."""
-        with profiling.span("codec", "compress_native_many"):
-            pending = []
-            for x in images:
-                with profiling.span("codec", "image", request=True) as req:
-                    pending.append(
-                        (req, self._encode_native(self._upload(x))))
-            return [self._container(e, request=req) for req, e in pending]
-
-    # -- decompress --------------------------------------------------------
-    def _unpack(self, container) -> PackedTensors:
-        with profiling.span("container", "parse"):
-            packed = PackedTensors(container)
-            if packed.model != self.MODEL_ID:
-                raise ValueError(f"container is for model {packed.model!r}")
-            if packed.num_tensors not in (self.num_classic_tensors,
-                                          self.num_native_tensors):
-                raise ValueError("not an ms2020 classic or native container")
-            return packed
+        z_strings, z_pairs, z_vals = self._fetch(z_out, wz, cz)
+        y_strings, y_pairs, y_vals = self._fetch(y_out, wy, cs)
+        s_y = hy * native_format.split_factor(wy, cs)
+        slice_fields = []
+        for i in range(self.model.num_slices):
+            lo, hi = i * s_y, (i + 1) * s_y
+            mine = (y_pairs[:, 0] >= lo) & (y_pairs[:, 0] < hi)
+            slice_fields += [y_strings[lo:hi],
+                             (y_pairs[mine] - np.asarray([lo, 0], np.int32)
+                              ).ravel(), y_vals[mine]]
+        return [np.asarray(x_hw, np.int32), np.asarray((hy, wy), np.int32),
+                np.asarray((hz, wz), np.int32),
+                z_strings, z_pairs.ravel(), z_vals] + slice_fields
 
     @staticmethod
     def _shapes(x_shape, y_shape, z_shape):
@@ -690,69 +601,44 @@ class MS2020Codec:
         return tuple((int(s[0]), int(s[1])) for s in (x_shape, y_shape,
                                                       z_shape))
 
-    def _decode_latent(self, packed):
-        """Launches the range decodes and the slice loop of a classic or
-        native container; returns (y_hat [1, h, w, latent_depth], sanity
-        [streams], (H, W)) on the device without waiting."""
+    def _decode_classic(self, packed):
+        with profiling.span("container", "parse"):
+            fields = packed.unpack(
+                [np.int32] * 3 + ["bytes"] * (1 + self.model.num_slices))
+            x_hw, y_hw, z_hw = self._shapes(*fields[:3])
+            if any(len(s) != 1 for s in fields[3:]):
+                raise ValueError("not an ms2020 classic container")
+        z_stream = self._classic_streams(fields[3])
+        with profiling.span("entropy", "decode.z"):
+            z_hat, z_san = self.em_z.decompress_device(*z_stream, z_hw)
+        sanity = [z_san]
+
+        def decode(i, mu, sigma):
+            stream = self._classic_streams(fields[4 + i])
+            with profiling.span("entropy", "decode.y"):
+                _count_slice_coder_call()
+                y_slice, san = self.em_y.decompress_device(
+                    *stream, sigma, loc=mu)
+            sanity.append(san)
+            return y_slice
+
+        y_hat = self.model.slice_loop(z_hat, y_hw, decode)
+        return y_hat, torch.cat(sanity), x_hw
+
+    def _decode_native(self, packed):
+        """Every container field is parsed and uploaded before the first
+        launch; the slices decode one launch each inside the loop."""
         ns = self.model.num_slices
-        dev = self.device
-        if packed.num_tensors == self.num_classic_tensors:
-            with profiling.span("container", "parse"):
-                fields = packed.unpack([np.int32] * 3 + ["bytes"] * (1 + ns))
-                x_hw, y_hw, z_hw = self._shapes(*fields[:3])
-                if any(len(s) != 1 for s in fields[3:]):
-                    raise ValueError("not an ms2020 classic container")
-
-            def upload(strs):
-                with profiling.span("container", "parse"):
-                    buf, lens = torch_coder.from_bytes_list(strs)
-                    with profiling.wait("upload"):
-                        return (torch.as_tensor(buf, device=dev),
-                                torch.as_tensor(lens, device=dev))
-
-            z_stream = upload(fields[3])
-            with profiling.span("entropy", "decode.z"):
-                z_hat, z_san = self.em_z.decompress_device(*z_stream, z_hw)
-            sanity = [z_san]
-
-            def decode(i, mu, sigma):
-                stream = upload(fields[4 + i])
-                with profiling.span("entropy", "decode.y"):
-                    _count_slice_coder_call()
-                    y_slice, san = self.em_y.decompress_device(
-                        *stream, sigma, loc=mu)
-                sanity.append(san)
-                return y_slice
-
-            y_hat = self.model.slice_loop(z_hat, y_hw, decode)
-            return y_hat, torch.cat(sanity), x_hw
         cz, cs = self.model.hyperprior_depth, self.model.slice_depth
-
-        def streams(strs, h, w, c, esc_pos, esc_val):
-            k = native_format.split_factor_from_streams(len(strs), h)
-            n = (w // k) * c
-            esc_idx = torch_coder.sidecar_flatten(
-                esc_pos.reshape(-1, 2), len(strs), n)
-            if esc_idx.shape[0] != esc_val.shape[0]:
-                raise ValueError("escape positions and values disagree")
-            buf, lens = torch_coder.from_bytes_list(strs)
-            with profiling.wait("upload"):
-                return (k, torch.as_tensor(buf, device=dev),
-                        torch.as_tensor(lens, device=dev),
-                        torch.as_tensor(esc_idx, device=dev),
-                        torch.as_tensor(esc_val, device=dev))
-
-        # Every container field is parsed and uploaded before the first
-        # launch; the slices decode one launch each inside the loop.
         with profiling.span("container", "parse"):
             fields = packed.unpack(
                 [np.int32] * 3 + ["bytes", np.int32, np.int32] * (1 + ns))
             x_hw, (hy, wy), (hz, wz) = self._shapes(*fields[:3])
-            k_z, *z_args = streams(fields[3], hz, wz, cz, fields[4],
-                                   fields[5])
-            slice_args = [streams(fields[6 + 3 * i], hy, wy, cs,
-                                  fields[7 + 3 * i], fields[8 + 3 * i])
-                          for i in range(ns)]
+            k_z, *z_args = self._native_streams(
+                fields[3], hz, wz, cz, fields[4], fields[5])
+            slice_args = [self._native_streams(
+                fields[6 + 3 * i], hy, wy, cs, fields[7 + 3 * i],
+                fields[8 + 3 * i]) for i in range(ns)]
         with profiling.span("entropy", "decode.z"):
             z_rows, z_san = self.em_z.decompress_sidecar_device(
                 z_args[0], z_args[1], (1, wz // k_z), z_args[2], z_args[3])
@@ -773,54 +659,14 @@ class MS2020Codec:
             native_format.from_streams(z_rows, hz, wz, cz), (hy, wy), code)
         return y_hat, torch.cat(sanity), x_hw
 
-    def _finish(self, x_hat, sanity, x_hw, request=None) -> np.ndarray:
-        with profiling.span("codec", "finish", request=request):
-            if self.em_y.decode_sanity_check:
-                with profiling.wait("sanity"):
-                    sane = bool(sanity.all())
-                if not sane:
-                    raise ValueError(
-                        "Sanity check failed (corrupt bit streams).")
-            with profiling.wait("fetch"):
-                return x_hat[0, : x_hw[0], : x_hw[1], :].cpu().numpy()
-
-    @torch.no_grad()
-    def decompress(self, container: bytes) -> np.ndarray:
-        """Classic or native container (told apart by the tensor count) ->
-        uint8 [H, W, 3]; raises ValueError on a corrupt container."""
-        with profiling.span("codec", "decompress", request=True):
-            y_hat, sanity, x_hw = self._decode_latent(self._unpack(container))
-            return self._finish(self._synthesis_u8(y_hat), sanity, x_hw)
-
-    @torch.no_grad()
-    def decompress_native_many(self, containers) -> list:
-        """Launches every container's decodes and transforms (classic or
-        native) before the first copy to the host; outputs equal
-        per-container decompress."""
-        with profiling.span("codec", "decompress_native_many"):
-            pending = []
-            for c in containers:
-                with profiling.span("codec", "image", request=True) as req:
-                    y_hat, sanity, x_hw = self._decode_latent(
-                        self._unpack(c))
-                    pending.append(
-                        (req, self._synthesis_u8(y_hat), sanity, x_hw))
-            return [self._finish(*p, request=req) for req, *p in pending]
-
-    @torch.no_grad()
-    def reconstruct(self, x) -> np.ndarray:
-        """Reconstruction without the range coder: the quantized
-        hyper-latent drives the slice loop with ``em_y.quantize`` in place
-        of the coder; equals decompress(compress(x)) and
-        decompress(compress_native(x)) exactly."""
-        x = self._upload(x)
+    def _quantized_latent(self, x):
+        """The quantized hyper-latent drives the slice loop with
+        ``em_y.quantize`` in place of the coder."""
         y, z = self._encode(x)
         y_slices = self._slices(y)
-        y_hat = self.model.slice_loop(
+        return self.model.slice_loop(
             self.em_z.quantize(z), tuple(int(s) for s in y.shape[1:3]),
             lambda i, mu, sigma: self.em_y.quantize(y_slices[i], mu))
-        return self._synthesis_u8(y_hat)[0, : x.shape[0], : x.shape[1],
-                                         :].cpu().numpy()
 
 
 # The command line's hyperparameters and their defaults, the JAX package's.

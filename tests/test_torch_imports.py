@@ -45,9 +45,9 @@ MODULES = [
     "layers/gdn.py", "layers/initializers.py", "layers/parameters.py",
     "layers/signal_conv.py", "layers/soft_round.py",
     "models/bls2017.py", "models/bmshj2018.py", "models/cli.py",
-    "models/hific.py", "models/lpips.py", "models/lvac.py",
-    "models/ms2020.py", "models/native_format.py", "models/tfci.py",
-    "models/toy_sources.py",
+    "models/hific.py", "models/image_codec.py", "models/lpips.py",
+    "models/lvac.py", "models/ms2020.py", "models/native_format.py",
+    "models/tfci.py", "models/toy_sources.py",
     "ops/math_ops.py", "ops/padding_ops.py", "ops/quantization.py",
     "ops/round_ops.py", "ops/run_length.py",
     "parallel/__init__.py", "parallel/multihost.py", "parallel/pipeline.py",

@@ -5,8 +5,10 @@ path (names, kinds, parent links, request ids, waits), each span encloses
 the profiler's event of the same name, and the bounded list counts what it
 drops.
 
-The codecs are bmshj2018 at 16 filters and HiFiC at test_torch_hific.py's
-tiny configuration, on seeded weights and their own CPU tables.  The
+The codecs are bls2017 (no side model: its trees lack z's and the hyper
+synthesis's nodes) and bmshj2018 at 16 filters and HiFiC at
+test_torch_hific.py's tiny configuration, on seeded weights and their own
+CPU tables.  The
 coder's ``coder.launch.*`` spans sit in the CUDA launch path, which the CPU
 does not reach (tests/test_torch_cuda.py holds them on the card).
 """
@@ -16,6 +18,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from compression_tpu_torch.models import bls2017
 from compression_tpu_torch.models import bmshj2018
 from compression_tpu_torch.models import hific
 from compression_tpu_torch.util import profiling
@@ -29,8 +32,11 @@ ENTRIES = ("compress", "decompress_classic", "compress_native",
 KINDS = {"transforms": "dispatch", "train": "dispatch", "wait": "wait"}
 
 
-@pytest.fixture(scope="module", params=["bmshj2018", "hific"])
+@pytest.fixture(scope="module", params=["bls2017", "bmshj2018", "hific"])
 def codec(request):
+    if request.param == "bls2017":
+        model = bls2017.BLS2017Model(num_filters=16)
+        return bls2017.BLS2017Codec(model, device="cpu")
     if request.param == "bmshj2018":
         model = bmshj2018.BMSHJ2018Model(num_filters=16)
         return bmshj2018.BMSHJ2018Codec(model, device="cpu")
@@ -90,23 +96,29 @@ def _waits(*names):
 
 
 def _expected(codec, entry):
-    """The span tree ``entry`` reaches on the CPU."""
+    """The span tree ``entry`` reaches on the CPU; a codec without a side
+    model (no ``side_em``) has no z or hyper-synthesis nodes."""
+    side = hasattr(codec, "side_em")
+
+    def z(*nodes):
+        return list(nodes) if side else []
+
     y_esc = codec.em.device_table.any_overflow
-    z_esc = codec.side_em.device_table.any_overflow
+    z_esc = side and codec.side_em.device_table.any_overflow
     finish = _node("codec.finish", *_waits("sanity", "fetch"))
-    front = [_node("codec.upload"), _node("transforms.analysis"),
-             _node("transforms.hyper_synthesis")]
+    hyper = z(_node("transforms.hyper_synthesis"))
+    front = [_node("codec.upload"), _node("transforms.analysis"), *hyper]
     if entry == "compress":
         def encode(latent, esc):
             return _node(f"entropy.encode.{latent}",
                          *_waits(*["route"] * esc),
                          _node("container.pack", *_waits("fetch")))
-        return [_node("codec.compress", *front, encode("z", z_esc),
+        return [_node("codec.compress", *front, *z(encode("z", z_esc)),
                       encode("y", y_esc), _node("container.pack"))]
     native_encode = [
         _node("entropy.encode.y", *_waits(*["escapes"] * y_esc)),
-        _node("entropy.encode.z", *_waits(*["escapes"] * z_esc))]
-    pack = _node("container.pack", *_waits("fetch", "fetch"))
+        *z(_node("entropy.encode.z", *_waits(*["escapes"] * z_esc)))]
+    pack = _node("container.pack", *_waits("fetch", *z("fetch")))
     if entry == "compress_native":
         return [_node("codec.compress_native", *front, *native_encode, pack)]
     if entry == "compress_native_many":
@@ -116,14 +128,13 @@ def _expected(codec, entry):
     if entry == "decompress_classic":
         upload = _node("container.parse", *_waits("upload"))
         return [_node("codec.decompress", _node("container.parse"),
-                      _node("container.parse"), upload,
-                      _node("entropy.decode.z"),
-                      _node("transforms.hyper_synthesis"), upload,
+                      _node("container.parse"),
+                      *z(upload, _node("entropy.decode.z"), *hyper), upload,
                       _node("entropy.decode.y"), _node("transforms.synthesis"),
                       finish)]
     decode = [_node("container.parse"),
-              _node("container.parse", *_waits("upload", "upload")),
-              _node("entropy.decode.z"), _node("transforms.hyper_synthesis"),
+              _node("container.parse", *_waits("upload", *z("upload"))),
+              *z(_node("entropy.decode.z"), *hyper),
               _node("entropy.decode.y"), _node("transforms.synthesis")]
     if entry == "decompress_native":
         return [_node("codec.decompress", *decode, finish)]
