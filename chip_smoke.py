@@ -84,10 +84,13 @@ Phases, one JSON line each (any failure exits non-zero):
      same images through both containers, the *_many calls and
      reconstruct: one K1 launch for z and one for the ten slices stacked
      per native compress, one K2 launch for z and one a slice per native
-     decompress, the classic container's eleven one-stream calls on the
-     warp kernels of K1 / K6' and K3'; then K1 at the stacked slices' launch (640 x 512 at
-     512x512) and on z, and K2 at one slice's (64 x 512, on the
-     container's own bytes), against their plain versions and timed
+     decompress, the classic container's two encodes (z, then the ten
+     slices stacked) on the warp kernels of K1 / K6' and its eleven
+     one-stream K3' calls; then K1 at the native stacked slices' launch
+     (640 x 512 at 512x512) and on z, K2 at one slice's (64 x 512, on the
+     container's own bytes), and K6' / K3' at the classic stacked slices'
+     launch (10 x 32768 at 512x512; K6''s bytes the classic container's
+     slice fields), against their plain versions and timed
      beside the byte bound and the chain's floor; both ms2020 goldens on
      the card (golden_ms2020_full.npz also against the CPU: native
      container and reconstruction of its 128x128 image), and e2e ms of
@@ -1548,23 +1551,15 @@ def classic_phase(codecs, images, sweep, fails):
 
 
 def ms2020_inputs(codec, img):
-    """What ms2020's native compress hands the coder for one image: the
-    stacked slices' (symbols, indexes) [10 * h * k, n] and z's, from the
-    codec's own slice loop."""
+    """What ms2020's compresses hand the coder for one image, from the
+    codec's own slice loop: the native compress's stacked slices' (symbols,
+    indexes) [10 * h * k, n] and z's, then the classic compress's one
+    encode of the stacked slices [10, h * w * 32]."""
     import torch
     from compression_tpu_torch.models import native_format
     with torch.no_grad():
         y, z = codec._encode(codec._upload(img))
-        y_slices = codec._slices(y)
-        mus, sigmas = [], []
-
-        def code(i, mu, sigma):
-            mus.append(mu)
-            sigmas.append(sigma)
-            return codec.em_y.quantize(y_slices[i], mu)
-
-        codec.model.slice_loop(codec.em_z.quantize(z), tuple(y.shape[1:3]),
-                               code)
+        y_slices, mus, sigmas = codec._compress_slices(y, z)
 
         def stacked(parts):
             return torch.cat([native_format.to_streams(t) for t in parts])
@@ -1573,8 +1568,11 @@ def ms2020_inputs(codec, img):
                                           stacked(sigmas))
         zsym, _, zrow = codec.em_z._symbols_from_bottleneck(
             native_format.to_streams(z))
+        csym, cidx, _ = codec.em_y._symbols(
+            torch.cat(y_slices) - torch.cat(mus), torch.cat(sigmas))
     zidx = zrow.to(torch.int32)[None].expand_as(zsym).contiguous()
-    return sym.contiguous(), idx.contiguous(), zsym, zidx
+    return (sym.contiguous(), idx.contiguous(), zsym, zidx,
+            csym.contiguous(), cidx.contiguous())
 
 
 def golden_ms2020(fixture, weights, device, fails, cpu_check=False):
@@ -1657,8 +1655,10 @@ def ms2020_phase(device, images, batch, smi, fails):
     """Phase 4f: ms2020 at its published width (seeded init, its own
     tables, nothing cut) through both containers, the *_many calls and
     reconstruct on the card, with the launch counts reset just before and
-    read just after; then K1 at the stacked slices' launch and K2 at one
-    slice's against their plain versions on what the codec gives them,
+    read just after; then K1 at the native stacked slices' launch, K2 at
+    one slice's and K6' / K3' at the classic stacked slices' launch against
+    their plain versions on what the codec gives them (K1's and K6''s
+    bytes the containers'),
     their times beside the byte bound and the chain's floor, the goldens,
     and e2e ms.  Returns the main path's launch counts."""
     import torch
@@ -1681,9 +1681,10 @@ def ms2020_phase(device, images, batch, smi, fails):
     ns = m.num_slices
 
     # The main path.  Predicted launches: native compress 2 x K1 (z, then
-    # the 10 slices stacked), native decompress 1 + 10 x K2; the classic
-    # container's 11 one-stream calls each launch K1 (no escape) or K6' on
-    # compress and K3' on decompress, all on the warp kernels.
+    # the 10 slices stacked), native decompress 1 + 10 x K2; classic
+    # compress 2 encodes (z, then the 10 slices stacked after the slice
+    # loop), each K1 (no escape) or K6', and classic decompress 11
+    # one-stream K3' calls, all on the warp kernels.
     reset_counts()
     calls = {"native_compress": 0, "native_decompress": 0,
              "classic_compress": 0, "classic_decompress": 0}
@@ -1726,7 +1727,7 @@ def ms2020_phase(device, images, batch, smi, fails):
         calls["classic_decompress"] += 2
     launches, _ = read_counts(())
     expect = {"encode": 2 * calls["native_compress"]
-              + (1 + ns) * calls["classic_compress"],
+              + 2 * calls["classic_compress"],
               "decode_indexed": (1 + ns) * calls["native_decompress"],
               "decode_gamma": (1 + ns) * calls["classic_decompress"]}
     got = {"encode": launches["encode_indexed"] + launches["encode_gamma"],
@@ -1746,13 +1747,29 @@ def ms2020_phase(device, images, batch, smi, fails):
         fails.append("ms2020_path")
 
     # K1 at the stacked slices' launch and on z, K2 at one slice's launch,
-    # against their plain versions on what the codec gives them; K1's
-    # bytes are the container's.
+    # K6' and K3' at the classic compress's stacked launch, against their
+    # plain versions on what the codec gives them; K1's and K6''s bytes are
+    # the containers'.
     clock = sm_clock_mhz()
     ycdf, ymeta = ytab.indexed_arrays()
     kernel_ms = {}
     for name, img in images.items():
-        sym, idx, zsym, zidx = ms2020_inputs(codec, img)
+        sym, idx, zsym, zidx, csym, cidx = ms2020_inputs(codec, img)
+        c_buf_k, c_len_k, c_intervals, k6_plain, _ = compare_gamma(
+            f"ms2020/y_classic_stacked/{name}", ytab, csym, cidx, fails,
+            expect_warp=True)
+        classic_fields = PackedTensors(codec.compress(img)).unpack(
+            [np.int32] * 3 + ["bytes"] * (1 + ns))
+        classic_ok = [f[0] for f in classic_fields[4:]] == (
+            torch_coder.to_bytes_list(c_buf_k.cpu().numpy(),
+                                      c_len_k.cpu().numpy()))
+        log("kernels", case=f"ms2020/y_classic_stacked/{name}",
+            streams=int(csym.shape[0]), symbols=int(csym.shape[1]),
+            k6_bytes_equal_container=classic_ok)
+        if not classic_ok:
+            fails.append(f"ms2020/y_classic_stacked/{name}/container")
+        c_out_size = int(c_buf_k.shape[1])
+        k6 = lambda: cc.encode_gamma(csym, cidx, ycdf, ymeta, c_out_size)
         out_size = torch_coder.stream_out_size(sym.shape[1])
         buf, lens = compare_kernels(f"ms2020/y_slices/{name}", ytab, sym, idx,
                                     out_size, fails, expect_warp=True)
@@ -1802,7 +1819,15 @@ def ms2020_phase(device, images, batch, smi, fails):
                 "ms_graph": [graph_ms(k2) for _ in range(2)],
                 "plain_ms": k2_plain,
                 "bound_ms": decode_bound(c_lens, n, ycdf, ymeta)[0],
-                "chain_floor_ms": warp_floor_ms(n, ytab.max_len, clock)}}
+                "chain_floor_ms": warp_floor_ms(n, ytab.max_len, clock)},
+            f"encode_gamma@{csym.shape[0]}x{csym.shape[1]}": {
+                "ms_events": [cuda_ms(k6, 20) for _ in range(2)],
+                "ms_graph": [graph_ms(k6) for _ in range(2)],
+                "plain_ms": k6_plain,
+                "bound_ms": encode_bound(*csym.shape, ycdf, ymeta,
+                                         c_out_size, c_intervals)[0],
+                "chain_floor_ms": scan_floor_ms(int(cc.interval_counts(
+                    csym, cidx, ymeta)[0].sum(1).max()), clock)}}
     golden_ms2020("golden_ms2020.npz", lambda gold: gold, device, fails)
     golden_ms2020("golden_ms2020_full.npz", synthesized_weights, device,
                   fails, cpu_check=True)
@@ -2087,7 +2112,8 @@ def tfci_round_trip(root, name, img):
     """``tfci.main compress`` then ``decompress`` of ``img`` (as .npy)
     through the registry ``root`` on the card.  The container must equal
     the loaded codec's compress, the decoded image its reconstruct, with
-    one encode (K1 or K6') and one K3' a latent, all warp.  Returns (the
+    one K3' a latent and one encode (K1 or K6') a latent (ms2020's ten
+    slices stacked in one), all warp.  Returns (the
     log's fields, the launch counts of the two subcommands)."""
     import torch
     from compression_tpu_torch.models import tfci
@@ -2108,11 +2134,13 @@ def tfci_round_trip(root, name, img):
     with open(out, "rb") as f:
         container = f.read()
     latents = {"bls2017": 1, "bmshj2018": 2, "hific": 2, "ms2020": 11}[name]
+    coder_encodes = {"bls2017": 1, "bmshj2018": 2, "hific": 2,
+                     "ms2020": 2}[name]
     encodes = launches["encode_indexed"] + launches["encode_gamma"]
     ok = {"container_equals_compress": container == codec.compress(img),
           "decoded_equals_reconstruct": bool(np.array_equal(
               np.load(dec), codec.reconstruct(img))),
-          "launches_ok": encodes == latents
+          "launches_ok": encodes == coder_encodes
           and launches["decode_gamma"] == latents,
           "all_warp": all(launches[f"{k}/warp"] == launches[k] for k in (
               "encode_indexed", "encode_gamma", "decode_gamma"))}

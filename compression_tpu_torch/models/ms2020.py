@@ -8,7 +8,7 @@ and scale branches) and the slices decoded before it (at most
 ``max_support_slices`` of them, the first ones), and a latent-residual
 prediction ``0.5 * tanh(lrp)`` corrects each decoded slice.  The slice
 loop is the model's one autoregression: mu and sigma stay on the device
-throughout, and only the range coder of a slice waits for them.
+throughout, and only a decode's range coder call of a slice waits for them.
 
 ``MS2020Codec`` (on ``image_codec.ImageCodec``) writes and reads two
 containers: the reference's classic .tfci one (``compress``: one
@@ -16,10 +16,11 @@ reference-format stream for z and one per slice, escapes in-stream;
 4 + num_slices tensors; on the card each is one stream, coded by one warp
 of the in-stream-gamma kernels) and the native one (``compress_native``,
 ``compress_native_many``: row streams plus an escape sidecar for z and for
-every slice; 6 + 3 * num_slices tensors).  The native compress codes the
-streams of all slices in one launch (the encoder has no decode dependency
-between slices, and a stream's bytes do not depend on the grouping); the
-native decompress decodes z, then one slice a launch inside the slice loop.
+every slice; 6 + 3 * num_slices tensors).  Both compresses code the streams
+of all slices in one launch after the slice loop (the encoder has no decode
+dependency between slices, and a stream's bytes do not depend on the
+grouping); both decompresses decode z, then one slice a launch inside the
+slice loop.
 ``decompress`` and ``decompress_native_many`` read both containers,
 ``reconstruct`` skips the coder.  ``MS2020Model.forward(training=True)`` and
 ``make_train_step`` train the model (uniform noise on z and on each slice,
@@ -33,14 +34,14 @@ Spans (``util/profiling.py``, recorded only under a profiler): the shell's
 (``models/image_codec.py``: the entries, ``codec.upload`` / ``.finish``,
 ``transforms.synthesis``, ``container.pack`` / ``.parse``),
 ``transforms.analysis`` / ``.hyper_synthesis``, ``entropy.encode.z`` /
-``.decode.z``, and ``entropy.encode.y`` / ``.decode.y`` around each slice's
-coder call (the native compress's one y encode after the loop).  The slice
+``.decode.z``, ``entropy.encode.y`` around a compress's one y encode after
+the loop, and ``entropy.decode.y`` around each slice's decode.  The slice
 loop has a layer of its own: ``slices.loop`` around the whole of
 ``MS2020Model.slice_loop``, ``slices.params`` and ``slices.lrp`` a slice
 inside it, so that every entry point and training share them.
 ``SLICE_CODER_CALLS`` counts the coder calls made inside the slice loop: 10
-a classic compress or decompress and a native decompress at 10 slices, none
-a native compress or a ``reconstruct``.
+a classic or native decompress at 10 slices, none a compress or a
+``reconstruct``.
 
 "Channel-wise Autoregressive Entropy Models for Learned Image Compression"
 https://arxiv.org/abs/2007.08739
@@ -84,8 +85,8 @@ __all__ = [
 ]
 
 #: Range coder calls made inside the slice loop (one a slice of a classic
-#: compress, of a classic decompress and of a native decompress) since the
-#: count was last reset.
+#: or native decompress; a compress codes after the loop) since the count
+#: was last reset.
 SLICE_CODER_CALLS = 0
 
 
@@ -523,29 +524,41 @@ class MS2020Codec(ImageCodec):
     def _slices(self, y):
         return torch.split(y, self.model.slice_depth, dim=-1)
 
-    def _classic_fields(self, x):
-        """z and each slice in one reference-format stream.  The slices
-        after a slice see its quantized values, which are what its decode
-        gives, so nothing is decoded here."""
-        y, z = self._encode(x)
-        y_hw = tuple(int(s) for s in y.shape[1:3])
-        with profiling.span("entropy", "encode.z"):
-            z_strings = self.em_z.compress_to_strings(z)
+    def _compress_slices(self, y, z):
+        """The slice loop of a compress, with no coder call inside it: each
+        slice's (mu, sigma) is kept and its quantized values, which are what
+        its decode gives, feed the slices after it.  The encoder has no
+        decode dependency between slices, and a stream's bytes do not depend
+        on how streams are grouped in a launch, so the caller codes all
+        slices in one call after the loop.  Returns (y's slices, their mus,
+        their sigmas)."""
         y_slices = self._slices(y)
-        y_strings = []
+        mus, sigmas = [], []
 
         def code(i, mu, sigma):
-            with profiling.span("entropy", "encode.y"):
-                _count_slice_coder_call()
-                y_strings.append(self.em_y.compress_to_strings(
-                    y_slices[i], sigma, loc=mu))
+            mus.append(mu)
+            sigmas.append(sigma)
             return self.em_y.quantize(y_slices[i], mu)
 
-        self.model.slice_loop(self.em_z.quantize(z), y_hw, code)
+        self.model.slice_loop(self.em_z.quantize(z),
+                              tuple(int(s) for s in y.shape[1:3]), code)
+        return y_slices, mus, sigmas
+
+    def _classic_fields(self, x):
+        """z in one reference-format stream, then the slices stacked into one
+        encode of num_slices streams (one launch, one route and one fetch),
+        each slice's string its own field."""
+        y, z = self._encode(x)
+        with profiling.span("entropy", "encode.z"):
+            z_strings = self.em_z.compress_to_strings(z)
+        y_slices, mus, sigmas = self._compress_slices(y, z)
+        with profiling.span("entropy", "encode.y"):
+            y_strings = self.em_y.compress_to_strings(
+                torch.cat(y_slices), torch.cat(sigmas), loc=torch.cat(mus))
         return [np.asarray(tuple(x.shape[:2]), np.int32),
-                np.asarray(y_hw, np.int32),
+                np.asarray(tuple(y.shape[1:3]), np.int32),
                 np.asarray(tuple(z.shape[1:3]), np.int32),
-                z_strings] + y_strings
+                z_strings] + [[s] for s in y_strings]
 
     def _encode_native(self, x):
         """The transforms, the slice loop and both sidecar encodes: z's
@@ -556,15 +569,7 @@ class MS2020Codec(ImageCodec):
         with profiling.span("entropy", "encode.z"):
             z_out = self.em_z.compress_sidecar_device(
                 native_format.to_streams(z))
-        y_slices = self._slices(y)
-        mus, sigmas = [], []
-
-        def code(i, mu, sigma):
-            mus.append(mu)
-            sigmas.append(sigma)
-            return self.em_y.quantize(y_slices[i], mu)
-
-        self.model.slice_loop(self.em_z.quantize(z), y_hw, code)
+        y_slices, mus, sigmas = self._compress_slices(y, z)
 
         def stacked(parts):
             return torch.cat([native_format.to_streams(t) for t in parts])

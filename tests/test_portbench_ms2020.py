@@ -3,8 +3,9 @@ on the CPU at a tiny size with the configuration's seeded weights: the
 plain reference (portbench/reference/ms2020.py) against MS2020Model's
 sub-graphs, the slice-by-slice judge (reference/check_slices.py) on the
 port's classic containers, on planted faults and on the TF32 control, the
-model's spans and ``SLICE_CODER_CALLS``, the new readers on hand-made
-summaries, and a tiny traced run of the cell."""
+classic container against one coded a slice at a time inside the slice
+loop, the model's spans and ``SLICE_CODER_CALLS``, the new readers on
+hand-made summaries, and a tiny traced run of the cell."""
 
 from unittest import mock
 
@@ -14,6 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from compression_tpu_torch.codec import tables as port_tables
+from compression_tpu_torch.codec import torch_coder
 from compression_tpu_torch.models import ms2020
 from compression_tpu_torch.util import profiling
 from portbench import faults
@@ -262,8 +264,78 @@ def test_the_control_fails_a_limit(cell, setup):
     assert any(numbers[k] > cell.limits[k] for k in numbers), numbers
 
 
+# -- the classic compress's stacked y encode ---------------------------------
+def _per_slice_container(codec, x):
+    """The classic container coded a slice at a time: one
+    ``em_y.compress_to_strings`` a slice, inside the slice loop, as the
+    codec did before it stacked the slices into one encode after the loop.
+    Returns (container, the route each slice's encode took)."""
+    with torch.no_grad():
+        y, z = codec._encode(codec._upload(x))
+        z_strings = codec.em_z.compress_to_strings(z)
+        y_slices = codec._slices(y)
+        y_strings, routes = [], []
+
+        def code(i, mu, sigma):
+            y_strings.append(codec.em_y.compress_to_strings(
+                y_slices[i], sigma, loc=mu))
+            routes.append(torch_coder.DISPATCH_LOG["encode"])
+            return codec.em_y.quantize(y_slices[i], mu)
+
+        y_hw = tuple(int(s) for s in y.shape[1:3])
+        codec.model.slice_loop(codec.em_z.quantize(z), y_hw, code)
+    container = codec._pack(
+        [np.asarray(x.shape[:2], np.int32), np.asarray(y_hw, np.int32),
+         np.asarray(tuple(z.shape[1:3]), np.int32), z_strings] + y_strings)
+    return container, routes
+
+
+def _escape_in_last_slice(codec):
+    """Patches the codec's analysis so that one element of the last slice
+    lies far past the y table's rows: that slice alone escapes (no slice's
+    mu or sigma depends on the last one)."""
+    encode = ms2020.MS2020Codec._encode
+    depth = codec.model.slice_depth
+    i = codec.model.num_slices - 1
+
+    def planted(self, x):
+        y, z = encode(self, x)
+        y = y.clone()
+        y[0, 1, 2, i * depth + 3] += 4000.0
+        return y, z
+
+    return mock.patch.object(ms2020.MS2020Codec, "_encode", planted)
+
+
+@pytest.mark.parametrize("case", ["image0", "image1", "escape_in_last_slice"])
+def test_classic_container_equals_the_per_slice_one(setup, case):
+    """The stacked encode's container is byte for byte the one coded a
+    slice at a time.  With an escape in one slice only, that slice alone
+    takes the in-stream-gamma route (K6' on the card) and the others the
+    indexed one (K1), while the stacked encode takes gamma for all: an
+    escape-free stream's bytes are the same on both routes."""
+    _, codec, images, containers, _ = setup
+    k = 1 if case == "image1" else 0
+    x = images[k]
+    if case != "escape_in_last_slice":
+        expected, routes = _per_slice_container(codec, x)
+        assert codec.compress(x) == containers[k] == expected
+        assert routes == ["plain-indexed"] * codec.model.num_slices
+        assert torch_coder.DISPATCH_LOG["encode"] == "plain-indexed"
+        return
+    with _escape_in_last_slice(codec):
+        expected, routes = _per_slice_container(codec, x)
+        container = codec.compress(x)
+        assert torch_coder.DISPATCH_LOG["encode"] == "plain-gamma"
+        assert np.array_equal(codec.decompress(container),
+                              codec.reconstruct(x))
+    assert routes == ["plain-indexed"] * (codec.model.num_slices - 1) + [
+        "plain-gamma"]
+    assert container == expected
+
+
 # -- the model's spans and its slice coder counter --------------------------
-ENTRIES = {"compress": 5, "decompress": 5, "compress_native": 0,
+ENTRIES = {"compress": 0, "decompress": 5, "compress_native": 0,
            "decompress_native": 5, "compress_native_many": 0,
            "decompress_native_many": 10, "reconstruct": 0}
 
@@ -329,12 +401,42 @@ def test_spans_and_slice_coder_calls(setup, entry):
         assert all(by_id[r.parent].label == "ctpu.slices.loop"
                    for r in coder_y)
     else:
+        # A compress codes y in one call after the loop.
         assert len(coder_y) == images_run
+        for r in coder_y:
+            while r.parent is not None:
+                r = by_id[r.parent]
+                assert r.label != "ctpu.slices.loop"
+    if entry == "compress":
+        # z's encode and the stacked slices' encode each wait once for the
+        # route and once for the fetch, whatever the number of slices.
+        waits = [r.name for r in records if r.kind == "wait"]
+        assert waits.count("route") == waits.count("fetch") == 2
     if entry.endswith("_many"):
         assert labels.count("ctpu.codec.image") == 2
     else:
         assert {r.request for r in records} == {root.request} != {None}
     assert any(r.kind == "wait" for r in records)
+
+
+@pytest.mark.parametrize("num_slices", [2, 4])
+def test_classic_compress_waits_do_not_grow_with_the_slices(cell, setup,
+                                                            num_slices):
+    """At 2 and 4 slices as at the cell's 5: two route and two fetch waits a
+    classic compress (z's encode and the stacked slices'), no coder call
+    inside the loop, and the container equals the per-slice one."""
+    config = dict(cell.config, num_slices=num_slices)
+    codec = ms2020_config.codec(
+        config, weights_lib.make(ms2020_config.spec(config), 31, CPU), CPU)
+    x = setup[2][0]
+    before = ms2020.SLICE_CODER_CALLS
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        container = codec.compress(x)
+    assert ms2020.SLICE_CODER_CALLS == before
+    waits = [r.name for r in profiling.spans() if r.kind == "wait"]
+    assert waits.count("route") == waits.count("fetch") == 2
+    assert container == _per_slice_container(codec, x)[0]
 
 
 # -- the new readers on hand-made records and summaries ---------------------
